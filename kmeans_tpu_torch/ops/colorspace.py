@@ -1,0 +1,138 @@
+"""sRGB <-> CIELAB conversions (D65, Lindbloom constants) in PyTorch.
+
+Port of `kmeans_tpu/ops/colorspace.py`, with the same formulas in the same
+float32 operation order:
+
+- sRGB -> Lab goes through the carried 256-entry gamma table
+  (`ops/gamma_lut.py`) instead of a `pow` chain: every input is a u8 code,
+  and torch's float32 `pow` does not reproduce XLA's bits. The rest is
+  `kmeans_tpu/ops/kernels.py::_lab_from_linear_planes`: a left-to-right
+  matrix row, a divide by the white point, `pow(t, 1/3)` (not cbrt) with
+  the 7.787 linear toe.
+- Lab -> sRGB is the exact inverse, with the 0.0031308 gamma threshold.
+
+Divisions by constants use `ops._math.div` (a true division on CUDA too).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kmeans_tpu_torch.ops._math import div
+from kmeans_tpu_torch.ops.gamma_lut import gamma_lut
+
+# Lindbloom sRGB D65 matrices (kmeans_tpu/ops/colorspace.py:32-43).
+RGB_TO_XYZ = (
+    (0.4124564, 0.3575761, 0.1804375),
+    (0.2126729, 0.7151522, 0.0721750),
+    (0.0193339, 0.1191920, 0.9503041),
+)
+
+XYZ_TO_RGB = (
+    (3.2404542, -1.5371385, -0.4985314),
+    (-0.9692660, 1.8760108, 0.0415560),
+    (0.0556434, -0.2040259, 1.0572252),
+)
+
+# D65 reference white, x100 scale (kmeans_tpu/ops/colorspace.py:51).
+WHITE_POINT = (95.0489, 100.0, 108.8840)
+
+_LAB_EPS = 0.008856
+_LAB_SLOPE = 7.787
+_LAB_OFFSET = 16.0 / 116.0
+
+
+def _mat3(m, v0, v1, v2):
+    """A 3x3 matrix applied to three planes, each row summed left to right."""
+    return tuple(m[i][0] * v0 + m[i][1] * v1 + m[i][2] * v2 for i in range(3))
+
+
+def _lab_f(t: torch.Tensor) -> torch.Tensor:
+    """CIELAB cube root with its linear toe; `pow(t, 1/3)` like the
+    reference (kmeans_tpu/ops/colorspace.py:74-83)."""
+    return torch.where(
+        t > _LAB_EPS,
+        torch.clamp(t, min=0.0) ** (1.0 / 3.0),
+        _LAB_SLOPE * t + _LAB_OFFSET,
+    )
+
+
+def lab_from_linear(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
+    """Matrix and cube-root half of sRGB -> Lab over linear planes already
+    scaled by 100 (kmeans_tpu/ops/kernels.py::_lab_from_linear_planes).
+    Returns the `(L, a, b)` planes."""
+    x, y, z = _mat3(RGB_TO_XYZ, r, g, b)
+    fx = _lab_f(div(x, WHITE_POINT[0]))
+    fy = _lab_f(div(y, WHITE_POINT[1]))
+    fz = _lab_f(div(z, WHITE_POINT[2]))
+    return 116.0 * fy - 16.0, 500.0 * (fx - fy), 200.0 * (fy - fz)
+
+
+def srgb8_to_lab(rgb8: torch.Tensor) -> torch.Tensor:
+    """uint8 sRGB `[..., 3]` -> float32 Lab `[..., 3]`, gamma by table."""
+    lut = gamma_lut(rgb8.device)
+    idx = rgb8.to(torch.int64)
+    lin = lut[idx]
+    return torch.stack(lab_from_linear(lin[..., 0], lin[..., 1], lin[..., 2]), -1)
+
+
+def _lab_f_inv(t: torch.Tensor) -> torch.Tensor:
+    t3 = t * t * t
+    return torch.where(t3 > _LAB_EPS, t3, div(t - _LAB_OFFSET, _LAB_SLOPE))
+
+
+def _linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    safe = torch.clamp(c, min=0.0)
+    return torch.where(
+        c > 0.0031308, 1.055 * safe ** (1.0 / 2.4) - 0.055, 12.92 * c
+    )
+
+
+def lab_to_srgb(lab: torch.Tensor) -> torch.Tensor:
+    """CIELAB `[..., 3]` -> sRGB in [0, 1] (clipped); the inverse of
+    `srgb8_to_lab` (kmeans_tpu/ops/colorspace.py:110-125)."""
+    lab = lab.to(torch.float32)
+    l, a, b = lab[..., 0], lab[..., 1], lab[..., 2]
+    fy = div(l + 16.0, 116.0)
+    fx = div(a, 500.0) + fy
+    fz = fy - div(b, 200.0)
+    x = _lab_f_inv(fx) * (WHITE_POINT[0] / 100.0)
+    y = _lab_f_inv(fy) * (WHITE_POINT[1] / 100.0)
+    z = _lab_f_inv(fz) * (WHITE_POINT[2] / 100.0)
+    lin = torch.stack(_mat3(XYZ_TO_RGB, x, y, z), -1)
+    return torch.clamp(_linear_to_srgb(lin), 0.0, 1.0)
+
+
+def lab_to_srgb8(lab: torch.Tensor) -> torch.Tensor:
+    """Lab -> uint8 sRGB, rounding half to even like `jnp.round`."""
+    return torch.round(lab_to_srgb(lab) * 255.0).to(torch.uint8)
+
+
+def srgb8_to_lab_np(rgb8: np.ndarray) -> np.ndarray:
+    """uint8 sRGB -> Lab in numpy float32, for tiny host-side work (palette
+    sorting, user colours). Same formulas as
+    `kmeans_tpu/ops/colorspace.py::srgb8_to_lab_np`, re-implemented here."""
+    c = np.asarray(rgb8, np.float32) / np.float32(255.0)
+    lin = np.where(
+        c > 0.04045,
+        ((c + np.float32(0.055)) / np.float32(1.055)) ** np.float32(2.4),
+        c / np.float32(12.92),
+    ) * np.float32(100.0)
+    r, g, b = lin[..., 0], lin[..., 1], lin[..., 2]
+    planes = []
+    for row, wp in zip(RGB_TO_XYZ, WHITE_POINT):
+        t = (
+            np.float32(row[0]) * r + np.float32(row[1]) * g + np.float32(row[2]) * b
+        ) / np.float32(wp)
+        planes.append(
+            np.where(
+                t > _LAB_EPS,
+                np.maximum(t, 0) ** np.float32(1.0 / 3.0),
+                np.float32(_LAB_SLOPE) * t + np.float32(_LAB_OFFSET),
+            )
+        )
+    fx, fy, fz = planes
+    return np.stack(
+        [116.0 * fy - 16.0, 500.0 * (fx - fy), 200.0 * (fy - fz)], axis=-1
+    ).astype(np.float32)

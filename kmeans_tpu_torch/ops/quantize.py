@@ -1,0 +1,143 @@
+"""Replace and ordered-dither output modes, in plain PyTorch.
+
+Port of `kmeans_tpu/ops/quantize.py` for `replace` and `dither` (meld is
+not ported yet: ROADMAP B3). Distances are CIE94 with the pixel first.
+
+- replace: each pixel takes its nearest centroid.
+- dither: 4x4 Bayer ordered dithering in Lab. The threshold is the
+  reference's greedy approximation of the largest pairwise centroid
+  distance, divided by sqrt(k); the adjusted colour is
+  `lab + threshold * (bayer(x, y) - 0.5)` on L, a and b alike, and the
+  output is the centroid nearest to it.
+
+These are the port's plain versions: `ops/kernels.py` holds the CUDA
+kernel that does the same per pixel in one pass.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from kmeans_tpu_torch.ops._math import div
+from kmeans_tpu_torch.ops.colorspace import lab_to_srgb8, srgb8_to_lab
+from kmeans_tpu_torch.ops.delta_e import metric_fns
+
+# 4x4 Bayer index matrix, row-major (kmeans_tpu/ops/quantize.py:41).
+BAYER_4X4 = (
+    (0, 8, 2, 10),
+    (12, 4, 14, 6),
+    (3, 11, 1, 9),
+    (15, 7, 13, 5),
+)
+
+_BIG = 3.4e38  # above any CIE94^2
+
+
+def _valid_mask(k: int, k_active, device) -> torch.Tensor:
+    return torch.arange(k, device=device) < (k if k_active is None else k_active)
+
+
+def _d2_matrix(lab, palette, valid, metric="cie94"):
+    _, dist_sq = metric_fns(metric)
+    d2 = dist_sq(lab[..., None, :], palette)
+    return torch.where(valid, d2, torch.full_like(d2, _BIG))
+
+
+def nearest_index(
+    lab: torch.Tensor, palette: torch.Tensor, k_active=None, metric: str = "cie94"
+) -> torch.Tensor:
+    """Index of each Lab pixel's nearest palette entry (first minimum wins),
+    as int64."""
+    valid = _valid_mask(palette.shape[0], k_active, lab.device)
+    return torch.argmin(_d2_matrix(lab, palette, valid, metric), dim=-1)
+
+
+def nearest_color(
+    lab: torch.Tensor, palette: torch.Tensor, k_active=None, metric: str = "cie94"
+) -> torch.Tensor:
+    """Each Lab pixel replaced by its nearest palette entry."""
+    return palette[nearest_index(lab, palette, k_active, metric)]
+
+
+def dither_threshold(
+    palette: torch.Tensor, k_active=None, metric: str = "cie94"
+) -> torch.Tensor:
+    """Greedy approximate largest pairwise centroid distance / sqrt(k), as a
+    0-dim float32 tensor on the palette's device
+    (kmeans_tpu/ops/quantize.py:112). Keeps the reference's asymmetric
+    orientation (the candidate centroid first) and its update order."""
+    dist, _ = metric_fns(metric)
+    k = palette.shape[0]
+    k_active = k if k_active is None else k_active
+    a = palette[0]
+    b = palette[min(1, k - 1)]
+    dab = dist(a, b)
+    for i in range(2, min(k, k_active)):
+        ci = palette[i]
+        da = dist(ci, a)
+        db = dist(ci, b)
+        first = (da > db) & (da > dab)
+        second = ~first & (db > dab)
+        b = torch.where(first, ci, b)
+        a = torch.where(second, ci, a)
+        dab = torch.where(first, da, torch.where(second, db, dab))
+    return dab / torch.sqrt(torch.full((), float(k_active), device=palette.device))
+
+
+def bayer_values(height: int, width: int, row_offset: int = 0, device=None):
+    """`M4[y % 4][x % 4] / 16 - 0.5` for every pixel `[H, W]`, with `y`
+    shifted by `row_offset` (kmeans_tpu/ops/quantize.py:150)."""
+    m = div(torch.tensor(BAYER_4X4, dtype=torch.float32, device=device), 16.0) - 0.5
+    ys = (torch.arange(height, device=device) + row_offset) % 4
+    xs = torch.arange(width, device=device) % 4
+    return m[ys[:, None], xs[None, :]]
+
+
+def dither(
+    lab: torch.Tensor, palette: torch.Tensor, k_active=None, row_offset: int = 0,
+    metric: str = "cie94",
+) -> torch.Tensor:
+    """Ordered dithering of Lab pixels `[H, W, 3]` to palette colours."""
+    return palette[assign_index(lab, palette, "dither", k_active, row_offset, metric)]
+
+
+def assign_index(
+    lab: torch.Tensor,
+    palette: torch.Tensor,
+    mode: str = "replace",
+    k_active=None,
+    row_offset: int = 0,
+    metric: str = "cie94",
+) -> torch.Tensor:
+    """Per-pixel palette index `[H, W]` for replace or dither. Dither's
+    k == 1 case needs no branch: index 0 is the only active entry."""
+    if mode == "replace":
+        return nearest_index(lab, palette, k_active, metric)
+    if mode == "dither":
+        h, w = lab.shape[0], lab.shape[1]
+        threshold = dither_threshold(palette, k_active, metric)
+        bayer = bayer_values(h, w, row_offset, lab.device)
+        adjusted = lab + (threshold * bayer)[..., None]
+        return nearest_index(adjusted, palette, k_active, metric)
+    if mode == "meld":
+        raise NotImplementedError(
+            "meld is not ported to the PyTorch package yet (ROADMAP B3)"
+        )
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def quantize_image(
+    rgba_u8: torch.Tensor,
+    palette_lab: torch.Tensor,
+    mode: str = "replace",
+    k_active=None,
+    row_offset: int = 0,
+    metric: str = "cie94",
+) -> torch.Tensor:
+    """Full-resolution output pass, uint8 `[H, W, 3|4]` -> uint8 RGBA with
+    alpha 255 (kmeans_tpu/ops/quantize.py:224), for replace and dither."""
+    lab = srgb8_to_lab(rgba_u8[..., :3])
+    idx = assign_index(lab, palette_lab, mode, k_active, row_offset, metric)
+    rgb8 = lab_to_srgb8(palette_lab)[idx]
+    alpha = torch.full(rgb8.shape[:-1] + (1,), 255, dtype=torch.uint8, device=rgb8.device)
+    return torch.cat([rgb8, alpha], dim=-1)
