@@ -2,7 +2,8 @@
 
 A port of the JAX package to PyTorch and CUDA. It imports neither JAX nor
 `kmeans_tpu`. `ImageProcessor(device=None)` runs on CUDA, where the assign
-pass is a hand-written kernel (`csrc/quantize_assign.cu`);
+pass (`csrc/quantize_assign.cu`) and full-resolution training's Lloyd
+step (`csrc/lloyd_accumulate.cu`) are hand-written kernels;
 `ImageProcessor(device="cpu")` runs the same path in plain PyTorch.
 """
 

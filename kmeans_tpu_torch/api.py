@@ -10,9 +10,12 @@ the reference's signatures and results:
 
 `reduce` runs the reference's indexed route (`api.py:1419-1471`): the
 host strips alpha and uploads RGB; on the device the image is shrunk to
-the <= 256 px training size, converted to Lab and clustered
-(`models/kmeans.py`); the assign pass (`ops/kernels.py::assign_packed`,
-a CUDA kernel on the card) writes bit-packed palette indices; the host
+the training size (<= 256 px, or full resolution with
+`train_max_size=None`), converted to Lab and clustered by the trainer
+that `_fit_auto` picks (`models/kmeans.py`; past the reference's size
+gates, the tile accumulator `ops/kernels.py::lloyd_accumulate`, a CUDA
+kernel on the card); the assign pass (`ops/kernels.py::assign_packed`, a
+CUDA kernel on the card) writes bit-packed palette indices; the host
 reads back the words and the palette and unpacks them into RGBA.
 
 The device is explicit: `ImageProcessor(device=None)` means CUDA and
@@ -33,7 +36,12 @@ from kmeans_tpu_torch.image import Image
 from kmeans_tpu_torch.models import kmeans as kmeans_model
 from kmeans_tpu_torch.ops._math import div
 from kmeans_tpu_torch.ops.colorspace import lab_to_srgb8, srgb8_to_lab, srgb8_to_lab_np
-from kmeans_tpu_torch.ops.kernels import INDEXED_MAX_K, assign_packed, quant_tile_rows
+from kmeans_tpu_torch.ops.kernels import (
+    ACCUM_MAX_K,
+    INDEXED_MAX_K,
+    assign_packed,
+    quant_tile_rows,
+)
 from kmeans_tpu_torch.ops.quantize import dither_threshold
 from kmeans_tpu_torch.ops.resize import resize_uint8, shrunk_dimensions
 from kmeans_tpu_torch.utils.packing import pack_bits, unpack_tile_words_gather
@@ -42,10 +50,14 @@ from kmeans_tpu_torch.utils.profiling import phase_sync as _phase_sync
 
 # Training-image shrink cap (kmeans_tpu/api.py:80).
 MAX_IMAGE_DIMENSION = 256
-# The reference trains past these sizes with its tile accumulator or its
-# row-chunked trainer (kmeans_tpu/api.py:160,167,239-265); neither is
-# ported yet, so the port refuses such trainings.
+# Above this many training pixels (k <= 64) the one-hot update's [N, K]
+# intermediate dominates memory and training moves to the tile
+# accumulator (kmeans_tpu/api.py:160).
 _LARGE_TRAIN_PIXELS = 1 << 20
+# For k > 64, the element budget past which the plain trainer's [N, K]
+# intermediates leave it (~768 MB each in float32): the tile accumulator
+# takes k <= ACCUM_MAX_K, the row-chunked trainer the rest
+# (kmeans_tpu/api.py:167).
 _CHUNKED_TRAIN_ELEMS = 192 * (1 << 20)
 
 
@@ -104,21 +116,6 @@ def _host_rgb(pixels: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(pixels)[..., :3])
 
 
-def _check_train_route(n_px: int, k: int) -> None:
-    """Refuse the trainings the reference runs on trainers not ported yet
-    (kmeans_tpu/api.py::_fit_auto)."""
-    if k > 64 and n_px * k > _CHUNKED_TRAIN_ELEMS:
-        raise _not_ported(
-            f"training {n_px} pixels at k={k} (the chunked and tile-accumulator "
-            "trainers)", "A.7, B6",
-        )
-    if k <= 64 and n_px > _LARGE_TRAIN_PIXELS:
-        raise _not_ported(
-            f"training on {n_px} > {_LARGE_TRAIN_PIXELS} pixels (the tile "
-            "accumulator trainer)", "A.7, B6",
-        )
-
-
 def _indexed_mode(reduce_mode, k: int) -> str:
     """The mode string of the indexed route, or raise for what it lacks."""
     reduce_mode = ReduceMode(reduce_mode)
@@ -129,7 +126,32 @@ def _indexed_mode(reduce_mode, k: int) -> str:
     return reduce_mode.value
 
 
-def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True):
+def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None):
+    """Pick the trainer as the reference does (kmeans_tpu/api.py:205), with
+    its `pallas_ok` read as "the accumulator route": the CUDA kernel on the
+    card, its plain twin on the CPU, so both devices run one algorithm.
+    `plane_dtype` reaches only the accumulator's planes."""
+    def fit_accumulated():
+        return kmeans_model.fit_large_restarts(
+            work, k, first_index, restarts=restarts, convergence=convergence,
+            plane_dtype=plane_dtype,
+        )
+
+    if k > 64 and work.shape[0] * k > _CHUNKED_TRAIN_ELEMS:
+        if k <= ACCUM_MAX_K:
+            return fit_accumulated()
+        return kmeans_model.fit_chunked(
+            work, k, first_index, restarts=restarts, convergence=convergence
+        )
+    if k <= 64 and work.shape[0] > _LARGE_TRAIN_PIXELS:
+        return fit_accumulated()
+    return kmeans_model.fit_restarts(
+        work, k, first_index, restarts=restarts, convergence=convergence
+    )
+
+
+def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
+           restarts=1, train_dtype=None):
     """Shrink -> colour space -> seed -> Lloyd, on the pixels' device
     (kmeans_tpu/api.py::_train_jit). Returns `(centroids, iterations)`."""
     sh, sw = train_shape
@@ -137,7 +159,7 @@ def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True):
         pixels_u8 = resize_uint8(pixels_u8, sh, sw)
     rgb = pixels_u8[..., :3].reshape(-1, 3)
     work = srgb8_to_lab(rgb) if lab else div(rgb.to(torch.float32), 255.0)
-    return kmeans_model.fit_restarts(work, k, first_index, convergence=convergence)
+    return _fit_auto(work, k, first_index, convergence, restarts, train_dtype)
 
 
 def _lab_palette_to_u8(centroids: torch.Tensor):
@@ -206,8 +228,11 @@ class ImageProcessor:
     `None`, means `"cuda"` and raises without one) or `"cpu"` for the plain
     PyTorch path. The other arguments mirror `kmeans_tpu.ImageProcessor`;
     values this package does not port yet raise `NotImplementedError`.
-    `last_iterations` holds the Lloyd iteration count of the latest
-    training."""
+    `train_max_size=None` trains on every pixel; past the reference's size
+    gates that runs on the tile accumulator. `restarts` and
+    `train_dtype="bfloat16"` (accumulator planes only) act as in the
+    reference. `last_iterations` holds the Lloyd iteration count of the
+    latest training."""
 
     def __init__(
         self,
@@ -227,22 +252,20 @@ class ImageProcessor:
             raise _not_ported("delta_e='2000' (CIEDE2000)", "B4")
         if int(restarts) < 1:
             raise ValueError("restarts must be >= 1")
-        if int(restarts) > 1:
-            raise _not_ported("restarts > 1", "A.8")
         if bucketing:
             raise _not_ported("bucketing=True", "A.9")
         if fast:
             raise _not_ported("fast=True", "B5")
         if pipeline:
             raise _not_ported("pipeline=True (banded transfer overlap)", "A.13")
-        if train_dtype not in (None, "float32"):
-            if train_dtype != "bfloat16":
-                raise ValueError(
-                    f"train_dtype must be 'bfloat16', 'float32' or None, got {train_dtype!r}"
-                )
-            raise _not_ported("train_dtype='bfloat16'", "A.8, B6")
+        if train_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"train_dtype must be 'bfloat16', 'float32' or None, got {train_dtype!r}"
+            )
         self.device = _resolve_device(device)
         self.train_max_size = None if train_max_size is None else int(train_max_size)
+        self.restarts = int(restarts)
+        self.train_dtype = None if train_dtype == "float32" else train_dtype
         self.last_iterations: int | None = None
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
@@ -255,7 +278,6 @@ class ImageProcessor:
         working space, on the processor's device (kmeans_tpu/api.py:1035)."""
         w, h = image.dimensions
         sw, sh = shrunk_dimensions(w, h, self.train_max_size)
-        _check_train_route(sw * sh, k)
         first = kmeans_model.reference_seed_index(sw, sh)
         with _phase("host_prep"):
             rgb = _host_rgb(image.pixels)
@@ -265,7 +287,8 @@ class ImageProcessor:
         with _phase("device"):
             centroids, self.last_iterations = _train(
                 dev, k, (sh, sw), first, color_space.convergence,
-                lab=color_space is ColorSpace.LAB,
+                lab=color_space is ColorSpace.LAB, restarts=self.restarts,
+                train_dtype=self.train_dtype,
             )
             _phase_sync(centroids)
         return centroids
@@ -313,7 +336,6 @@ class ImageProcessor:
         mode = _indexed_mode(reduce_mode, color_count)
         w, h = image.dimensions
         sw, sh = shrunk_dimensions(w, h, self.train_max_size)
-        _check_train_route(sw * sh, color_count)
         first = kmeans_model.reference_seed_index(sw, sh)
         with _phase("host_prep"):
             rgb = _host_rgb(image.pixels)
@@ -322,7 +344,8 @@ class ImageProcessor:
             _phase_sync(dev)
         with _phase("device"):
             centroids, self.last_iterations = _train(
-                dev, color_count, (sh, sw), first, ColorSpace.LAB.convergence
+                dev, color_count, (sh, sw), first, ColorSpace.LAB.convergence,
+                restarts=self.restarts, train_dtype=self.train_dtype,
             )
             threshold = dither_threshold(centroids) if mode == "dither" else 0.0
             words = assign_packed(dev, centroids, threshold, mode=mode)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-`load_library()` compiles `kmeans_tpu_torch/csrc/*.cu` with `nvcc` into one
+`load_library()` compiles `kmeans_tpu_torch/csrc/*.cu` with `nvcc` (one
+process for each source, all started together) and links them into one
 shared library with a plain C interface, caches it under
 `build/kmeans_tpu_torch/` at the root of the checkout, and loads it with
 `ctypes`. The file name carries a hash of the sources, the flags and the
@@ -32,7 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "kmeans_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -75,31 +76,40 @@ def library_path(nvcc: str) -> Path:
 
 def build() -> Path:
     """Compile the sources if no library for them exists yet; return its
-    path. Concurrent builds each write a private file and rename it into
-    place, so a reader never sees a partial library."""
+    path. Concurrent builds each work in a private directory and rename
+    the library into place, so a reader never sees a partial one."""
     global last_build_seconds
     nvcc = find_nvcc()
     target = library_path(nvcc)
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [str(Path(work) / f"{src.stem}.o") for src in _sources()]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for src, obj in zip(_sources(), objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        outputs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, output in zip(compiles, procs, outputs):
+            _check(cmd, proc.returncode, output)
+        tmp = str(Path(work) / target.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        done = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _check(link, done.returncode, done.stdout)
         os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     last_build_seconds = time.perf_counter() - t0
     return target
+
+
+def _check(cmd: list[str], returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{output}")
 
 
 def load_library() -> ctypes.CDLL:
@@ -121,6 +131,16 @@ def load_library() -> ctypes.CDLL:
             p,                 # stream
         ]
         lib.kmeans_assign_packed.restype = i32
+        lib.kmeans_lloyd_grid_blocks.argtypes = [i64]
+        lib.kmeans_lloyd_grid_blocks.restype = i32
+        lib.kmeans_lloyd_accumulate.argtypes = [
+            p, i32, i64, i64,  # planes, bf16, n_pix, n_valid
+            p, i32, i32,       # centroids, kp, k_active
+            p, i32,            # weight (or null), stats
+            p, i32, p,         # partials, n_blocks, out
+            p,                 # stream
+        ]
+        lib.kmeans_lloyd_accumulate.restype = i32
         lib.kmeans_error_string.argtypes = [i32]
         lib.kmeans_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -116,13 +116,28 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"delta_e": "2000"}, "B4"), ({"restarts": 2}, "A.8"), ({"bucketing": True}, "A.9"),
-     ({"fast": True}, "B5"), ({"pipeline": True}, "A.13"),
-     ({"train_dtype": "bfloat16"}, "A.8")],
+    [({"delta_e": "2000"}, "B4"), ({"bucketing": True}, "A.9"),
+     ({"fast": True}, "B5"), ({"pipeline": True}, "A.13")],
 )
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         kt.ImageProcessor(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs", [{"restarts": 2}, {"train_dtype": "bfloat16"}, {"train_dtype": "float32"}]
+)
+def test_ported_options_accepted(processors, kwargs):
+    """Options the reference routes through its trainers run here too; on
+    the shrunk image `train_dtype` changes nothing (it reaches only the
+    accumulator's planes)."""
+    port = kt.ImageProcessor(device="cpu", **kwargs)
+    img = _image(40, 50)
+    pal = port.palette(4, img)
+    if "train_dtype" in kwargs:
+        np.testing.assert_array_equal(pal, processors[1].palette(4, img))
+    with pytest.raises(ValueError):
+        kt.ImageProcessor(device="cpu", train_dtype="float16")
 
 
 def test_unported_modes_raise(processors):
@@ -139,9 +154,6 @@ def test_unported_modes_raise(processors):
             port.palette(4, img, algo)
     with pytest.raises(NotImplementedError, match="ROADMAP B2"):
         port.reduce(1025, img)
-    big = np.zeros((1100, 1000, 4), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        kt.ImageProcessor(device="cpu", train_max_size=None).reduce(8, big)
     with pytest.raises(ValueError):
         port.reduce(0, img)
     with pytest.raises(ValueError):

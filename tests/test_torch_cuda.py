@@ -58,3 +58,53 @@ def test_reduce_on_card_matches_cpu(cuda):
     assert kernels.ASSIGN_PACKED_LAUNCHES == before + 1
     on_cpu = ImageProcessor(device="cpu").reduce(8, img, reduce_mode=ReduceMode.DITHER).pixels
     np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def _planes(n, k, seed, device, bf16=False):
+    rng = np.random.default_rng(seed)
+    rgb = torch.from_numpy(rng.integers(0, 256, (n, 3), dtype=np.uint8)).to(device)
+    planes, n_valid = kernels.pack_lab_planes(
+        srgb8_to_lab(rgb), torch.bfloat16 if bf16 else None
+    )
+    _, cents = _case(1, 1, k, seed + 1, device)
+    return planes, cents, n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,k_active,inertia,bf16",
+    [(1, None, False, False), (8, None, True, False), (17, 11, True, False),
+     (65, None, False, True), (512, 300, True, False)],
+)
+def test_accumulator_kernel_matches_twin(cuda, k, k_active, inertia, bf16):
+    """Counts equal; the other columns within 1e-5 * (|twin| + 128 * count);
+    a second launch gives the same totals."""
+    planes, cents, n = _planes(40_001, k, 600 + k, cuda, bf16)
+    before = kernels.LLOYD_ACCUMULATE_LAUNCHES
+    got = kernels.lloyd_accumulate(planes, cents, n, k_active, emit_inertia=inertia)
+    again = kernels.lloyd_accumulate(planes, cents, n, k_active, emit_inertia=inertia)
+    want = kernels.lloyd_accumulate_reference(planes, cents, n, k_active, emit_inertia=inertia)
+    torch.cuda.synchronize()
+    assert kernels.LLOYD_ACCUMULATE_LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, 3], want[:, 3])
+    bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+    assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+def test_full_resolution_palette_on_card_matches_cpu(cuda, monkeypatch):
+    from kmeans_tpu_torch import api
+
+    monkeypatch.setattr(api, "_LARGE_TRAIN_PIXELS", 1000)
+    rng = np.random.default_rng(8)
+    y, x = np.mgrid[0:90, 0:130]
+    rgb = np.stack([x * 255 // 130, y * 255 // 90, (x + y) * 255 // 220], -1)
+    rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
+    img = np.concatenate([rgb, np.full((90, 130, 1), 255, np.uint8)], -1)
+    before = kernels.LLOYD_ACCUMULATE_LAUNCHES
+    card = ImageProcessor(train_max_size=None)
+    on_card = card.palette(8, img)
+    assert kernels.LLOYD_ACCUMULATE_LAUNCHES == before + card.last_iterations
+    on_cpu = ImageProcessor(device="cpu", train_max_size=None).palette(8, img)
+    np.testing.assert_array_equal(on_card, on_cpu)

@@ -85,9 +85,15 @@ def test_lloyd_stop_rule():
 
 
 def test_fit_restarts():
+    """One restart is `fit` from the reference seed; with two, the result
+    is the `fit` of one of the derived seeds, the one of lower inertia."""
     lab = torch.from_numpy(_training_lab(seed=4))
     c1, i1 = km.fit_restarts(lab, 4, 7)
     c2, i2 = km.fit(lab, 4, 7)
     assert i1 == i2 and torch.equal(c1, c2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        km.fit_restarts(lab, 4, 7, restarts=2)
+    got_c, got_i = km.fit_restarts(lab, 4, 7, restarts=2)
+    runs = [km.fit(lab, 4, seed) for seed in km.derive_restart_seeds(lab.shape[0], 7, 2).tolist()]
+    valid = torch.ones(4, dtype=torch.bool)
+    inertia = [km._masked_d2(lab, c, valid).min(dim=1).values.sum() for c, _ in runs]
+    best_c, best_i = runs[int(torch.argmin(torch.stack(inertia)))]
+    assert got_i == best_i and torch.equal(got_c, best_c)
