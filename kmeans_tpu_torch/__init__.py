@@ -2,8 +2,9 @@
 
 A port of the JAX package to PyTorch and CUDA. It imports neither JAX nor
 `kmeans_tpu`. `ImageProcessor(device=None)` runs on CUDA, where the assign
-pass (`csrc/quantize_assign.cu`) and full-resolution training's Lloyd
-step (`csrc/lloyd_accumulate.cu`) are hand-written kernels;
+pass (`csrc/quantize_assign.cu`), the meld pass (`csrc/quantize_meld.cu`)
+and full-resolution training's Lloyd step (`csrc/lloyd_accumulate.cu`)
+are hand-written kernels, under CIE94 or CIEDE2000 (`delta_e=`);
 `ImageProcessor(device="cpu")` runs the same path in plain PyTorch.
 """
 

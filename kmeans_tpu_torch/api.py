@@ -8,15 +8,20 @@ the reference's signatures and results:
 - `reduce(k, image, algo, mode)` -> the image recoloured with a trained
   palette.
 
-`reduce` runs the reference's indexed route (`api.py:1419-1471`): the
-host strips alpha and uploads RGB; on the device the image is shrunk to
-the training size (<= 256 px, or full resolution with
-`train_max_size=None`), converted to Lab and clustered by the trainer
+`reduce` runs the reference's indexed and meld routes
+(`api.py:1419-1503`): the host strips alpha and uploads RGB; on the device
+the image is shrunk to the training size (<= 256 px, or full resolution
+with `train_max_size=None`), converted to Lab and clustered by the trainer
 that `_fit_auto` picks (`models/kmeans.py`; past the reference's size
 gates, the tile accumulator `ops/kernels.py::lloyd_accumulate`, a CUDA
-kernel on the card); the assign pass (`ops/kernels.py::assign_packed`, a
-CUDA kernel on the card) writes bit-packed palette indices; the host
-reads back the words and the palette and unpacks them into RGBA.
+kernel on the card). For replace and dither the assign pass
+(`ops/kernels.py::assign_packed`, a CUDA kernel on the card) writes
+bit-packed palette indices, and the host reads back the words and the
+palette and unpacks them into RGBA. For meld the meld pass
+(`ops/kernels.py::meld_packed`, a CUDA kernel on the card) writes the
+blended pixels as packed RGB bytes, and the host unpacks them. `find`
+runs the same output passes with the caller's palette. `delta_e="2000"`
+puts CIEDE2000 in place of CIE94 in training, dithering and both passes.
 
 The device is explicit: `ImageProcessor(device=None)` means CUDA and
 raises when there is none. The plain-PyTorch CPU path runs only when the
@@ -40,11 +45,16 @@ from kmeans_tpu_torch.ops.kernels import (
     ACCUM_MAX_K,
     INDEXED_MAX_K,
     assign_packed,
+    meld_packed,
     quant_tile_rows,
 )
 from kmeans_tpu_torch.ops.quantize import dither_threshold
 from kmeans_tpu_torch.ops.resize import resize_uint8, shrunk_dimensions
-from kmeans_tpu_torch.utils.packing import pack_bits, unpack_tile_words_gather
+from kmeans_tpu_torch.utils.packing import (
+    pack_bits,
+    unpack_rgb24_tile_words,
+    unpack_tile_words_gather,
+)
 from kmeans_tpu_torch.utils.profiling import phase as _phase
 from kmeans_tpu_torch.utils.profiling import phase_sync as _phase_sync
 
@@ -116,42 +126,46 @@ def _host_rgb(pixels: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(pixels)[..., :3])
 
 
-def _indexed_mode(reduce_mode, k: int) -> str:
-    """The mode string of the indexed route, or raise for what it lacks."""
+def _output_mode(reduce_mode, k: int) -> str:
+    """The mode string of the output pass, or raise for what the port
+    lacks: replace and dither with more than `INDEXED_MAX_K` colours. Meld
+    serves any palette size with one kernel launch."""
     reduce_mode = ReduceMode(reduce_mode)
-    if reduce_mode is ReduceMode.MELD:
-        raise _not_ported("ReduceMode.MELD", "B3")
-    if k > INDEXED_MAX_K:
+    if reduce_mode is not ReduceMode.MELD and k > INDEXED_MAX_K:
         raise _not_ported(f"a {k}-colour palette (> {INDEXED_MAX_K})", "B2, B8")
     return reduce_mode.value
 
 
-def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None):
+def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
+              metric="cie94"):
     """Pick the trainer as the reference does (kmeans_tpu/api.py:205), with
     its `pallas_ok` read as "the accumulator route": the CUDA kernel on the
     card, its plain twin on the CPU, so both devices run one algorithm.
-    `plane_dtype` reaches only the accumulator's planes."""
+    Both metrics take that route, as both are in the reference's
+    `PALLAS_METRICS`. `plane_dtype` reaches only the accumulator's planes."""
     def fit_accumulated():
         return kmeans_model.fit_large_restarts(
             work, k, first_index, restarts=restarts, convergence=convergence,
-            plane_dtype=plane_dtype,
+            metric=metric, plane_dtype=plane_dtype,
         )
 
     if k > 64 and work.shape[0] * k > _CHUNKED_TRAIN_ELEMS:
         if k <= ACCUM_MAX_K:
             return fit_accumulated()
         return kmeans_model.fit_chunked(
-            work, k, first_index, restarts=restarts, convergence=convergence
+            work, k, first_index, restarts=restarts, convergence=convergence,
+            metric=metric,
         )
     if k <= 64 and work.shape[0] > _LARGE_TRAIN_PIXELS:
         return fit_accumulated()
     return kmeans_model.fit_restarts(
-        work, k, first_index, restarts=restarts, convergence=convergence
+        work, k, first_index, restarts=restarts, convergence=convergence,
+        metric=metric,
     )
 
 
 def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
-           restarts=1, train_dtype=None):
+           restarts=1, train_dtype=None, metric="cie94"):
     """Shrink -> colour space -> seed -> Lloyd, on the pixels' device
     (kmeans_tpu/api.py::_train_jit). Returns `(centroids, iterations)`."""
     sh, sw = train_shape
@@ -159,7 +173,7 @@ def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
         pixels_u8 = resize_uint8(pixels_u8, sh, sw)
     rgb = pixels_u8[..., :3].reshape(-1, 3)
     work = srgb8_to_lab(rgb) if lab else div(rgb.to(torch.float32), 255.0)
-    return _fit_auto(work, k, first_index, convergence, restarts, train_dtype)
+    return _fit_auto(work, k, first_index, convergence, restarts, train_dtype, metric)
 
 
 def _lab_palette_to_u8(centroids: torch.Tensor):
@@ -180,6 +194,12 @@ def _unpack_gather(words, h, w, kp, palette_rgba) -> np.ndarray:
     return unpack_tile_words_gather(
         words, h, w, pack_bits(kp), palette_rgba, tile_rows=quant_tile_rows(kp)
     )
+
+
+def _unpack_meld(words, h, w, kp) -> np.ndarray:
+    """`[h, w, 4]` RGBA from the meld pass's RGB24 words
+    (kmeans_tpu/api.py:494)."""
+    return unpack_rgb24_tile_words(words, h, w, tile_rows=quant_tile_rows(kp))
 
 
 def _palette_readback(centroids: torch.Tensor, k: int) -> np.ndarray:
@@ -228,8 +248,9 @@ class ImageProcessor:
     `None`, means `"cuda"` and raises without one) or `"cpu"` for the plain
     PyTorch path. The other arguments mirror `kmeans_tpu.ImageProcessor`;
     values this package does not port yet raise `NotImplementedError`.
-    `train_max_size=None` trains on every pixel; past the reference's size
-    gates that runs on the tile accumulator. `restarts` and
+    `delta_e` is `"94"` (CIE94) or `"2000"` (CIEDE2000), as in the
+    reference. `train_max_size=None` trains on every pixel; past the
+    reference's size gates that runs on the tile accumulator. `restarts` and
     `train_dtype="bfloat16"` (accumulator planes only) act as in the
     reference. `last_iterations` holds the Lloyd iteration count of the
     latest training."""
@@ -248,8 +269,6 @@ class ImageProcessor:
         aliases = {"94": "cie94", "cie94": "cie94", "2000": "cie2000", "cie2000": "cie2000"}
         if str(delta_e) not in aliases:
             raise ValueError(f"delta_e must be one of {sorted(aliases)}, got {delta_e!r}")
-        if aliases[str(delta_e)] == "cie2000":
-            raise _not_ported("delta_e='2000' (CIEDE2000)", "B4")
         if int(restarts) < 1:
             raise ValueError("restarts must be >= 1")
         if bucketing:
@@ -263,6 +282,7 @@ class ImageProcessor:
                 f"train_dtype must be 'bfloat16', 'float32' or None, got {train_dtype!r}"
             )
         self.device = _resolve_device(device)
+        self.delta_e = aliases[str(delta_e)]
         self.train_max_size = None if train_max_size is None else int(train_max_size)
         self.restarts = int(restarts)
         self.train_dtype = None if train_dtype == "float32" else train_dtype
@@ -288,7 +308,7 @@ class ImageProcessor:
             centroids, self.last_iterations = _train(
                 dev, k, (sh, sw), first, color_space.convergence,
                 lab=color_space is ColorSpace.LAB, restarts=self.restarts,
-                train_dtype=self.train_dtype,
+                train_dtype=self.train_dtype, metric=self.delta_e,
             )
             _phase_sync(centroids)
         return centroids
@@ -311,7 +331,7 @@ class ImageProcessor:
         palette_rgba = _colors_rgba(colors)
         if palette_rgba.shape[0] == 0:
             raise ValueError("palette must contain at least one color")
-        mode = _indexed_mode(reduce_mode, palette_rgba.shape[0])
+        mode = _output_mode(reduce_mode, palette_rgba.shape[0])
         with _phase("host_prep"):
             palette_lab = _colors_to_lab(palette_rgba)
             rgb = _host_rgb(image.pixels)
@@ -333,7 +353,7 @@ class ImageProcessor:
         _validate_k(color_count)
         if algo is not Algorithm.KMEANS:
             raise _not_ported(f"{algo}", "A.8")
-        mode = _indexed_mode(reduce_mode, color_count)
+        mode = _output_mode(reduce_mode, color_count)
         w, h = image.dimensions
         sw, sh = shrunk_dimensions(w, h, self.train_max_size)
         first = kmeans_model.reference_seed_index(sw, sh)
@@ -346,29 +366,44 @@ class ImageProcessor:
             centroids, self.last_iterations = _train(
                 dev, color_count, (sh, sw), first, ColorSpace.LAB.convergence,
                 restarts=self.restarts, train_dtype=self.train_dtype,
+                metric=self.delta_e,
             )
-            threshold = dither_threshold(centroids) if mode == "dither" else 0.0
-            words = assign_packed(dev, centroids, threshold, mode=mode)
-            palette_rgba, _ = _lab_palette_to_u8(centroids)
+            words, palette_rgba = self._output_pass(dev, centroids, mode)
             _phase_sync(words)
+        return Image(image.dimensions,
+                     self._readback(words, palette_rgba, h, w, color_count))
+
+    def _output_pass(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str):
+        """The full-resolution pass on the pixels' device: `(words, None)`
+        for meld (RGB24 words of the blend), `(words, [k, 4] RGBA8
+        palette)` for replace and dither (packed indices)."""
+        if mode == "meld":
+            return meld_packed(pixels_u8, palette_lab, metric=self.delta_e), None
+        threshold = (
+            dither_threshold(palette_lab, metric=self.delta_e) if mode == "dither" else 0.0
+        )
+        words = assign_packed(pixels_u8, palette_lab, threshold, mode=mode,
+                              metric=self.delta_e)
+        return words, _lab_palette_to_u8(palette_lab)[0]
+
+    def _readback(self, words, palette_rgba, h: int, w: int, kp: int) -> np.ndarray:
+        """Host copy and unpack of `_output_pass`'s result -> `[h, w, 4]`
+        RGBA8 numpy."""
         with _phase("readback"):
-            words_np, pal_np = _host_fetch(words, palette_rgba)
+            if palette_rgba is None:
+                (words_np,) = _host_fetch(words)
+            else:
+                words_np, pal_np = _host_fetch(words, palette_rgba)
         with _phase("unpack"):
-            out = _unpack_gather(words_np, h, w, color_count, pal_np)
-        return Image(image.dimensions, out)
+            if palette_rgba is None:
+                return _unpack_meld(words_np, h, w, kp)
+            return _unpack_gather(words_np, h, w, kp, pal_np)
 
     def _quantize(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str):
-        """Indexed assignment of `[H, W, 3]` pixels to a fixed Lab palette
-        -> `[H, W, 4]` RGBA8 numpy (kmeans_tpu/api.py:1597)."""
+        """Output pass of `[H, W, 3]` pixels with a fixed Lab palette ->
+        `[H, W, 4]` RGBA8 numpy (kmeans_tpu/api.py:1597)."""
         with _phase("device"):
-            threshold = dither_threshold(palette_lab) if mode == "dither" else 0.0
-            words = assign_packed(pixels_u8, palette_lab, threshold, mode=mode)
-            palette_rgba, _ = _lab_palette_to_u8(palette_lab)
+            words, palette_rgba = self._output_pass(pixels_u8, palette_lab, mode)
             _phase_sync(words)
-        with _phase("readback"):
-            words_np, pal_np = _host_fetch(words, palette_rgba)
-        with _phase("unpack"):
-            return _unpack_gather(
-                words_np, pixels_u8.shape[0], pixels_u8.shape[1],
-                palette_lab.shape[0], pal_np,
-            )
+        return self._readback(words, palette_rgba, pixels_u8.shape[0],
+                              pixels_u8.shape[1], palette_lab.shape[0])

@@ -1,9 +1,11 @@
 // Lloyd tile accumulator for Hopper (sm_90a): Lab planes -> nearest centroid
-// under exact CIE94 -> per-cluster (sum L, sum a, sum b, count[, sum d^2]).
+// under exact CIE94 or CIEDE2000 -> per-cluster (sum L, sum a, sum b,
+// count[, sum d^2]).
 //
 // Replaces the Pallas TPU kernel `kmeans_tpu/ops/kernels.py::_lloyd_acc_kernel`
-// (launched by `lloyd_accumulate`) in its exact-CIE94 form: float32 or
-// bfloat16 planes, an optional weight plane, an optional inertia column. The
+// (launched by `lloyd_accumulate`) in its exact forms, CIE94 and CIEDE2000
+// (`:1400-1409`, `:1438-1455`; the distance comes from delta_e.cuh, one
+// kernel instance per metric, picked at launch): float32 or bfloat16 planes, an optional weight plane, an optional inertia column. The
 // plain PyTorch twin `kmeans_tpu_torch/ops/kernels.py::lloyd_accumulate_reference`
 // is the spec: every pixel's assignment equals the twin's, the counts are
 // equal, and the sums agree to float32 rounding (they are added in another
@@ -40,28 +42,31 @@
 // What bounds it on this card, per valid pixel and Lloyd step: it reads
 // 12 B of float32 planes (6 B of bfloat16, +4 B with a weight plane), and
 // does 9 pixel-side operations, 18 per active centroid (2 of them IEEE
-// divides) and 2 per output column. At 4K (8,306,688 padded pixels) the
+// divides) and 2 per output column under CIE94; under CIEDE2000 each
+// centroid costs about 90 operations, 11 of them library calls
+// (atan2f, sinf, cosf, expf) and 6 divides, so operations bound it. At 4K (8,306,688 padded pixels) the
 // reads take 29.8 us at 3.35 TB/s; at k = 8 the 1.35 G operations take
 // 20 us at 67 TFLOP/s of float32, so bytes bound it on paper. The divides
 // are multi-instruction sequences, so in practice the centroid loop sets
 // the pace, as in the assign kernel. The staging reduction adds about a
 // third to the centroid loop's work at any k.
-// Left for later: the factorised CIE94 score, CIEDE2000 (ROADMAP B5, B4)
-// and a reduction that keeps more warps busy when kp < 8.
+// Left for later: the factorised CIE94 score and the pruned CIEDE2000 tier
+// (ROADMAP B5), and a reduction that keeps more warps busy when kp < 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "delta_e.cuh"
+
 namespace {
+
+using namespace kmeans;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPixPerThread = 4;
 constexpr int kTile = kThreads * kPixPerThread;
 constexpr int kMaxBlocks = 528;  // 4 blocks on each of the H100's 132 SMs
-constexpr float kBig = 3.4e38f;
-
-#define F32(x) static_cast<float>(x)
 
 __device__ __forceinline__ float load_plane(const void* planes, int bf16,
                                             int64_t i) {
@@ -79,6 +84,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int Metric>
 __global__ void __launch_bounds__(kThreads) lloyd_tile_kernel(
     const void* __restrict__ planes, int bf16, int64_t n_pix, int64_t n_valid,
     const float* __restrict__ centroids, int kp, int k_active,
@@ -100,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) lloyd_tile_kernel(
     cent[3 * i + 0] = centroids[3 * i + 0];
     cent[3 * i + 1] = ca;
     cent[3 * i + 2] = cb;
-    chroma[i] = __fsqrt_rn(__fadd_rn(__fmul_rn(ca, ca), __fmul_rn(cb, cb)));
+    chroma[i] = kmeans::chroma(ca, cb);
   }
   for (int i = threadIdx.x; i < kp * stats; i += kThreads) acc[i] = 0.0f;
   __syncthreads();
@@ -120,25 +126,16 @@ __global__ void __launch_bounds__(kThreads) lloyd_tile_kernel(
       const float l = load_plane(planes, bf16, p);
       const float a = load_plane(planes, bf16, n_pix + p);
       const float b = load_plane(planes, bf16, 2 * n_pix + p);
-      // Pixel-side CIE94 terms, hoisted out of the centroid loop
+      // Pixel-side terms, hoisted out of the centroid loop
       // (kmeans_tpu/ops/kernels.py:1356,1387-1389).
-      const float c1 = __fsqrt_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
-      const float sc = __fadd_rn(1.0f, __fmul_rn(F32(0.045), c1));
-      const float sh = __fadd_rn(1.0f, __fmul_rn(F32(0.015), c1));
-      const float sh2 = __fmul_rn(sh, sh);
+      const float c1 = kmeans::chroma(a, b);
+      float sc, sh2;
+      cie94_weights(c1, &sc, &sh2);
       float best_d = kBig;
       int best_k = 0;
       for (int k = 0; k < k_active; ++k) {
-        const float dl = __fsub_rn(l, cent[3 * k + 0]);
-        const float da = __fsub_rn(a, cent[3 * k + 1]);
-        const float db = __fsub_rn(b, cent[3 * k + 2]);
-        const float dcab = __fsub_rn(c1, chroma[k]);
-        const float hsq = __fsub_rn(
-            __fadd_rn(__fmul_rn(da, da), __fmul_rn(db, db)), __fmul_rn(dcab, dcab));
-        const float dhab_sq = fmaxf(hsq, 0.0f);
-        const float t = __fdiv_rn(dcab, sc);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dl, dl), __fmul_rn(t, t)),
-                                  __fdiv_rn(dhab_sq, sh2));
+        const float d = pixel_distance<Metric>(l, a, b, c1, sc, sh2, cent[3 * k + 0],
+                                               cent[3 * k + 1], cent[3 * k + 2], chroma[k]);
         if (d < best_d) {
           best_d = d;
           best_k = k;
@@ -213,29 +210,34 @@ int kmeans_lloyd_grid_blocks(int64_t n_pix) {
 // Launches both kernels on `stream` and returns the first launch error
 // (0 on success). All pointers are device pointers: planes [3 * n_pix]
 // f32 (bf16 = 0) or bf16 bits (bf16 = 1), n_pix a multiple of 1024;
-// centroids [kp * 3] f32; weight [n_pix] f32 or null; partials
+// centroids [kp * 3] f32; metric 0 (CIE94) or 1 (CIEDE2000); weight
+// [n_pix] f32 or null; partials
 // [n_blocks * kp * stats] f32 with n_blocks = kmeans_lloyd_grid_blocks;
 // out [kp * stats] f32. It allocates nothing and does not synchronise.
 int kmeans_lloyd_accumulate(const void* planes, int bf16, int64_t n_pix,
                             int64_t n_valid, const void* centroids, int kp,
-                            int k_active, const void* weight, int stats,
+                            int k_active, int metric, const void* weight,
+                            int stats,
                             void* partials, int n_blocks, void* out,
                             void* stream) {
   if (n_pix % kTile != 0 || (stats != 4 && stats != 5) ||
-      n_blocks != kmeans_lloyd_grid_blocks(n_pix)) {
+      n_blocks != kmeans_lloyd_grid_blocks(n_pix) ||
+      (metric != kmeans::kMetricCie94 && metric != kmeans::kMetricCie2000)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(float) * (static_cast<size_t>(kp) * (4 + stats) +
                                        5 * static_cast<size_t>(kTile)) +
                       sizeof(int) * kTile;
+  const auto kernel = metric == kmeans::kMetricCie2000
+                          ? lloyd_tile_kernel<kmeans::kMetricCie2000>
+                          : lloyd_tile_kernel<kmeans::kMetricCie94>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lloyd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lloyd_tile_kernel<<<n_blocks, kThreads, smem, s>>>(
+  kernel<<<n_blocks, kThreads, smem, s>>>(
       planes, bf16, n_pix, n_valid, static_cast<const float*>(centroids), kp,
       k_active, static_cast<const float*>(weight), stats,
       static_cast<float*>(partials));

@@ -1,11 +1,12 @@
 // Fused assign pass for Hopper (sm_90a): u8 sRGB -> Lab -> (Bayer dither)
-// -> CIE94 argmin over a palette -> bit-packed palette indices.
+// -> CIE94 or CIEDE2000 argmin over a palette -> bit-packed palette indices.
 //
 // Replaces the Pallas TPU kernel `kmeans_tpu/ops/kernels.py::_quantize_kernel`
 // in packed-index mode (`fused_assign_packed`), for replace and dither with
-// the exact CIE94 metric. The words it writes equal the reference's word for
-// word, pad bits included: the plain PyTorch twin
-// `kmeans_tpu_torch/ops/kernels.py::assign_packed_reference` is the spec.
+// the exact CIE94 and CIEDE2000 metrics. Under CIE94 the words it writes
+// equal the reference's word for word, pad bits included: the plain PyTorch
+// twin `kmeans_tpu_torch/ops/kernels.py::assign_packed_reference` is the
+// spec.
 //
 // Design (for the GPU, not a block-by-block copy of the TPU kernel):
 // - One thread per output word. Word (tile t, row r < blk, lane l), with
@@ -21,6 +22,8 @@
 //   live in shared memory; the centroid loop is a runtime loop over
 //   k < k_active with strict `<`, so the first minimum wins and no
 //   compile-time cap on k exists (k = 1024 uses 16 KB).
+// - The metric is a template parameter (delta_e.cuh::pixel_distance); the
+//   launcher picks the instance from its runtime argument.
 //
 // Float rounding: every operation is one IEEE float32 operation in the
 // reference's order, written with the _rn intrinsics so that none is fused
@@ -33,37 +36,22 @@
 //
 // What bounds it on this card: at k = 8 it reads 3 B/px and writes at most
 // 0.5 B/px, so the per-pixel powf calls and the per-pixel, per-centroid
-// divides and square root, not memory bandwidth, are the likely bound.
-// Left for later: the factorised CIE94 score (divide-free centroid loop),
-// vectorised 16-byte loads, and the colour-out, meld and CIEDE2000 modes.
+// divides and square root, not memory bandwidth, are the likely bound;
+// under CIEDE2000 the per-centroid atan2f, sinf, cosf and expf calls more
+// so. Left for later: the factorised CIE94 score (divide-free centroid
+// loop), vectorised 16-byte loads, and the colour-out mode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "colorspace.cuh"
+#include "delta_e.cuh"
+
 namespace {
 
+using namespace kmeans;
+
 constexpr int kLanes = 128;
-constexpr float kBig = 3.4e38f;
-
-// The reference's constants are Python floats (doubles) rounded to
-// float32, so they are written as double literals cast to float here.
-#define F32(x) static_cast<float>(x)
-
-__device__ __forceinline__ float lab_f(float t) {
-  if (t > F32(0.008856)) {
-    return powf(fmaxf(t, 0.0f), F32(1.0 / 3.0));
-  }
-  return __fadd_rn(__fmul_rn(F32(7.787), t), F32(16.0 / 116.0));
-}
-
-// (row0 * r + row1 * g + row2 * b) / wp, summed left to right.
-__device__ __forceinline__ float xyz_over_wp(float m0, float m1, float m2,
-                                             float r, float g, float b,
-                                             float wp) {
-  float s = __fadd_rn(__fmul_rn(m0, r), __fmul_rn(m1, g));
-  s = __fadd_rn(s, __fmul_rn(m2, b));
-  return __fdiv_rn(s, wp);
-}
 
 // (M4[y % 4][x % 4] / 16) - 0.5 in closed form
 // (kmeans_tpu/ops/kernels.py::_bayer_value).
@@ -75,6 +63,7 @@ __device__ __forceinline__ float bayer_value(int64_t x, int64_t y) {
   return __fsub_rn(__fdiv_rn(m, 16.0f), 0.5f);
 }
 
+template <int Metric>
 __global__ void assign_packed_kernel(
     const uint8_t* __restrict__ rgb, int64_t n, int64_t width,
     const float* __restrict__ centroids, int kp, int k_active,
@@ -93,7 +82,7 @@ __global__ void assign_packed_kernel(
     cent[3 * i + 0] = centroids[3 * i + 0];
     cent[3 * i + 1] = ca;
     cent[3 * i + 2] = cb;
-    chroma[i] = __fsqrt_rn(__fadd_rn(__fmul_rn(ca, ca), __fmul_rn(cb, cb)));
+    chroma[i] = kmeans::chroma(ca, cb);
   }
   __syncthreads();
 
@@ -111,27 +100,9 @@ __global__ void assign_packed_kernel(
   uint32_t word = 0;
   for (int j = 0; j < ppw; ++j) {
     const int64_t p = ((tile * tile_rows) + j * blk + r) * kLanes + lane;
-    float lr = 0.0f, lg = 0.0f, lb = 0.0f;
-    if (p < n) {
-      lr = lut[rgb[3 * p + 0]];
-      lg = lut[rgb[3 * p + 1]];
-      lb = lut[rgb[3 * p + 2]];
-    } else {
-      lr = lg = lb = lut[0];
-    }
     // sRGB -> Lab (kmeans_tpu/ops/kernels.py::_lab_from_linear_planes).
-    const float fx = lab_f(xyz_over_wp(F32(0.4124564), F32(0.3575761),
-                                       F32(0.1804375), lr, lg, lb,
-                                       F32(95.0489)));
-    const float fy = lab_f(xyz_over_wp(F32(0.2126729), F32(0.7151522),
-                                       F32(0.0721750), lr, lg, lb,
-                                       F32(100.0)));
-    const float fz = lab_f(xyz_over_wp(F32(0.0193339), F32(0.1191920),
-                                       F32(0.9503041), lr, lg, lb,
-                                       F32(108.8840)));
-    float l = __fsub_rn(__fmul_rn(116.0f, fy), 16.0f);
-    float a = __fmul_rn(500.0f, __fsub_rn(fx, fy));
-    float b = __fmul_rn(200.0f, __fsub_rn(fy, fz));
+    float l, a, b;
+    pixel_lab(rgb, n, p, lut, &l, &a, &b);
 
     if (dither) {
       const int64_t px = p % width;
@@ -142,26 +113,17 @@ __global__ void assign_packed_kernel(
       b = __fadd_rn(b, adjust);
     }
 
-    // Pixel-side CIE94 terms, hoisted out of the centroid loop
-    // (kmeans_tpu/ops/kernels.py:823-826).
-    const float c1 = __fsqrt_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
-    const float sc = __fadd_rn(1.0f, __fmul_rn(F32(0.045), c1));
-    const float sh = __fadd_rn(1.0f, __fmul_rn(F32(0.015), c1));
-    const float sh2 = __fmul_rn(sh, sh);
+    // Pixel-side terms, hoisted out of the centroid loop
+    // (kmeans_tpu/ops/kernels.py:823-826, 863).
+    const float c1 = kmeans::chroma(a, b);
+    float sc, sh2;
+    cie94_weights(c1, &sc, &sh2);
 
     float best_d = kBig;
     int best_k = 0;
     for (int k = 0; k < k_active; ++k) {
-      const float dl = __fsub_rn(l, cent[3 * k + 0]);
-      const float da = __fsub_rn(a, cent[3 * k + 1]);
-      const float db = __fsub_rn(b, cent[3 * k + 2]);
-      const float dcab = __fsub_rn(c1, chroma[k]);
-      const float hsq = __fsub_rn(
-          __fadd_rn(__fmul_rn(da, da), __fmul_rn(db, db)), __fmul_rn(dcab, dcab));
-      const float dhab_sq = fmaxf(hsq, 0.0f);
-      const float t = __fdiv_rn(dcab, sc);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dl, dl), __fmul_rn(t, t)),
-                                __fdiv_rn(dhab_sq, sh2));
+      const float d = pixel_distance<Metric>(l, a, b, c1, sc, sh2, cent[3 * k + 0],
+                                             cent[3 * k + 1], cent[3 * k + 2], chroma[k]);
       if (d < best_d) {
         best_d = d;
         best_k = k;
@@ -178,26 +140,32 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns the launch's cudaError_t
 // (0 on success). All pointers are device pointers: rgb [n * 3] u8,
-// centroids [kp * 3] f32, gamma_lut [256] f32, threshold [1] f32,
+// centroids [kp * 3] f32, metric 0 (CIE94) or 1 (CIEDE2000),
+// gamma_lut [256] f32, threshold [1] f32,
 // out [n_words] i32 with n_words = n_pad / ppw, n_pad a multiple of
 // tile_rows * 128. It allocates nothing and does not synchronise.
 int kmeans_assign_packed(const void* rgb, int64_t n, int64_t width,
                          const void* centroids, int kp, int k_active,
-                         const void* gamma_lut, const void* threshold,
-                         int dither, int64_t row_offset, int bits,
-                         int tile_rows, void* out, int64_t n_words,
-                         void* stream) {
+                         int metric, const void* gamma_lut,
+                         const void* threshold, int dither,
+                         int64_t row_offset, int bits, int tile_rows,
+                         void* out, int64_t n_words, void* stream) {
+  if (metric != kmeans::kMetricCie94 && metric != kmeans::kMetricCie2000) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = metric == kmeans::kMetricCie2000
+                          ? assign_packed_kernel<kmeans::kMetricCie2000>
+                          : assign_packed_kernel<kmeans::kMetricCie94>;
   const int threads = 256;
   const int64_t blocks = (n_words + threads - 1) / threads;
   const size_t smem = sizeof(float) * (256 + 4 * static_cast<size_t>(kp));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        assign_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  assign_packed_kernel<<<static_cast<unsigned int>(blocks), threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned int>(blocks), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), n, width,
       static_cast<const float*>(centroids), kp, k_active,
       static_cast<const float*>(gamma_lut),

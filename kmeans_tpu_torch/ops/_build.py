@@ -4,8 +4,9 @@
 process for each source, all started together) and links them into one
 shared library with a plain C interface, caches it under
 `build/kmeans_tpu_torch/` at the root of the checkout, and loads it with
-`ctypes`. The file name carries a hash of the sources, the flags and the
-compiler path, so an unchanged tree builds once. `nvcc` is taken from
+`ctypes`. The file name carries a hash of the sources and the headers they
+include (`csrc/*.cuh`), the flags and the compiler path, so an unchanged
+tree builds once and an edited header builds anew. `nvcc` is taken from
 `CUDA_HOME` (or `CUDA_PATH`), else from `PATH`, else from the toolkit's
 default `/usr/local/cuda`. A failed build raises with the compiler's
 output. Nothing here runs at import time.
@@ -60,13 +61,19 @@ def find_nvcc() -> str:
 
 
 def _sources() -> list[Path]:
+    """The files compiled, one `nvcc` process each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_files() -> list[Path]:
+    """The sources and the headers they include."""
+    return _sources() + sorted(CSRC.glob("*.cuh"))
 
 
 def library_path(nvcc: str) -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -123,7 +130,7 @@ def load_library() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.kmeans_assign_packed.argtypes = [
             p, i64, i64,       # rgb, n, width
-            p, i32, i32,       # centroids, kp, k_active
+            p, i32, i32, i32,  # centroids, kp, k_active, metric
             p, p,              # gamma_lut, threshold
             i32, i64,          # dither, row_offset
             i32, i32,          # bits, tile_rows
@@ -131,11 +138,19 @@ def load_library() -> ctypes.CDLL:
             p,                 # stream
         ]
         lib.kmeans_assign_packed.restype = i32
+        lib.kmeans_meld_packed.argtypes = [
+            p, i64,            # rgb, n
+            p, i32, i32, i32,  # centroids, kp, k_active, metric
+            p, i32,            # gamma_lut, tile_rows
+            p, i64,            # out, n_groups
+            p,                 # stream
+        ]
+        lib.kmeans_meld_packed.restype = i32
         lib.kmeans_lloyd_grid_blocks.argtypes = [i64]
         lib.kmeans_lloyd_grid_blocks.restype = i32
         lib.kmeans_lloyd_accumulate.argtypes = [
             p, i32, i64, i64,  # planes, bf16, n_pix, n_valid
-            p, i32, i32,       # centroids, kp, k_active
+            p, i32, i32, i32,  # centroids, kp, k_active, metric
             p, i32,            # weight (or null), stats
             p, i32, p,         # partials, n_blocks, out
             p,                 # stream

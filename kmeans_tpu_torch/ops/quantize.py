@@ -1,7 +1,7 @@
-"""Replace and ordered-dither output modes, in plain PyTorch.
+"""Replace, ordered-dither and meld output modes, in plain PyTorch.
 
-Port of `kmeans_tpu/ops/quantize.py` for `replace` and `dither` (meld is
-not ported yet: ROADMAP B3). Distances are CIE94 with the pixel first.
+Port of `kmeans_tpu/ops/quantize.py`. Distances are CIE94 or CIEDE2000
+(`metric=`), with the pixel first.
 
 - replace: each pixel takes its nearest centroid.
 - dither: 4x4 Bayer ordered dithering in Lab. The threshold is the
@@ -9,9 +9,15 @@ not ported yet: ROADMAP B3). Distances are CIE94 with the pixel first.
   distance, divided by sqrt(k); the adjusted colour is
   `lab + threshold * (bayer(x, y) - 0.5)` on L, a and b alike, and the
   output is the centroid nearest to it.
+- meld: a blend of the two closest centroids weighted by relative
+  distance, `factor = d(pixel, second) / d(closest, second)`,
+  `out = factor * closest + (1 - factor) * second`. Two centroids of one
+  colour give `0 / 0` or `x / 0`, a NaN blend, which the reference writes
+  as black; so does the port.
+- k == 1 short-circuits dither and meld to the single palette colour.
 
 These are the port's plain versions: `ops/kernels.py` holds the CUDA
-kernel that does the same per pixel in one pass.
+kernels that do the same per pixel in one pass.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from kmeans_tpu_torch.ops._math import div
-from kmeans_tpu_torch.ops.colorspace import lab_to_srgb8, srgb8_to_lab
+from kmeans_tpu_torch.ops.colorspace import lab_to_srgb, lab_to_srgb8, srgb8_to_lab
 from kmeans_tpu_torch.ops.delta_e import metric_fns
 
 # 4x4 Bayer index matrix, row-major (kmeans_tpu/ops/quantize.py:41).
@@ -31,6 +37,9 @@ BAYER_4X4 = (
 )
 
 _BIG = 3.4e38  # above any CIE94^2
+# Pixel x palette elements of one row chunk of `_meld_chunked`
+# (kmeans_tpu/ops/quantize.py:211).
+_MELD_CHUNK_ELEMS = 1 << 26
 
 
 def _valid_mask(k: int, k_active, device) -> torch.Tensor:
@@ -109,8 +118,9 @@ def assign_index(
     row_offset: int = 0,
     metric: str = "cie94",
 ) -> torch.Tensor:
-    """Per-pixel palette index `[H, W]` for replace or dither. Dither's
-    k == 1 case needs no branch: index 0 is the only active entry."""
+    """Per-pixel palette index `[H, W]` for replace or dither (meld blends
+    colours, so it has no index). Dither's k == 1 case needs no branch:
+    index 0 is the only active entry."""
     if mode == "replace":
         return nearest_index(lab, palette, k_active, metric)
     if mode == "dither":
@@ -119,11 +129,49 @@ def assign_index(
         bayer = bayer_values(h, w, row_offset, lab.device)
         adjusted = lab + (threshold * bayer)[..., None]
         return nearest_index(adjusted, palette, k_active, metric)
-    if mode == "meld":
-        raise NotImplementedError(
-            "meld is not ported to the PyTorch package yet (ROADMAP B3)"
-        )
-    raise ValueError(f"unknown mode {mode!r}")
+    raise ValueError("assign_index supports replace/dither only")
+
+
+def meld(
+    lab: torch.Tensor, palette: torch.Tensor, k_active=None, metric: str = "cie94"
+) -> torch.Tensor:
+    """Blend of the two closest centroids (kmeans_tpu/ops/quantize.py:176).
+    Palettes above 64 entries take row chunks of `[H, W, 3]` images, so the
+    `[pixels, K]` distance matrix stays bounded."""
+    if palette.shape[0] == 1:
+        return palette[0].expand(lab.shape)
+    if palette.shape[0] > 64 and lab.dim() == 3:
+        return _meld_chunked(lab, palette, k_active, metric)
+    return _meld_block(lab, palette, k_active, metric)
+
+
+def _meld_block(lab, palette, k_active=None, metric="cie94"):
+    """The two smallest distances with the first index winning ties, as
+    `lax.top_k` orders them: the first argmin, then the argmin of the rest."""
+    dist, _ = metric_fns(metric)
+    k = palette.shape[0]
+    d2 = _d2_matrix(lab, palette, _valid_mask(k, k_active, lab.device), metric)
+    idx1 = torch.argmin(d2, dim=-1)
+    first = torch.arange(k, device=lab.device) == idx1[..., None]
+    idx2 = torch.argmin(torch.where(first, torch.full_like(d2, float("inf")), d2), dim=-1)
+    closest = palette[idx1]
+    second = palette[idx2]
+    factor = (dist(lab, second) / dist(closest, second))[..., None]
+    out = factor * closest + (1.0 - factor) * second
+    if (k if k_active is None else k_active) == 1:
+        return palette[0].expand(out.shape)
+    return out
+
+
+def _meld_chunked(lab, palette, k_active=None, metric="cie94"):
+    """Row-chunked meld: each chunk's `[rows, W, K]` intermediates stay
+    near 256 MB (kmeans_tpu/ops/quantize.py:207). Unlike the reference,
+    the last chunk is not padded to a whole chunk."""
+    h, w = lab.shape[0], lab.shape[1]
+    rows = max(1, _MELD_CHUNK_ELEMS // max(w * palette.shape[0], 1))
+    return torch.cat([
+        _meld_block(lab[r:r + rows], palette, k_active, metric) for r in range(0, h, rows)
+    ])
 
 
 def quantize_image(
@@ -135,9 +183,14 @@ def quantize_image(
     metric: str = "cie94",
 ) -> torch.Tensor:
     """Full-resolution output pass, uint8 `[H, W, 3|4]` -> uint8 RGBA with
-    alpha 255 (kmeans_tpu/ops/quantize.py:224), for replace and dither."""
+    alpha 255 (kmeans_tpu/ops/quantize.py:224). A NaN meld blend becomes
+    black, as the reference's float-to-integer conversion writes it."""
     lab = srgb8_to_lab(rgba_u8[..., :3])
-    idx = assign_index(lab, palette_lab, mode, k_active, row_offset, metric)
-    rgb8 = lab_to_srgb8(palette_lab)[idx]
+    if mode == "meld":
+        blend = torch.nan_to_num(lab_to_srgb(meld(lab, palette_lab, k_active, metric)), nan=0.0)
+        rgb8 = torch.round(blend * 255.0).to(torch.uint8)
+    else:
+        idx = assign_index(lab, palette_lab, mode, k_active, row_offset, metric)
+        rgb8 = lab_to_srgb8(palette_lab)[idx]
     alpha = torch.full(rgb8.shape[:-1] + (1,), 255, dtype=torch.uint8, device=rgb8.device)
     return torch.cat([rgb8, alpha], dim=-1)

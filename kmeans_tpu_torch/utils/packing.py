@@ -1,13 +1,20 @@
 """Bit-packed index words: widths and the host-side (numpy) inverse.
 
 Re-implementation of the numpy half of `kmeans_tpu/utils/packing.py`
-(`pack_bits:31`, `unpack_tile_words:67`, `unpack_tile_words_gather:102`);
-the port cannot import that module, because `kmeans_tpu` imports JAX.
+(`pack_bits:31`, `unpack_tile_words:67`, `unpack_tile_words_gather:102`,
+`unpack_rgb24_tile_words:135`, `_unpack_rgb24_np:162`); the port cannot
+import that module, because `kmeans_tpu` imports JAX. The port has no
+native codec, so the numpy versions are the only ones.
 
 The assign kernel packs `32 // bits` pixel indices into each int32 word.
 Word `(tile t, row r < blk, lane l)`, with `blk = tile_rows // ppw`, holds
 the pixels `((t * tile_rows) + j * blk + r) * 128 + l` for `j < ppw`, index
 `j` at bit `bits * j`.
+
+The meld kernel packs the RGB bytes of 4 pixels into 3 words: with
+`blk = tile_rows // 4`, word row `t * 3 * blk + j * blk + r` holds the
+pixels `((t * tile_rows) + s * blk + r) * 128 + l`, `s < 4`, low byte
+first: `j = 0`: R0 G0 B0 R1; `j = 1`: G1 B1 R2 G2; `j = 2`: B2 R3 G3 B3.
 """
 
 from __future__ import annotations
@@ -69,3 +76,49 @@ def unpack_tile_words_gather(
     idx = unpack_tile_words(words, h, w, bits, tile_rows, lanes)
     pal = np.ascontiguousarray(palette_rgba, dtype=np.uint8).reshape(-1, 4)
     return pal.view(np.uint32).reshape(-1)[idx].view(np.uint8).reshape(h, w, 4)
+
+
+def unpack_rgb24_tile_words(
+    words: np.ndarray,
+    h: int,
+    w: int,
+    tile_rows: int,
+    lanes: int = 128,
+) -> np.ndarray:
+    """Invert the meld kernel's RGB byte pack: `[M, lanes]` int32 words ->
+    `[h, w, 4]` uint8 RGBA with alpha 255. `tile_rows` must be
+    `ops.kernels.quant_tile_rows(kp)`."""
+    return _unpack_rgb24_np(words, h, w, tile_rows, lanes)
+
+
+def _unpack_rgb24_np(
+    words: np.ndarray,
+    h: int,
+    w: int,
+    tile_rows: int,
+    lanes: int = 128,
+) -> np.ndarray:
+    """Numpy spec of `unpack_rgb24_tile_words`."""
+    blk = tile_rows // 4
+    wb = (
+        np.ascontiguousarray(words)
+        .view(np.uint32)
+        .astype("<u4")
+        .view(np.uint8)
+        .reshape(words.shape[0], lanes, 4)
+    )
+    n_tiles = words.shape[0] // (3 * blk)
+    wb = wb.reshape(n_tiles, 3 * blk, lanes, 4)
+    w0, w1, w2 = wb[:, :blk], wb[:, blk : 2 * blk], wb[:, 2 * blk :]
+    rgb = np.empty((n_tiles, tile_rows, lanes, 3), np.uint8)
+    rgb[:, 0:blk] = w0[..., 0:3]
+    rgb[:, blk : 2 * blk, :, 0] = w0[..., 3]
+    rgb[:, blk : 2 * blk, :, 1:3] = w1[..., 0:2]
+    rgb[:, 2 * blk : 3 * blk, :, 0:2] = w1[..., 2:4]
+    rgb[:, 2 * blk : 3 * blk, :, 2] = w2[..., 0]
+    rgb[:, 3 * blk :] = w2[..., 1:4]
+    flat = rgb.reshape(-1, 3)[: h * w]
+    out = np.empty((h * w, 4), np.uint8)
+    out[:, :3] = flat
+    out[:, 3] = 255
+    return out.reshape(h, w, 4)

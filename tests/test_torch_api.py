@@ -101,9 +101,11 @@ def test_rgb_color_space_palette(processors):
 def test_cpu_path_launches_no_kernel(processors, monkeypatch):
     _, port = processors
     monkeypatch.setattr(kernels, "ASSIGN_PACKED_LAUNCHES", 0)
+    monkeypatch.setattr(kernels, "MELD_PACKED_LAUNCHES", 0)
     port.reduce(4, _image(40, 50))
     port.find(_image(40, 50), [[0, 0, 0], [255, 255, 255]])
-    assert kernels.ASSIGN_PACKED_LAUNCHES == 0
+    port.find(_image(40, 50), [[0, 0, 0], [255, 255, 255]], kt.ReduceMode.MELD)
+    assert kernels.ASSIGN_PACKED_LAUNCHES == kernels.MELD_PACKED_LAUNCHES == 0
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -116,7 +118,7 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"delta_e": "2000"}, "B4"), ({"bucketing": True}, "A.9"),
+    [({"delta_e": "2000", "fast": True}, "B5"), ({"bucketing": True}, "A.9"),
      ({"fast": True}, "B5"), ({"pipeline": True}, "A.13")],
 )
 def test_unported_options_raise(kwargs, item):
@@ -141,12 +143,15 @@ def test_ported_options_accepted(processors, kwargs):
 
 
 def test_unported_modes_raise(processors):
+    """Meld runs (any palette size); what stays refused raises and names
+    its ROADMAP item."""
     _, port = processors
     img = _image(20, 30)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        port.reduce(4, img, reduce_mode=kt.ReduceMode.MELD)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        port.find(img, [[1, 2, 3]], kt.ReduceMode.MELD)
+    assert port.reduce(4, img, reduce_mode=kt.ReduceMode.MELD).pixels.shape == (20, 30, 4)
+    one = port.find(img, [[1, 2, 3]], kt.ReduceMode.MELD).pixels
+    assert (one.reshape(-1, 4) == [1, 2, 3, 255]).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        port.find(img, np.zeros((1025, 3), np.uint8), kt.ReduceMode.DITHER)
     for algo in (kt.Algorithm.OCTREE, kt.Algorithm.WU, kt.Algorithm.MEDIANCUT):
         with pytest.raises(NotImplementedError):
             port.reduce(4, img, algo)
@@ -174,6 +179,7 @@ def test_port_and_chip_smoke_never_import_jax():
     module of the port, and not chip_smoke.py, imports jax or kmeans_tpu."""
     files = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"delta_e.py", "kernels.py", "quantize.py", "packing.py"} <= {f.name for f in files}
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

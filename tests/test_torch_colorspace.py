@@ -91,7 +91,6 @@ def test_cie94_matches_reference():
 
 def test_metric_fns():
     assert de.metric_fns("cie94") == (de.distance_cie94, de.distance_cie94_sq)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        de.metric_fns("cie2000")
+    assert de.metric_fns("cie2000") == (de.distance_cie2000, de.distance_cie2000_sq)
     with pytest.raises(ValueError):
         de.metric_fns("cie76")

@@ -1,4 +1,4 @@
-"""The port on a CUDA card: the hand-written kernel against its plain twin.
+"""The port on a CUDA card: the hand-written kernels against their plain twins.
 
 These tests need a card and skip without one. This file imports neither
 JAX nor `kmeans_tpu`, so it also runs where JAX is not installed:
@@ -13,7 +13,9 @@ import torch
 from kmeans_tpu_torch import ImageProcessor, ReduceMode
 from kmeans_tpu_torch.ops import kernels
 from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+from kmeans_tpu_torch.ops.delta_e import distance_cie2000_sq
 from kmeans_tpu_torch.ops.quantize import dither_threshold
+from kmeans_tpu_torch.utils.packing import pack_bits, unpack_rgb24_tile_words, unpack_tile_words
 
 torch.set_num_threads(2)
 
@@ -46,6 +48,57 @@ def test_kernel_matches_twin(cuda, k, mode):
     assert torch.equal(got, want)
 
 
+def _index_flips(got, want, h, w, k):
+    bits, rows = pack_bits(k), kernels.quant_tile_rows(k)
+    gi = unpack_tile_words(got.cpu().numpy(), h, w, bits, rows).astype(np.int64)
+    wi = unpack_tile_words(want.cpu().numpy(), h, w, bits, rows).astype(np.int64)
+    return np.flatnonzero(gi != wi), gi.reshape(-1), wi.reshape(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k", [("replace", 8), ("dither", 17), ("replace", 300)])
+def test_cie2000_kernel_matches_twin(cuda, mode, k):
+    """CIEDE2000 assign: flips are counted, and each must be a near-tie
+    (the twin's two distances within 1e-5 of each other)."""
+    rgb, cents = _case(61, 97, k, 700 + k, cuda)
+    thr = dither_threshold(cents, metric="cie2000") if mode == "dither" else 0.0
+    got = kernels.assign_packed(rgb, cents, thr, mode=mode, metric="cie2000")
+    want = kernels.assign_packed_reference(rgb, cents, thr, mode=mode, metric="cie2000")
+    flips, gi, wi = _index_flips(got, want, 61, 97, k)
+    if len(flips) and mode == "replace":
+        lab = srgb8_to_lab(rgb.reshape(-1, 3))[flips]
+        dg = distance_cie2000_sq(lab, cents[gi[flips]])
+        dw = distance_cie2000_sq(lab, cents[wi[flips]])
+        assert ((dg - dw).abs() <= 1e-5 * torch.maximum(dg, dw)).all()
+    assert len(flips) <= 61 * 97 // 10000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,metric,repeat",
+    [(1, "cie94", False), (2, "cie2000", False), (8, "cie94", True), (17, "cie2000", True),
+     (256, "cie94", False), (1025, "cie2000", False)],
+)
+def test_meld_kernel_matches_twin(cuda, k, metric, repeat):
+    """CIE94: equal words; CIEDE2000: every channel within 1 u8 step on at
+    most 1e-4 of the pixels. A repeated colour writes black as the twin."""
+    rgb, cents = _case(61, 97, k, 800 + k, cuda)
+    if repeat:
+        cents[-1] = cents[0]
+    before = kernels.MELD_PACKED_LAUNCHES
+    got = kernels.meld_packed(rgb, cents, metric=metric)
+    want = kernels.meld_packed_reference(rgb, cents, metric=metric)
+    torch.cuda.synchronize()
+    assert kernels.MELD_PACKED_LAUNCHES == before + 1
+    if metric == "cie94":
+        assert torch.equal(got, want)
+    rows = kernels.quant_tile_rows(k)
+    a = unpack_rgb24_tile_words(got.cpu().numpy(), 61, 97, rows).astype(int)
+    b = unpack_rgb24_tile_words(want.cpu().numpy(), 61, 97, rows).astype(int)
+    step = np.abs(a - b).max(-1)
+    assert step.max() <= 1 and (step > 0).sum() <= 61 * 97 // 10000
+
+
 @pytest.mark.cuda
 def test_reduce_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(7)
@@ -72,18 +125,21 @@ def _planes(n, k, seed, device, bf16=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "k,k_active,inertia,bf16",
-    [(1, None, False, False), (8, None, True, False), (17, 11, True, False),
-     (65, None, False, True), (512, 300, True, False)],
+    "k,k_active,inertia,bf16,metric",
+    [(1, None, False, False, "cie94"), (8, None, True, False, "cie94"),
+     (17, 11, True, False, "cie94"), (65, None, False, True, "cie94"),
+     (512, 300, True, False, "cie94"), (8, None, True, False, "cie2000"),
+     (65, 40, False, True, "cie2000")],
 )
-def test_accumulator_kernel_matches_twin(cuda, k, k_active, inertia, bf16):
+def test_accumulator_kernel_matches_twin(cuda, k, k_active, inertia, bf16, metric):
     """Counts equal; the other columns within 1e-5 * (|twin| + 128 * count);
     a second launch gives the same totals."""
     planes, cents, n = _planes(40_001, k, 600 + k, cuda, bf16)
     before = kernels.LLOYD_ACCUMULATE_LAUNCHES
-    got = kernels.lloyd_accumulate(planes, cents, n, k_active, emit_inertia=inertia)
-    again = kernels.lloyd_accumulate(planes, cents, n, k_active, emit_inertia=inertia)
-    want = kernels.lloyd_accumulate_reference(planes, cents, n, k_active, emit_inertia=inertia)
+    args = (planes, cents, n, k_active)
+    got = kernels.lloyd_accumulate(*args, emit_inertia=inertia, metric=metric)
+    again = kernels.lloyd_accumulate(*args, emit_inertia=inertia, metric=metric)
+    want = kernels.lloyd_accumulate_reference(*args, emit_inertia=inertia, metric=metric)
     torch.cuda.synchronize()
     assert kernels.LLOYD_ACCUMULATE_LAUNCHES == before + 2
     assert torch.equal(got, again)
@@ -108,3 +164,31 @@ def test_full_resolution_palette_on_card_matches_cpu(cuda, monkeypatch):
     assert kernels.LLOYD_ACCUMULATE_LAUNCHES == before + card.last_iterations
     on_cpu = ImageProcessor(device="cpu", train_max_size=None).palette(8, img)
     np.testing.assert_array_equal(on_card, on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta_e", ["94", "2000"])
+def test_meld_and_cie2000_reduce_on_card_match_cpu(cuda, delta_e):
+    """Meld reduce and find, and a dither reduce, on the card against the
+    CPU: within 1 u8 step on at most 1e-3 of the pixels for meld (its blend
+    sees the last bits of the centroids and of each device's powf, atan2,
+    sin and cos), 1e-4 for dither."""
+    rng = np.random.default_rng(9)
+    y, x = np.mgrid[0:90, 0:130]
+    rgb = np.stack([x * 255 // 130, y * 255 // 90, (x + y) * 255 // 220], -1)
+    rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
+    img = np.concatenate([rgb, np.full((90, 130, 1), 255, np.uint8)], -1)
+    colors = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    card, cpu = ImageProcessor(delta_e=delta_e), ImageProcessor(device="cpu", delta_e=delta_e)
+    before = kernels.MELD_PACKED_LAUNCHES
+    pairs = [(card.reduce(8, img, reduce_mode=ReduceMode.MELD).pixels,
+              cpu.reduce(8, img, reduce_mode=ReduceMode.MELD).pixels),
+             (card.find(img, colors, ReduceMode.MELD).pixels,
+              cpu.find(img, colors, ReduceMode.MELD).pixels),
+             (card.reduce(8, img, reduce_mode=ReduceMode.DITHER).pixels,
+              cpu.reduce(8, img, reduce_mode=ReduceMode.DITHER).pixels)]
+    assert kernels.MELD_PACKED_LAUNCHES == before + 2
+    np.testing.assert_array_equal(card.palette(8, img), cpu.palette(8, img))
+    for (on_card, on_cpu), bar in zip(pairs, (1e-3, 1e-3, 1e-4)):
+        step = np.abs(on_card.astype(int) - on_cpu.astype(int)).max(-1)
+        assert step.max() <= 1 and (step > 0).sum() <= bar * 90 * 130

@@ -129,7 +129,7 @@ def test_cpu_call_does_not_count_a_launch(monkeypatch):
 def test_wrapper_rejects_what_it_does_not_take():
     rgb, pal = _case(8, 8, 4, seed=6)
     t_rgb, cents = torch.from_numpy(rgb), centroids_from_reference(pal)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+    with pytest.raises(ValueError, match="meld_packed"):
         kernels.assign_packed(t_rgb, cents, 0.0, mode="meld")
     with pytest.raises(NotImplementedError, match="ROADMAP B2"):
         kernels.assign_packed(t_rgb, torch.zeros((1025, 3)), 0.0)
@@ -168,6 +168,23 @@ def test_build_compiles_once_per_source_hash(tmp_path, monkeypatch):
     assert first.is_file() and first.parent == tmp_path / "build"
     assert log.read_text().count("x") == len(_build._sources()) + 1
     assert list((tmp_path / "build").iterdir()) == [first]
+
+
+def test_header_edit_changes_the_library_hash(tmp_path, monkeypatch):
+    """The library's name hashes the headers (`csrc/*.cuh`) too, which are
+    not compiled on their own: an edited header builds a new library."""
+    import shutil
+
+    from kmeans_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.suffix for p in _build._sources()] == [".cu"] * len(_build._sources())
+    before = _build.library_path("nvcc")
+    header = csrc / "delta_e.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _build.library_path("nvcc") != before
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

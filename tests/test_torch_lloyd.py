@@ -125,7 +125,7 @@ def test_cpu_wrapper_runs_the_twin_and_launches_nothing(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs,error,match",
     [({"fast": True}, NotImplementedError, "ROADMAP B5"),
-     ({"metric": "cie2000"}, NotImplementedError, "ROADMAP B4"),
+     ({"metric": "cie2000", "fast": True}, NotImplementedError, "ROADMAP B5"),
      ({"metric": "cie76"}, ValueError, "unknown metric"),
      ({"k_active": 0}, ValueError, "k_active")],
 )

@@ -66,5 +66,5 @@ def test_assign_index_and_nearest_color():
     col = q.nearest_color(torch.from_numpy(lab), centroids_from_reference(pal))
     want = np.asarray(ref_q.nearest_color(jnp.asarray(lab), jnp.asarray(pal)))
     np.testing.assert_array_equal(col.numpy(), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+    with pytest.raises(ValueError, match="replace/dither only"):
         q.assign_index(torch.from_numpy(lab), centroids_from_reference(pal), "meld")
