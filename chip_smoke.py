@@ -38,15 +38,31 @@ from `kmeans_tpu_torch/csrc/` and then:
    CIEDE2000 slice (`delta_e="2000"`: replace, dither and meld reduces, a
    palette and a meld find) and the full-resolution CIEDE2000 reduce,
    each with its launch counts, its outputs against the plain versions
-   on the same palette, and a 300x420 reduce on the card against the CPU;
+   on the same palette, and a 300x420 reduce on the card against the CPU.
+   Then the fast slice (`fast=True`, which acts at 16 < k <= 512): the
+   factorized-CIE94 and pruned-CIEDE2000 tiers of the three kernels
+   against their plain versions (k = 17..513, `k_active` below the
+   candidate count, ragged shapes and 4K: equal words, equal counts);
+   4K `reduce(64)` in three modes under CIE94 and two under
+   `delta_e="2000"`, `find` with 256 colours under both, the
+   full-resolution `reduce(64)` with `restarts=2` and `palette(256)`
+   under `delta_e="2000"`, each with its launches by kernel mode and its
+   output against the plain version's; `fast_vs_exact`, the share of
+   pixels (or of per-cluster counts) each fast mode moves against the
+   exact kernel on the same palette; and a 150x210 k=24 reduce on the
+   card against the CPU;
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
-   beside its bound.
+   beside its bound; the fast modes at k = 64 and k = 256 in turns with
+   the exact kernel at the same k.
 
 Every phase prints one JSON line. The script exits non-zero on any
 failure, and when no CUDA device is present. Its last three lines are the
-kernels' summary, the card's `nvidia-smi` line, and
+kernels' summary (`launches` counts the launches of the driven paths;
+`launched_by` says whether they came through `ImageProcessor` or, for the
+one form no entry point reaches, a direct call of the wrapper), the card's
+`nvidia-smi` line, and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -65,6 +81,8 @@ HEIGHT, WIDTH = 2160, 3840
 K = 8
 COMPARE_KS = (1, 2, 4, 8, 16, 17, 256, 257, 512, 1024)
 COMPARE_KS_2000 = (1, 8, 17, 257)
+FAST_KS = (17, 64, 129, 256, 512, 513)  # 513 falls back to the exact loop
+FAST_K, FAST_K_LARGE = 64, 256  # the fast slice's palette sizes (m = 8, m = 16)
 MELD_KS = (1, 2, 8, 17, 256, 1025)
 RAGGED = ((61, 97), (257, 129), (8, 8))
 ACCUM_KS = (1, 2, 8, 17, 64, 65, 256, 512)
@@ -77,6 +95,35 @@ F32_OPS_PER_S = 67e12
 # atan2f, sinf, cosf, expf) counted as one: CIE94 16 + 2; CIEDE2000 104
 # (9 of them atan2f, sinf, cosf and expf calls) + 1.
 METRIC_OPS = {"cie94": 18, "cie2000": 105}
+# The fast tiers, as `csrc/screen.cuh` spells them. The factorized score is
+# 12 operations (6 multiplies, 6 adds) and its compare: 13 a centroid; the
+# accumulator's algebraic distance 13 (4 subtractions, 6 multiplies, 3
+# adds) and its compare: 14. Their pixel side is 20 operations (chroma 4;
+# `screen_factors` 16: S_C 2, S_H 2, rsh2 2, q 3, f0 1, f2, f4, f5 2 each)
+# where the exact forms have 9. The pruned tier needs at least
+# the score and one compare against the list for every centroid (13), and
+# for each of its min(m, k_active) survivors one walk into the list (2 m
+# selects) and one exact CIEDE2000 distance (105). The reference's
+# insertion network runs its 2 m selects for every centroid; the kernel
+# skips the walk when the score is not below the list's last, so the bound
+# counts only the walks that the result needs.
+SCREEN_OPS = 13
+ALGEBRAIC_OPS = 14
+PIXEL_OPS = {"exact": 9, "factor": 20, "algebraic": 20, "prune": 20}
+
+
+def centroid_ops(metric: str, tier: str, kp: int, k_active: int) -> int:
+    """Float32 operations of one pixel's pass over the centroids."""
+    if tier == "exact":
+        return METRIC_OPS[metric] * k_active
+    if tier == "factor":
+        return SCREEN_OPS * k_active
+    if tier == "algebraic":
+        return ALGEBRAIC_OPS * k_active
+    from kmeans_tpu_torch.ops import kernels
+
+    m = min(kernels.prune_m_for(kp), kp)
+    return SCREEN_OPS * k_active + min(m, k_active) * (2 * m + METRIC_OPS["cie2000"])
 
 
 def emit(obj) -> None:
@@ -116,7 +163,7 @@ def random_palette_lab(k: int, seed: int, device):
 
 
 def compare_case(h, w, k, mode, device, k_active=None, row_offset=0, seed=1,
-                 metric="cie94"):
+                 metric="cie94", fast=False):
     """Kernel vs plain on one case: (mismatched words, max |index diff|,
     flipped indices, whether every flip is a near-tie: the plain version's
     distances from the pixel to the two centroids within 1e-5 of each
@@ -133,8 +180,9 @@ def compare_case(h, w, k, mode, device, k_active=None, row_offset=0, seed=1,
     rgb = torch.from_numpy(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(device)
     cents = random_palette_lab(k, seed + k, device)
     thr = dither_threshold(cents, k_active, metric) if mode == "dither" else 0.0
-    got = kernels.assign_packed(rgb, cents, thr, k_active, mode, row_offset, metric)
-    want = kernels.assign_packed_reference(rgb, cents, thr, k_active, mode, row_offset, metric)
+    got = kernels.assign_packed(rgb, cents, thr, k_active, mode, row_offset, metric, fast)
+    want = kernels.assign_packed_reference(rgb, cents, thr, k_active, mode, row_offset, metric,
+                                           fast)
     torch.cuda.synchronize()
     mismatched = int((got != want).sum().item())
     bits, rows = pack_bits(k), kernels.quant_tile_rows(k)
@@ -154,7 +202,7 @@ def compare_case(h, w, k, mode, device, k_active=None, row_offset=0, seed=1,
     return mismatched, int(np.abs(gi - wi).max()), len(flips), near_ties
 
 
-def meld_case(h, w, k, metric, device, repeat=False, seed=5):
+def meld_case(h, w, k, metric, device, repeat=False, seed=5, k_active=None, fast=False):
     """Meld kernel vs plain on one case; `repeat` makes the last colour a
     copy of the first. Returns the case's JSON line: differing words, and
     the pixels that differ and their largest channel step once unpacked."""
@@ -168,16 +216,18 @@ def meld_case(h, w, k, metric, device, repeat=False, seed=5):
     cents = random_palette_lab(k, seed + k, device)
     if repeat:
         cents[-1] = cents[0]
-    got = kernels.meld_packed(rgb, cents, metric=metric)
-    want = kernels.meld_packed_reference(rgb, cents, metric=metric)
+    got = kernels.meld_packed(rgb, cents, k_active, metric, fast)
+    want = kernels.meld_packed_reference(rgb, cents, k_active, metric, fast)
     torch.cuda.synchronize()
     rows = kernels.quant_tile_rows(k)
     a = unpack_rgb24_tile_words(got.cpu().numpy(), h, w, rows).astype(np.int64)
     b = unpack_rgb24_tile_words(want.cpu().numpy(), h, w, rows).astype(np.int64)
     step = np.abs(a - b).max(-1)
     return {
-        "phase": "meld_kernel_vs_plain", "h": h, "w": w, "k": k, "metric": metric,
-        "repeated_colour": repeat, "mismatched_words": int((got != want).sum().item()),
+        "phase": "fast_meld_kernel_vs_plain" if fast else "meld_kernel_vs_plain",
+        "h": h, "w": w, "k": k, "k_active": k_active, "metric": metric,
+        "tier": kernels.assign_tier(fast, metric, k), "repeated_colour": repeat,
+        "mismatched_words": int((got != want).sum().item()),
         "differing_pixels": int((step > 0).sum()), "max_channel_step": int(step.max()),
         "pixels": h * w,
     }
@@ -202,7 +252,7 @@ def random_lab(n: int, seed: int, device):
 
 
 def accum_case(lab, k, device, k_active=None, weighted=False, inertia=False,
-               bf16=False, seed=3, metric="cie94"):
+               bf16=False, seed=3, metric="cie94", fast=False):
     """Accumulator kernel vs plain on one case. Counts must be equal, the
     other columns within 1e-5 * (|plain| + 128 * count) (`max_err_over_scale`
     <= 1e-5), and a second launch must give the same totals. Returns the
@@ -219,17 +269,18 @@ def accum_case(lab, k, device, k_active=None, weighted=False, inertia=False,
         w = kernels.pack_plane(torch.from_numpy(
             rng.integers(0, 4, n).astype(np.float32)).to(device))
     args = (planes, cents, n, k_active, w, metric)
-    got = kernels.lloyd_accumulate(*args, emit_inertia=inertia)
-    again = kernels.lloyd_accumulate(*args, emit_inertia=inertia)
-    want = kernels.lloyd_accumulate_reference(*args, emit_inertia=inertia)
+    got = kernels.lloyd_accumulate(*args, emit_inertia=inertia, fast=fast)
+    again = kernels.lloyd_accumulate(*args, emit_inertia=inertia, fast=fast)
+    want = kernels.lloyd_accumulate_reference(*args, emit_inertia=inertia, fast=fast)
     torch.cuda.synchronize()
     err = (got.double() - want.double()).abs()
     scale = want.double().abs() + 128.0 * want[:, 3:4].double()
     # 0 / 0 (an empty cluster) is no error; any error where the scale is 0 fails.
     ratio = torch.where(scale > 0, err / scale.clamp(min=1e-300), err * float("inf"))
     return {
-        "phase": "lloyd_kernel_vs_plain", "pixels": n, "k": k, "k_active": k_active,
-        "metric": metric,
+        "phase": "fast_lloyd_kernel_vs_plain" if fast else "lloyd_kernel_vs_plain",
+        "pixels": n, "k": k, "k_active": k_active, "metric": metric,
+        "tier": kernels.accum_tier(fast, metric, k, inertia),
         "weighted": weighted, "emit_inertia": inertia, "bf16": bf16,
         "counts_equal": bool(torch.equal(got[:, 3], want[:, 3])),
         "max_abs_err": float(err.max()),
@@ -239,43 +290,54 @@ def accum_case(lab, k, device, k_active=None, weighted=False, inertia=False,
     }
 
 
+def _table_bytes(kp, tier):
+    """The centroids read once, and the `[kp, 7]` feature table of the
+    factorized and pruned tiers."""
+    return kp * 12 + (kp * 28 if tier in ("factor", "prune") else 0)
+
+
 def accum_bound(n_pix, n_valid, kp, k_active, stats, bf16=False, weighted=False,
-                metric="cie94"):
+                metric="cie94", tier="exact"):
     """The least time (ms) the card could take for one accumulator call,
     and what bounds it. Bytes: the planes (and weights) read once, the
-    centroids read and the totals written once. Float32 operations, as
-    `csrc/lloyd_accumulate.cu` spells them, for each valid pixel: 9
-    pixel-side, `METRIC_OPS` per active centroid, 2 per output column."""
-    bytes_moved = n_pix * (3 * (2 if bf16 else 4) + (4 if weighted else 0)) + kp * 12 + kp * stats * 4
-    ops = n_valid * (9 + METRIC_OPS[metric] * k_active + 2 * stats)
+    centroids (and the fast tiers' table) read and the totals written
+    once. Float32 operations, as `csrc/lloyd_accumulate.cu` spells them,
+    for each valid pixel: `PIXEL_OPS` pixel-side, `centroid_ops` over the
+    centroids, 2 per output column."""
+    bytes_moved = (n_pix * (3 * (2 if bf16 else 4) + (4 if weighted else 0))
+                   + _table_bytes(kp, tier) + kp * stats * 4)
+    ops = n_valid * (PIXEL_OPS[tier] + centroid_ops(metric, tier, kp, k_active) + 2 * stats)
     return _bound(bytes_moved, ops)
 
 
-def assign_bound(n, n_pad, n_words, kp, k_active, metric="cie94"):
+def assign_bound(n, n_pad, n_words, kp, k_active, metric="cie94", tier="exact"):
     """The least time (ms) the card could take for one replace-mode
     assign call, and what bounds it. Bytes: the RGB image read once, the
     words written once, the gamma table and centroids read once. Float32
     operations, as `csrc/quantize_assign.cu` spells them, for each of the
     `n_pad` pixels it computes: 18 for RGB -> XYZ, 9 for the three Lab
-    f-functions (each `powf` counted as one), 6 for L, a, b, 9 pixel-side
-    terms and `METRIC_OPS` per active centroid."""
-    bytes_moved = 3 * n + 4 * n_words + 256 * 4 + kp * 12
-    ops = n_pad * (42 + METRIC_OPS[metric] * k_active)
+    f-functions (each `powf` counted as one), 6 for L, a, b, `PIXEL_OPS`
+    pixel-side terms and `centroid_ops` over the centroids."""
+    bytes_moved = 3 * n + 4 * n_words + 256 * 4 + _table_bytes(kp, tier)
+    ops = n_pad * (33 + PIXEL_OPS[tier] + centroid_ops(metric, tier, kp, k_active))
     return _bound(bytes_moved, ops)
 
 
-def meld_bound(n, n_pad, kp, k_active, metric):
+def meld_bound(n, n_pad, kp, k_active, metric, tier="exact"):
     """The least time (ms) the card could take for one meld call, and what
     bounds it. Bytes: the RGB image read once, the 3 B/px of words written
     once, the gamma table and centroids read once. Float32 operations, as
     `csrc/quantize_meld.cu` spells them, for each of the `n_pad` pixels:
-    42 into Lab and the pixel terms (as `assign_bound`), `METRIC_OPS` per
-    active centroid, one more distance and 4 weights for d(closest,
-    second), 4 for the factor, 9 for the blend, 53 back to u8 sRGB (three
-    `powf` counted as one each)."""
-    bytes_moved = 3 * n + 3 * n_pad + 256 * 4 + kp * 12
+    33 into Lab and `PIXEL_OPS` pixel terms (as `assign_bound`),
+    `centroid_ops` over the centroids, one more distance and 4 weights for
+    d(closest, second) (and, under the factorized tier, one more exact
+    distance for the numerator), 4 for the factor, 9 for the blend, 53
+    back to u8 sRGB (three `powf` counted as one each)."""
+    bytes_moved = 3 * n + 3 * n_pad + 256 * 4 + _table_bytes(kp, tier)
     m = METRIC_OPS[metric]
-    ops = n_pad * (42 + m * k_active + m + 4 + 4 + 9 + 53)
+    extra = m if tier == "factor" else 0
+    ops = n_pad * (33 + PIXEL_OPS[tier] + centroid_ops(metric, tier, kp, k_active)
+                   + m + extra + 4 + 4 + 9 + 53)
     return _bound(bytes_moved, ops)
 
 
@@ -350,20 +412,21 @@ def unique_rgba(pixels: np.ndarray) -> np.ndarray:
     return np.unique(np.ascontiguousarray(pixels).view(np.uint32))
 
 
-def timed_reduces(procs: dict, image, card: str) -> list:
-    """For each `what -> (processor, mode)`, the median of 5 warm
-    `reduce(K, image, KMEANS, mode)` calls (after one more) with their
-    phases. The processors take turns, so a drift of the host's clock or
-    state falls on all of them alike. Returns one JSON line for each."""
+def timed_reduces(procs: dict, image, card: str, k: int = K, rounds: int = 6) -> list:
+    """For each `what -> (processor, mode)`, the median of `rounds - 1`
+    warm `reduce(k, image, KMEANS, mode)` calls (after one more) with
+    their phases. The processors take turns, so a drift of the host's
+    clock or state falls on all of them alike. Returns one JSON line for
+    each."""
     from kmeans_tpu_torch.utils.profiling import collect_phases
 
     runs = {what: [] for what in procs}
-    for _ in range(6):
+    for _ in range(rounds):
         for what, (proc, mode) in procs.items():
             phases: dict = {}
             t0 = time.perf_counter()
             with collect_phases(phases):
-                proc.reduce(K, image, reduce_mode=mode)
+                proc.reduce(k, image, reduce_mode=mode)
             runs[what].append((time.perf_counter() - t0, phases))
     lines = []
     for what, (proc, _) in procs.items():
@@ -387,19 +450,24 @@ def launch_counts():
     """`(assign, meld, accumulator)` kernel launches since the last reset."""
     from kmeans_tpu_torch.ops import kernels
 
-    return (kernels.ASSIGN_PACKED_LAUNCHES, kernels.MELD_PACKED_LAUNCHES,
-            kernels.LLOYD_ACCUMULATE_LAUNCHES)
+    return (kernels.launches("assign_packed"), kernels.launches("meld_packed"),
+            kernels.launches("lloyd_accumulate"))
 
 
 def reset_launch_counts() -> None:
     from kmeans_tpu_torch.ops import kernels
 
-    kernels.ASSIGN_PACKED_LAUNCHES = 0
-    kernels.MELD_PACKED_LAUNCHES = 0
-    kernels.LLOYD_ACCUMULATE_LAUNCHES = 0
+    kernels.LAUNCHES_BY_MODE.clear()
 
 
-def check_against_plain(name, out, dev, cents, mode, metric, k):
+def mode_counts() -> dict:
+    """Launches since the last reset as `{"wrapper metric tier": count}`."""
+    from kmeans_tpu_torch.ops import kernels
+
+    return {" ".join(key): n for key, n in sorted(kernels.LAUNCHES_BY_MODE.items())}
+
+
+def check_against_plain(name, out, dev, cents, mode, metric, k, fast=False):
     """A 4K output against the plain version's output for the same
     palette: replace/dither through `assign_packed_reference`, meld
     through `meld_packed_reference`. CIE94 must be equal; CIEDE2000 within
@@ -410,17 +478,18 @@ def check_against_plain(name, out, dev, cents, mode, metric, k):
     from kmeans_tpu_torch.ops.quantize import dither_threshold
 
     if mode == "meld":
-        words = kernels.meld_packed_reference(dev, cents, metric=metric)
+        words = kernels.meld_packed_reference(dev, cents, metric=metric, fast=fast)
         plain = _unpack_meld(words.cpu().numpy(), HEIGHT, WIDTH, k)
     else:
         thr = dither_threshold(cents, metric=metric) if mode == "dither" else 0.0
-        words = kernels.assign_packed_reference(dev, cents, thr, mode=mode, metric=metric)
+        words = kernels.assign_packed_reference(dev, cents, thr, mode=mode, metric=metric,
+                                                fast=fast)
         plain = _unpack_gather(words.cpu().numpy(), HEIGHT, WIDTH, k,
                                _lab_palette_to_u8(cents)[0].cpu().numpy())
     px = out.pixels
     step = np.abs(plain.astype(np.int64) - px).max(-1)
     differ = int((step > 0).sum())
-    line = {"phase": "slice_vs_plain", "call": name, "metric": metric,
+    line = {"phase": "slice_vs_plain", "call": name, "metric": metric, "fast": fast,
             "differing_pixels": differ, "max_channel_step": int(step.max()),
             "colors": len(unique_rgba(px))}
     emit(line)
@@ -491,6 +560,329 @@ def drive_meld_and_cie2000(proc, image, find_colors, dev, device) -> dict:
                         full_cents, "replace", "cie2000", K)
     return {"proc2000": proc2000, "counts_meld": counts_meld, "counts_2000": counts_2000,
             "counts_full_2000": counts_full_2000}
+
+
+def fast_kernel_checks(device, lab_4k, small_lab) -> dict:
+    """The six fast modes against their plain versions on the card: assign
+    and meld under the factorized CIE94 and the pruned CIEDE2000 tier (0
+    mismatched words; k = 513 falls back to exact and must also equal the
+    exact kernel's words), and the accumulator's factorized, algebraic and
+    pruned forms (counts equal, sums within 1e-5 of scale, equal totals
+    twice). `k_active` 5 and 12 leave candidate slots unfilled. Returns the
+    largest deviation of each mode, for the kernels' summary."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+
+    failures = []
+    err = {}
+    for metric in ("cie94", "cie2000"):
+        cases = []
+        for k in FAST_KS:
+            cases += [(61, 97, k, "replace", None, 0), (257, 129, k, "dither", None, 3)]
+        cases += [(61, 97, 64, "dither", 5, 0), (61, 97, 256, "replace", 12, 0),
+                  (257, 129, 129, "replace", 100, 0), (HEIGHT, WIDTH, FAST_K, "replace", None, 0)]
+        for h, w, k, mode, k_active, row_offset in cases:
+            mism, diff, flips, _ = compare_case(h, w, k, mode, device, k_active, row_offset,
+                                                metric=metric, fast=True)
+            err["assign", metric] = max(err.get(("assign", metric), 0), diff)
+            emit({"phase": "fast_kernel_vs_plain", "h": h, "w": w, "k": k, "mode": mode,
+                  "k_active": k_active, "row_offset": row_offset, "metric": metric,
+                  "tier": kernels.assign_tier(True, metric, k), "mismatched_words": mism,
+                  "flipped_indices": flips})
+            if mism:
+                failures.append(f"fast_kernel_vs_plain {h}x{w} k={k} {mode} {metric}: {mism}")
+        meld_cases = [(61, 97, k, None) for k in FAST_KS]
+        meld_cases += [(257, 129, 64, 5), (61, 97, 256, 12), (HEIGHT, WIDTH, FAST_K, None)]
+        for h, w, k, k_active in meld_cases:
+            line = meld_case(h, w, k, metric, device, k_active=k_active, fast=True)
+            emit(line)
+            err["meld", metric] = max(err.get(("meld", metric), 0), line["max_channel_step"])
+            if line["mismatched_words"]:
+                failures.append(f"fast_meld_kernel_vs_plain: {line}")
+        # Past 512 colours `fast` must change nothing on the card either.
+        rgb = torch.from_numpy(np.random.default_rng(SEED + 513).integers(
+            0, 256, (61, 97, 3), dtype=np.uint8)).to(device)
+        cents = random_palette_lab(513, SEED + 513, device)
+        same = (torch.equal(kernels.assign_packed(rgb, cents, 0.0, metric=metric, fast=True),
+                            kernels.assign_packed(rgb, cents, 0.0, metric=metric))
+                and torch.equal(kernels.meld_packed(rgb, cents, metric=metric, fast=True),
+                                kernels.meld_packed(rgb, cents, metric=metric)))
+        emit({"phase": "fast_kernel_vs_plain", "k": 513, "metric": metric,
+              "fast_equals_exact_kernel": same})
+        if not same:
+            failures.append(f"k=513 {metric}: fast differs from the exact kernel")
+
+    accum_cases = [(small_lab, k, {"metric": "cie94"}) for k in (8, 17, 64, 256, 512)]
+    accum_cases += [(small_lab, k, {"metric": "cie94", "inertia": True}) for k in (8, 64, 512)]
+    accum_cases += [(small_lab, k, {"metric": "cie2000"}) for k in (17, 64, 129, 512)]
+    accum_cases += [
+        (small_lab, 24, {"metric": "cie94", "k_active": 20, "bf16": True}),
+        (small_lab, 17, {"metric": "cie94", "k_active": 11, "weighted": True, "inertia": True}),
+        (small_lab, 256, {"metric": "cie2000", "k_active": 12, "inertia": True}),
+        (small_lab, 64, {"metric": "cie2000", "k_active": 5, "weighted": True, "bf16": True}),
+        (small_lab, 16, {"metric": "cie2000", "inertia": True}),  # at kp <= 16: exact
+        (lab_4k, FAST_K, {"metric": "cie94"}),
+        (lab_4k, FAST_K, {"metric": "cie94", "inertia": True}),
+        (lab_4k, FAST_K, {"metric": "cie2000", "inertia": True}),
+    ]
+    for lab, k, opts in accum_cases:
+        line = accum_case(lab, k, device, fast=True, **opts)
+        emit(line)
+        err["lloyd", line["tier"]] = max(err.get(("lloyd", line["tier"]), 0.0),
+                                         line["max_abs_err"])
+        if not (line["counts_equal"] and line["deterministic"]
+                and line["max_err_over_scale"] <= 1e-5):
+            failures.append(f"fast_lloyd_kernel_vs_plain k={k} {opts}: {line}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return err
+
+
+def drive_fast(image, dev, device, lab_4k) -> dict:
+    """The fast slice at full width: `ImageProcessor(fast=True)` through
+    reduce, find and palette at k = 64 and 256 under both metrics, on the
+    shrunk and the full-resolution training. Each path is driven with the
+    launch counts set to 0 just before it and read just after; then each
+    output is held against the plain version's for the same palette.
+    Returns the launches of each path by kernel mode and the trained
+    centroids."""
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.api import _colors_to_lab
+    from kmeans_tpu_torch.models import kmeans as km
+    from kmeans_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 256)
+    colors = rng.integers(0, 256, (FAST_K_LARGE, 4), dtype=np.uint8)
+    colors[:, 3] = 255
+    img = Image((WIDTH, HEIGHT), image)
+    modes = (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD)
+    paths, seconds = {}, {}
+
+    def run(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        paths[name] = mode_counts()
+        return out
+
+    fast94 = ImageProcessor(device="cuda", fast=True)
+    fast2000 = ImageProcessor(device="cuda", fast=True, delta_e="2000")
+    full94 = ImageProcessor(device="cuda", fast=True, train_max_size=None, restarts=2)
+    full2000 = ImageProcessor(device="cuda", fast=True, train_max_size=None, delta_e="2000")
+    out94 = run("shrunk cie94", lambda: (
+        {m: fast94.reduce(FAST_K, image, reduce_mode=m) for m in modes},
+        {m: fast94.find(image, colors, m) for m in (ReduceMode.REPLACE, ReduceMode.MELD)}))
+    out2000 = run("shrunk cie2000", lambda: (
+        {m: fast2000.reduce(FAST_K, image, reduce_mode=m)
+         for m in (ReduceMode.REPLACE, ReduceMode.MELD)},
+        {m: fast2000.find(image, colors, m) for m in (ReduceMode.REPLACE, ReduceMode.MELD)}))
+    out_full94 = run("full resolution cie94 restarts=2", lambda: full94.reduce(FAST_K, image))
+    iters_full94 = full94.last_iterations
+    pal_256 = run("full resolution cie2000 palette", lambda: full2000.palette(FAST_K_LARGE, image))
+    iters_full2000 = full2000.last_iterations
+
+    # The centroids of each training again, outside the counted paths.
+    cents = {
+        "cie94": fast94.extract_palette_kmeans(img, FAST_K),
+        "cie2000": fast2000.extract_palette_kmeans(img, FAST_K),
+        "full cie94": full94.extract_palette_kmeans(img, FAST_K),
+        "full cie2000 256": full2000.extract_palette_kmeans(img, FAST_K_LARGE),
+    }
+    # The algebraic form is the accumulator's `fast=True` with the inertia
+    # column under CIE94. No route of the API reaches it (the restarts'
+    # winner pass runs exact under CIE94), so its path is the wrapper
+    # itself: the inertia of the trained palette over the 4K pixels.
+    planes, n_valid = kernels.pack_lab_planes(lab_4k)
+    inertia_fast = run("inertia reading cie94", lambda: kernels.lloyd_accumulate(
+        planes, cents["full cie94"], n_valid, emit_inertia=True, fast=True))
+    inertia_exact = kernels.lloyd_accumulate(planes, cents["full cie94"], n_valid,
+                                             emit_inertia=True)
+
+    seeds = km.derive_restart_seeds(HEIGHT * WIDTH, km.reference_seed_index(WIDTH, HEIGHT), 2)
+    restart_iters = [km.fit_large(lab_4k, FAST_K, s, fast=True)[1] for s in seeds.tolist()]
+    want = {
+        "shrunk cie94": {"assign_packed cie94 factor": 3, "meld_packed cie94 factor": 2},
+        "shrunk cie2000": {"assign_packed cie2000 prune": 2, "meld_packed cie2000 prune": 2},
+        "full resolution cie94 restarts=2": {
+            "assign_packed cie94 factor": 1, "lloyd_accumulate cie94 exact": 2,
+            "lloyd_accumulate cie94 factor": sum(restart_iters)},
+        "full resolution cie2000 palette": {"lloyd_accumulate cie2000 prune": iters_full2000},
+        "inertia reading cie94": {"lloyd_accumulate cie94 algebraic": 1},
+    }
+    emit({"phase": "fast_slice", "launches_by_path": paths, "seconds": seconds,
+          "iterations": {"full cie94 winner": iters_full94, "full cie94 restarts": restart_iters,
+                         "full cie2000 k=256": iters_full2000,
+                         "shrunk cie94": fast94.last_iterations,
+                         "shrunk cie2000": fast2000.last_iterations},
+          "inertia_fast_over_exact": float(inertia_fast[:, 4].sum() / inertia_exact[:, 4].sum())})
+    if paths != want:
+        raise AssertionError(f"fast slice launches {paths}, want {want}")
+    if pal_256.shape != (FAST_K_LARGE, 4) or not (pal_256[:, 3] == 255).all():
+        raise AssertionError(f"fast palette(256): shape {pal_256.shape}")
+    if not 0.999 <= float(inertia_fast[:, 4].sum() / inertia_exact[:, 4].sum()) <= 1.001:
+        raise AssertionError("the algebraic inertia is not the exact one to 1e-3")
+
+    find_lab = torch.from_numpy(_colors_to_lab(colors)).to(device)
+    for mode, out in out94[0].items():
+        check_against_plain(f"fast reduce k={FAST_K} {mode.value}", out, dev, cents["cie94"],
+                            mode.value, "cie94", FAST_K, fast=True)
+    for mode, out in out94[1].items():
+        check_against_plain(f"fast find k={FAST_K_LARGE} {mode.value}", out, dev, find_lab,
+                            mode.value, "cie94", FAST_K_LARGE, fast=True)
+    for mode, out in out2000[0].items():
+        check_against_plain(f"fast reduce k={FAST_K} {mode.value} delta_e=2000", out, dev,
+                            cents["cie2000"], mode.value, "cie2000", FAST_K, fast=True)
+    for mode, out in out2000[1].items():
+        check_against_plain(f"fast find k={FAST_K_LARGE} {mode.value} delta_e=2000", out, dev,
+                            find_lab, mode.value, "cie2000", FAST_K_LARGE, fast=True)
+    check_against_plain(f"fast full-resolution reduce k={FAST_K} restarts=2", out_full94, dev,
+                        cents["full cie94"], "replace", "cie94", FAST_K, fast=True)
+    # palette(256): the pruned accumulator's totals for the trained
+    # centroids against the plain version's.
+    got = kernels.lloyd_accumulate(planes, cents["full cie2000 256"], n_valid,
+                                   metric="cie2000", fast=True)
+    plain = kernels.lloyd_accumulate_reference(planes, cents["full cie2000 256"], n_valid,
+                                               metric="cie2000", fast=True)
+    scale = plain.double().abs() + 128.0 * plain[:, 3:4].double()
+    worst = float(((got.double() - plain.double()).abs() / scale.clamp(min=1e-300)).max())
+    counts_equal = bool(torch.equal(got[:, 3], plain[:, 3]))
+    emit({"phase": "slice_vs_plain", "call": "fast full-resolution palette k=256 delta_e=2000",
+          "counts_equal": counts_equal, "max_err_over_scale": worst})
+    if not counts_equal or worst > 1e-5:
+        raise AssertionError("the pruned accumulator disagrees with plain on the trained palette")
+    return {"paths": paths, "cents": cents, "find_lab": find_lab}
+
+
+def _pixels_moved(a_words, b_words, k, meld):
+    """Pixels of the 4K image whose output differs between two launches:
+    `(any difference, more than 1 u8 step)` for meld, `(index differs,
+    None)` for assign."""
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.utils.packing import (
+        pack_bits,
+        unpack_rgb24_tile_words,
+        unpack_tile_words,
+    )
+
+    rows = kernels.quant_tile_rows(k)
+    if meld:
+        a = unpack_rgb24_tile_words(a_words.cpu().numpy(), HEIGHT, WIDTH, rows).astype(np.int16)
+        b = unpack_rgb24_tile_words(b_words.cpu().numpy(), HEIGHT, WIDTH, rows).astype(np.int16)
+        step = np.abs(a - b).max(-1)
+        return int((step > 0).sum()), int((step > 1).sum())
+    a = unpack_tile_words(a_words.cpu().numpy(), HEIGHT, WIDTH, pack_bits(k), rows)
+    b = unpack_tile_words(b_words.cpu().numpy(), HEIGHT, WIDTH, pack_bits(k), rows)
+    return int((a != b).sum()), None
+
+
+def fast_vs_exact(dev, lab_4k, palettes) -> list:
+    """For each `(what, metric, centroids)`: the share of the 4K image's
+    pixels that each fast mode assigns or colours otherwise than the exact
+    kernel on the same palette, and the share of pixels that change
+    cluster in the accumulator (half the sum of |count differences|, a
+    lower bound on the pixels moved). The reference holds its fast tiers
+    to 1e-3, and so does this check on a trained palette (its `limit`),
+    where the readings on an H100 were 0 to 3.7e-5. Seeded random colours
+    lie far from the image's pixels, and there the pruned screen at m = 8
+    loses more true nearest centroids (read on an H100 at k = 64: assign
+    1.7e-3, meld 1.0e-2, count drift 1.7e-3): those palettes are reported
+    against the same bar and fail the run only above 5e-2."""
+    from kmeans_tpu_torch.ops import kernels
+
+    planes, n_valid = kernels.pack_lab_planes(lab_4k)
+    n = HEIGHT * WIDTH
+    lines = []
+    for what, metric, cents in palettes:
+        k = cents.shape[0]
+        assign = _pixels_moved(kernels.assign_packed(dev, cents, 0.0, metric=metric, fast=True),
+                               kernels.assign_packed(dev, cents, 0.0, metric=metric), k, False)
+        meld = _pixels_moved(kernels.meld_packed(dev, cents, metric=metric, fast=True),
+                             kernels.meld_packed(dev, cents, metric=metric), k, True)
+        exact = kernels.lloyd_accumulate(planes, cents, n_valid, metric=metric,
+                                         emit_inertia=True)
+        line = {"phase": "fast_vs_exact", "palette": what, "k": k, "metric": metric,
+                "pixels": n, "bar": 1e-3, "limit": 1e-3 if what == "trained" else 5e-2,
+                "assign_share": assign[0] / n, "meld_share": meld[0] / n,
+                "meld_share_over_1_step": meld[1] / n}
+        for inertia in (False, True):
+            fast = kernels.lloyd_accumulate(planes, cents, n_valid, metric=metric,
+                                            emit_inertia=inertia, fast=True)
+            tier = kernels.accum_tier(True, metric, k, inertia)
+            drift = float((fast[:, 3] - exact[:, 3]).abs().sum()) / 2 / n
+            line[f"lloyd_{tier}_count_drift_share"] = drift
+            if inertia:
+                line[f"lloyd_{tier}_inertia_over_exact"] = float(
+                    fast[:, 4].sum() / exact[:, 4].sum())
+        emit(line)
+        lines.append(line)
+        shares = [v for key, v in line.items() if key.endswith("share")]
+        if max(shares) > line["limit"]:
+            raise AssertionError(f"fast_vs_exact: {line}")
+    return lines
+
+
+def time_fast(dev, lab_4k, palettes, flush, card) -> dict:
+    """Cold-L2 times of the fast modes at 4K in turns with the exact
+    kernel at the same k (exact, fast, fast, exact; the mean of each
+    pair), beside their bounds; the plain versions once, at k = 64.
+    Returns `{(kernel, metric, tier): (ms, plain_ms, bound_ms, bound_by)}`
+    at k = 64."""
+    from kmeans_tpu_torch.ops import kernels
+
+    planes, n_valid = kernels.pack_lab_planes(lab_4k)
+    n_pix = planes.shape[1] * kernels.LANES
+    n = HEIGHT * WIDTH
+    summary = {}
+    for what, metric, cents in palettes:
+        k = cents.shape[0]
+        rows = kernels.quant_tile_rows(k) * kernels.LANES
+        n_pad = -(-n // rows) * rows
+        tier = kernels.assign_tier(True, metric, k)
+        reps = 3 if metric == "cie2000" else 10
+        calls = {
+            "assign": (lambda fast: kernels.assign_packed(dev, cents, 0.0, metric=metric, fast=fast),
+                       lambda fast: kernels.assign_packed_reference(dev, cents, 0.0, metric=metric,
+                                                                    fast=fast),
+                       lambda t: assign_bound(n, n_pad, n_pad // 4, k, k, metric, t), tier),
+            "meld": (lambda fast: kernels.meld_packed(dev, cents, metric=metric, fast=fast),
+                     lambda fast: kernels.meld_packed_reference(dev, cents, metric=metric, fast=fast),
+                     lambda t: meld_bound(n, n_pad, k, k, metric, t), tier),
+            "lloyd": (lambda fast: kernels.lloyd_accumulate(planes, cents, n_valid, metric=metric,
+                                                            fast=fast),
+                      lambda fast: kernels.lloyd_accumulate_reference(planes, cents, n_valid,
+                                                                      metric=metric, fast=fast),
+                      lambda t: accum_bound(n_pix, n_valid, k, k, 4, metric=metric, tier=t),
+                      kernels.accum_tier(True, metric, k, False)),
+        }
+        if metric == "cie94":
+            calls["lloyd+inertia"] = (
+                lambda fast: kernels.lloyd_accumulate(planes, cents, n_valid, emit_inertia=True,
+                                                      fast=fast),
+                lambda fast: kernels.lloyd_accumulate_reference(planes, cents, n_valid,
+                                                                emit_inertia=True, fast=fast),
+                lambda t: accum_bound(n_pix, n_valid, k, k, 5, tier=t), "algebraic")
+        for name, (kernel, plain, bound, fast_tier) in calls.items():
+            turns = [cuda_ms(lambda: kernel(fast), reps, flush)
+                     for fast in (False, True, True, False)]
+            exact_ms, fast_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            plain_ms = cuda_ms(lambda: plain(True), 1, flush) if k == FAST_K else "not measured"
+            bound_ms, bound_by = bound(fast_tier)
+            exact_bound_ms, _ = bound("exact")
+            emit({"phase": "timing",
+                  "what": f"{name} 3840x2160 k={k} {metric} {fast_tier} vs exact, cold L2, "
+                          f"{what} palette",
+                  "card": card, "kernel_ms": fast_ms, "exact_kernel_ms": exact_ms,
+                  "ms_in_turn": turns, "exact_over_fast": exact_ms / fast_ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "exact_bound_ms": exact_bound_ms, "share_of_bound": bound_ms / fast_ms})
+            if k == FAST_K:
+                summary[name, metric, fast_tier] = (fast_ms, plain_ms, bound_ms, bound_by)
+    return summary
 
 
 def main() -> int:
@@ -617,25 +1009,24 @@ def main() -> int:
     find_colors = rng.integers(0, 256, (16, 4), dtype=np.uint8)
     find_colors[:, 3] = 255
 
-    kernels.ASSIGN_PACKED_LAUNCHES = 0
-    kernels.LLOYD_ACCUMULATE_LAUNCHES = 0
+    kernels.LAUNCHES_BY_MODE.clear()
     counts = []
     out_replace = proc.reduce(K, image, reduce_mode=ReduceMode.REPLACE)
     iters_replace = proc.last_iterations
-    counts.append(kernels.ASSIGN_PACKED_LAUNCHES)
+    counts.append(kernels.launches("assign_packed"))
     out_dither = proc.reduce(K, image, reduce_mode=ReduceMode.DITHER)
-    counts.append(kernels.ASSIGN_PACKED_LAUNCHES)
+    counts.append(kernels.launches("assign_packed"))
     pal = proc.palette(K, image)
-    counts.append(kernels.ASSIGN_PACKED_LAUNCHES)
+    counts.append(kernels.launches("assign_packed"))
     out_find = proc.find(image, find_colors, ReduceMode.DITHER)
-    counts.append(kernels.ASSIGN_PACKED_LAUNCHES)
+    counts.append(kernels.launches("assign_packed"))
     torch.cuda.synchronize()
-    launches = kernels.ASSIGN_PACKED_LAUNCHES
+    launches = kernels.launches("assign_packed")
     # One launch per reduce and per find; palette trains only, and the
     # 256x144 shrink trains on the one-hot trainer.
     if counts != [1, 2, 2, 3]:
         raise AssertionError(f"assign kernel launch counts {counts}, expected [1, 2, 2, 3]")
-    if kernels.LLOYD_ACCUMULATE_LAUNCHES != 0:
+    if kernels.launches("lloyd_accumulate") != 0:
         raise AssertionError("the shrunk training launched the accumulator")
 
     for name, out, k in (("reduce_replace", out_replace, K),
@@ -684,8 +1075,7 @@ def main() -> int:
     # pixels through the accumulator kernel.
     full = ImageProcessor(device="cuda", train_max_size=None)
     full_r2 = ImageProcessor(device="cuda", train_max_size=None, restarts=2)
-    kernels.ASSIGN_PACKED_LAUNCHES = 0
-    kernels.LLOYD_ACCUMULATE_LAUNCHES = 0
+    kernels.LAUNCHES_BY_MODE.clear()
     steps = []
     t0 = time.perf_counter()
     out_full = full.reduce(K, image, reduce_mode=ReduceMode.REPLACE)
@@ -700,8 +1090,8 @@ def main() -> int:
     pal_r2 = full_r2.palette(K, image)
     steps.append(("palette k=8 restarts=2", full_r2.last_iterations, time.perf_counter() - t0))
     torch.cuda.synchronize()
-    full_launches = kernels.LLOYD_ACCUMULATE_LAUNCHES
-    full_assign = kernels.ASSIGN_PACKED_LAUNCHES
+    full_launches = kernels.launches("lloyd_accumulate")
+    full_assign = kernels.launches("assign_packed")
     # The winner's iterations alone do not give the restarts' launches:
     # rerun each seed (outside the counted path) for its iteration count.
     seeds = km.derive_restart_seeds(HEIGHT * WIDTH, km.reference_seed_index(WIDTH, HEIGHT), 2)
@@ -773,6 +1163,40 @@ def main() -> int:
         if not same_palette or differ > bar * 300 * 420 or step.max() > 1:
             raise AssertionError(f"card vs cpu {name}: {differ} pixels differ")
 
+    # 4e. The fast slice: the six new kernel modes against plain, the 4K
+    # paths at k = 64 and 256, what the fast modes move against the exact
+    # kernels, and the card against the CPU.
+    fast_err = fast_kernel_checks(device, lab_4k, small_lab)
+    fast = drive_fast(image, dev, device, lab_4k)
+    trained = [
+        ("trained", "cie94", fast["cents"]["cie94"]),
+        ("trained", "cie94", full.extract_palette_kmeans(Image((WIDTH, HEIGHT), image),
+                                                         FAST_K_LARGE)),
+        ("trained", "cie2000", fast["cents"]["cie2000"]),
+        ("trained", "cie2000", fast["cents"]["full cie2000 256"]),
+    ]
+    fast_vs_exact(dev, lab_4k, trained + [
+        ("random", metric, random_palette_lab(k, SEED + k, device))
+        for metric in ("cie94", "cie2000") for k in (FAST_K, FAST_K_LARGE)])
+    tiny = synthetic_image(150, 210, seed=SEED + 4)
+    for delta_e in ("94", "2000"):
+        card_p = ImageProcessor(device="cuda", fast=True, delta_e=delta_e)
+        cpu_p = ImageProcessor(device="cpu", fast=True, delta_e=delta_e)
+        same_palette = bool((card_p.palette(24, tiny) == cpu_p.palette(24, tiny)).all())
+        for mode in (ReduceMode.REPLACE, ReduceMode.MELD):
+            step = np.abs(card_p.reduce(24, tiny, reduce_mode=mode).pixels.astype(np.int64)
+                          - cpu_p.reduce(24, tiny, reduce_mode=mode).pixels).max(-1)
+            differ, over = int((step > 0).sum()), int((step > 1).sum())
+            emit({"phase": "card_vs_cpu", "mode": f"fast k=24 {mode.value} delta_e={delta_e}",
+                  "differing_pixels": differ, "over_1_step": over, "pixels": 150 * 210,
+                  "same_palette": same_palette})
+            # The fast tiers' bar: 1e-3 of the pixels (for meld: by more
+            # than 1 u8 step).
+            moved = over if mode is ReduceMode.MELD else differ
+            if not same_palette or moved > 1e-3 * 150 * 210:
+                raise AssertionError(f"card vs cpu fast {mode.value} delta_e={delta_e}: "
+                                     f"{differ} pixels differ, {over} by more than 1 step")
+
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
     shrunk_timing, full_timing, meld_timing, timing_2000 = timed_reduces({
@@ -785,6 +1209,17 @@ def main() -> int:
     }, image, card)
     full_timing["accumulator_launches_per_reduce"] = full.last_iterations
     for line in (shrunk_timing, full_timing, meld_timing, timing_2000):
+        emit(line)
+    # The fast reduces at k = 64 in turns with the exact ones.
+    for line in timed_reduces({
+        f"reduce 3840x2160 k={FAST_K} replace, median of 3 warm": (proc, ReduceMode.REPLACE),
+        f"reduce 3840x2160 k={FAST_K} replace fast=True, median of 3 warm":
+            (ImageProcessor(device="cuda", fast=True), ReduceMode.REPLACE),
+        f"reduce 3840x2160 k={FAST_K} replace delta_e=2000, median of 3 warm":
+            (proc2000, ReduceMode.REPLACE),
+        f"reduce 3840x2160 k={FAST_K} replace delta_e=2000 fast=True, median of 3 warm":
+            (ImageProcessor(device="cuda", fast=True, delta_e="2000"), ReduceMode.REPLACE),
+    }, image, card, k=FAST_K, rounds=4):
         emit(line)
     emit(profile_reduce(proc, image, card))
     emit(profile_reduce(full, image, card, "full-resolution reduce 3840x2160 k=8 replace"))
@@ -901,11 +1336,20 @@ def main() -> int:
         emit({"phase": "timing", "what": whats[key], "card": card, "kernel_ms": k_ms,
               "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by})
 
-    def entry(name, source, replaces, launches_, err, times):
+    fast_times = time_fast(dev, lab_4k, trained, flush, card)
+
+    def entry(name, source, replaces, launches_, err, times, launched_by="ImageProcessor"):
         return {"name": name, "route": "cuda", "source": f"kmeans_tpu_torch/csrc/{source}",
                 "replaces": f"kmeans_tpu/ops/kernels.py:{replaces}", "launches": launches_,
+                "launched_by": launched_by,
                 "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                 "bound_ms": times[2], "bound_by": times[3], "library_ms": None}
+
+    def fast_launches(mode):
+        total = sum(path.get(mode, 0) for path in fast["paths"].values())
+        if total < 1:
+            raise AssertionError(f"the fast slice never launched {mode}")
+        return total
 
     counts_2000, counts_full_2000 = meld_slice["counts_2000"], meld_slice["counts_full_2000"]
     assign_times = (*timings["replace"], assign_bound_ms, assign_bound_by)
@@ -923,6 +1367,29 @@ def main() -> int:
               accum_err["cie94"], accum_ms[False]),
         entry("lloyd_accumulate[cie2000]", "lloyd_accumulate.cu", 1400,
               counts_full_2000[2], accum_err["cie2000"], new_times["lloyd_cie2000_k8"]),
+        # The fast modes, timed at k = 64; launches summed over the fast paths.
+        entry("assign_packed[fast cie94, factorized]", "quantize_assign.cu", 885,
+              fast_launches("assign_packed cie94 factor"), fast_err["assign", "cie94"],
+              fast_times["assign", "cie94", "factor"]),
+        entry("assign_packed[fast cie2000, pruned]", "quantize_assign.cu", 892,
+              fast_launches("assign_packed cie2000 prune"), fast_err["assign", "cie2000"],
+              fast_times["assign", "cie2000", "prune"]),
+        entry("meld_packed[fast cie94, factorized]", "quantize_meld.cu", 1033,
+              fast_launches("meld_packed cie94 factor"), fast_err["meld", "cie94"],
+              fast_times["meld", "cie94", "factor"]),
+        entry("meld_packed[fast cie2000, pruned]", "quantize_meld.cu", 1010,
+              fast_launches("meld_packed cie2000 prune"), fast_err["meld", "cie2000"],
+              fast_times["meld", "cie2000", "prune"]),
+        entry("lloyd_accumulate[fast cie94, factorized]", "lloyd_accumulate.cu", 1357,
+              fast_launches("lloyd_accumulate cie94 factor"), fast_err["lloyd", "factor"],
+              fast_times["lloyd", "cie94", "factor"]),
+        entry("lloyd_accumulate[fast cie94, algebraic]", "lloyd_accumulate.cu", 1369,
+              fast_launches("lloyd_accumulate cie94 algebraic"), fast_err["lloyd", "algebraic"],
+              fast_times["lloyd+inertia", "cie94", "algebraic"],
+              launched_by="direct wrapper call, no API route"),
+        entry("lloyd_accumulate[fast cie2000, pruned]", "lloyd_accumulate.cu", 1411,
+              fast_launches("lloyd_accumulate cie2000 prune"), fast_err["lloyd", "prune"],
+              fast_times["lloyd", "cie2000", "prune"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

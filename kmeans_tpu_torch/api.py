@@ -22,6 +22,11 @@ palette and unpacks them into RGBA. For meld the meld pass
 blended pixels as packed RGB bytes, and the host unpacks them. `find`
 runs the same output passes with the caller's palette. `delta_e="2000"`
 puts CIEDE2000 in place of CIE94 in training, dithering and both passes.
+`fast=True` puts the fast tiers of `ops/kernels.py` (the factorized CIE94
+score, the pruned CIEDE2000 tier) under the accumulator route's training
+and under both output passes; they act at 16 < k <= 512 only, and outside
+that range the results equal `fast=False` bit for bit. The shrunk and the
+row-chunked trainings never see `fast`, as in the reference.
 
 The device is explicit: `ImageProcessor(device=None)` means CUDA and
 raises when there is none. The plain-PyTorch CPU path runs only when the
@@ -137,16 +142,17 @@ def _output_mode(reduce_mode, k: int) -> str:
 
 
 def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
-              metric="cie94"):
+              metric="cie94", fast=False):
     """Pick the trainer as the reference does (kmeans_tpu/api.py:205), with
     its `pallas_ok` read as "the accumulator route": the CUDA kernel on the
     card, its plain twin on the CPU, so both devices run one algorithm.
     Both metrics take that route, as both are in the reference's
-    `PALLAS_METRICS`. `plane_dtype` reaches only the accumulator's planes."""
+    `PALLAS_METRICS`. `plane_dtype` and `fast` reach only the accumulator
+    route."""
     def fit_accumulated():
         return kmeans_model.fit_large_restarts(
             work, k, first_index, restarts=restarts, convergence=convergence,
-            metric=metric, plane_dtype=plane_dtype,
+            metric=metric, plane_dtype=plane_dtype, fast=fast,
         )
 
     if k > 64 and work.shape[0] * k > _CHUNKED_TRAIN_ELEMS:
@@ -165,7 +171,7 @@ def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
 
 
 def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
-           restarts=1, train_dtype=None, metric="cie94"):
+           restarts=1, train_dtype=None, metric="cie94", fast=False):
     """Shrink -> colour space -> seed -> Lloyd, on the pixels' device
     (kmeans_tpu/api.py::_train_jit). Returns `(centroids, iterations)`."""
     sh, sw = train_shape
@@ -173,7 +179,7 @@ def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
         pixels_u8 = resize_uint8(pixels_u8, sh, sw)
     rgb = pixels_u8[..., :3].reshape(-1, 3)
     work = srgb8_to_lab(rgb) if lab else div(rgb.to(torch.float32), 255.0)
-    return _fit_auto(work, k, first_index, convergence, restarts, train_dtype, metric)
+    return _fit_auto(work, k, first_index, convergence, restarts, train_dtype, metric, fast)
 
 
 def _lab_palette_to_u8(centroids: torch.Tensor):
@@ -252,7 +258,9 @@ class ImageProcessor:
     reference. `train_max_size=None` trains on every pixel; past the
     reference's size gates that runs on the tile accumulator. `restarts` and
     `train_dtype="bfloat16"` (accumulator planes only) act as in the
-    reference. `last_iterations` holds the Lloyd iteration count of the
+    reference. `fast=True` opts into the fast tiers (module docstring):
+    not bit-equal to exact at 16 < k <= 512, equal outside.
+    `last_iterations` holds the Lloyd iteration count of the
     latest training."""
 
     def __init__(
@@ -273,8 +281,6 @@ class ImageProcessor:
             raise ValueError("restarts must be >= 1")
         if bucketing:
             raise _not_ported("bucketing=True", "A.9")
-        if fast:
-            raise _not_ported("fast=True", "B5")
         if pipeline:
             raise _not_ported("pipeline=True (banded transfer overlap)", "A.13")
         if train_dtype not in (None, "float32", "bfloat16"):
@@ -285,6 +291,7 @@ class ImageProcessor:
         self.delta_e = aliases[str(delta_e)]
         self.train_max_size = None if train_max_size is None else int(train_max_size)
         self.restarts = int(restarts)
+        self.fast = bool(fast)
         self.train_dtype = None if train_dtype == "float32" else train_dtype
         self.last_iterations: int | None = None
 
@@ -308,7 +315,7 @@ class ImageProcessor:
             centroids, self.last_iterations = _train(
                 dev, k, (sh, sw), first, color_space.convergence,
                 lab=color_space is ColorSpace.LAB, restarts=self.restarts,
-                train_dtype=self.train_dtype, metric=self.delta_e,
+                train_dtype=self.train_dtype, metric=self.delta_e, fast=self.fast,
             )
             _phase_sync(centroids)
         return centroids
@@ -366,7 +373,7 @@ class ImageProcessor:
             centroids, self.last_iterations = _train(
                 dev, color_count, (sh, sw), first, ColorSpace.LAB.convergence,
                 restarts=self.restarts, train_dtype=self.train_dtype,
-                metric=self.delta_e,
+                metric=self.delta_e, fast=self.fast,
             )
             words, palette_rgba = self._output_pass(dev, centroids, mode)
             _phase_sync(words)
@@ -378,12 +385,13 @@ class ImageProcessor:
         for meld (RGB24 words of the blend), `(words, [k, 4] RGBA8
         palette)` for replace and dither (packed indices)."""
         if mode == "meld":
-            return meld_packed(pixels_u8, palette_lab, metric=self.delta_e), None
+            return meld_packed(pixels_u8, palette_lab, metric=self.delta_e,
+                               fast=self.fast), None
         threshold = (
             dither_threshold(palette_lab, metric=self.delta_e) if mode == "dither" else 0.0
         )
         words = assign_packed(pixels_u8, palette_lab, threshold, mode=mode,
-                              metric=self.delta_e)
+                              metric=self.delta_e, fast=self.fast)
         return words, _lab_palette_to_u8(palette_lab)[0]
 
     def _readback(self, words, palette_rgba, h: int, w: int, kp: int) -> np.ndarray:

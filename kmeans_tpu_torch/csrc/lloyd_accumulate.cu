@@ -1,11 +1,16 @@
 // Lloyd tile accumulator for Hopper (sm_90a): Lab planes -> nearest centroid
-// under exact CIE94 or CIEDE2000 -> per-cluster (sum L, sum a, sum b,
+// under CIE94 or CIEDE2000 -> per-cluster (sum L, sum a, sum b,
 // count[, sum d^2]).
 //
 // Replaces the Pallas TPU kernel `kmeans_tpu/ops/kernels.py::_lloyd_acc_kernel`
 // (launched by `lloyd_accumulate`) in its exact forms, CIE94 and CIEDE2000
-// (`:1400-1409`, `:1438-1455`; the distance comes from delta_e.cuh, one
-// kernel instance per metric, picked at launch): float32 or bfloat16 planes, an optional weight plane, an optional inertia column. The
+// (`:1400-1409`, `:1438-1455`), and its fast forms: the factorized CIE94
+// score (`:1357-1368`), the algebraic CIE94 distance that keeps the
+// inertia column a true squared distance (`:1369-1385`) and the pruned
+// CIEDE2000 tier (`:1411-1437`). The assignment is
+// screen.cuh::nearest_centroid, one kernel instance per (metric, tier, m),
+// picked at launch; the reduction behind it is the same for all. Float32 or
+// bfloat16 planes, an optional weight plane, an optional inertia column. The
 // plain PyTorch twin `kmeans_tpu_torch/ops/kernels.py::lloyd_accumulate_reference`
 // is the spec: every pixel's assignment equals the twin's, the counts are
 // equal, and the sums agree to float32 rounding (they are added in another
@@ -31,7 +36,7 @@
 // - The centroids and their chroma live in shared memory (kp <= 512:
 //   8 KB); the centroid loop runs to k_active with strict `<`, so the
 //   first minimum wins. Shared memory at kp = 512 with the inertia column
-//   is 43 KB a block.
+//   is 43 KB a block, and 57 KB with the fast tiers' `[kp, 7]` table.
 //
 // Float rounding: each float operation is one IEEE float32 operation in the
 // twin's order, written with the _rn intrinsics so that none is fused into
@@ -50,13 +55,16 @@
 // are multi-instruction sequences, so in practice the centroid loop sets
 // the pace, as in the assign kernel. The staging reduction adds about a
 // third to the centroid loop's work at any k.
-// Left for later: the factorised CIE94 score and the pruned CIEDE2000 tier
-// (ROADMAP B5), and a reduction that keeps more warps busy when kp < 8.
+// The fast tiers cut the centroid loop to 12 operations and a compare
+// (factorized), 13 and a compare without a divide (algebraic), or the screen plus m exact
+// distances (pruned); the reduction then weighs more.
+// Left for later: a reduction that keeps more warps busy when kp < 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "delta_e.cuh"
+#include "screen.cuh"
 
 namespace {
 
@@ -84,11 +92,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int Metric>
+template <int Metric, int Tier, int M>
 __global__ void __launch_bounds__(kThreads) lloyd_tile_kernel(
     const void* __restrict__ planes, int bf16, int64_t n_pix, int64_t n_valid,
     const float* __restrict__ centroids, int kp, int k_active,
-    const float* __restrict__ weight, int stats, float* __restrict__ partials) {
+    const float* __restrict__ gtab_in, const float* __restrict__ weight, int stats,
+    float* __restrict__ partials) {
   extern __shared__ float smem[];
   float* cent = smem;                  // [kp * 3]
   float* chroma = cent + 3 * kp;       // [kp]
@@ -99,7 +108,9 @@ __global__ void __launch_bounds__(kThreads) lloyd_tile_kernel(
   float* tw = tb + kTile;
   float* td = tw + kTile;
   int* tk = reinterpret_cast<int*>(td + kTile);
+  float* gtab = reinterpret_cast<float*>(tk + kTile);  // [kp * 7], fast tiers only
 
+  stage_g_table(gtab_in, gtab, kp);
   for (int i = threadIdx.x; i < kp; i += kThreads) {
     const float ca = centroids[3 * i + 1];
     const float cb = centroids[3 * i + 2];
@@ -126,21 +137,10 @@ __global__ void __launch_bounds__(kThreads) lloyd_tile_kernel(
       const float l = load_plane(planes, bf16, p);
       const float a = load_plane(planes, bf16, n_pix + p);
       const float b = load_plane(planes, bf16, 2 * n_pix + p);
-      // Pixel-side terms, hoisted out of the centroid loop
-      // (kmeans_tpu/ops/kernels.py:1356,1387-1389).
-      const float c1 = kmeans::chroma(a, b);
-      float sc, sh2;
-      cie94_weights(c1, &sc, &sh2);
-      float best_d = kBig;
-      int best_k = 0;
-      for (int k = 0; k < k_active; ++k) {
-        const float d = pixel_distance<Metric>(l, a, b, c1, sc, sh2, cent[3 * k + 0],
-                                               cent[3 * k + 1], cent[3 * k + 2], chroma[k]);
-        if (d < best_d) {
-          best_d = d;
-          best_k = k;
-        }
-      }
+      float best_d;
+      int best_k;
+      nearest_centroid<Metric, Tier, M>(l, a, b, cent, chroma, gtab, k_active, &best_k,
+                                        &best_d);
       tl[i] = l;
       ta[i] = a;
       tb[i] = b;
@@ -210,28 +210,44 @@ int kmeans_lloyd_grid_blocks(int64_t n_pix) {
 // Launches both kernels on `stream` and returns the first launch error
 // (0 on success). All pointers are device pointers: planes [3 * n_pix]
 // f32 (bf16 = 0) or bf16 bits (bf16 = 1), n_pix a multiple of 1024;
-// centroids [kp * 3] f32; metric 0 (CIE94) or 1 (CIEDE2000); weight
+// centroids [kp * 3] f32; metric 0 (CIE94) or 1 (CIEDE2000); tier 0
+// (exact), 1 (factorized, CIE94, stats 4 only: its best distance is a
+// rank), 2 (algebraic, CIE94) or 3 (pruned, CIEDE2000, prune_m 8 or 16);
+// gtab [kp * 7] f32 for tiers 1 and 3 (else ignored); weight
 // [n_pix] f32 or null; partials
 // [n_blocks * kp * stats] f32 with n_blocks = kmeans_lloyd_grid_blocks;
 // out [kp * stats] f32. It allocates nothing and does not synchronise.
 int kmeans_lloyd_accumulate(const void* planes, int bf16, int64_t n_pix,
                             int64_t n_valid, const void* centroids, int kp,
-                            int k_active, int metric, const void* weight,
+                            int k_active, int metric, int tier,
+                            const void* gtab, int prune_m, const void* weight,
                             int stats,
                             void* partials, int n_blocks, void* out,
                             void* stream) {
+  using namespace kmeans;
   if (n_pix % kTile != 0 || (stats != 4 && stats != 5) ||
       n_blocks != kmeans_lloyd_grid_blocks(n_pix) ||
-      (metric != kmeans::kMetricCie94 && metric != kmeans::kMetricCie2000)) {
+      !tier_args_valid(metric, tier, gtab, prune_m, /*algebraic_ok=*/true) ||
+      (tier == kTierFactor && stats != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (tier != kTierFactor && tier != kTierPrune) gtab = nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kp) * (4 + stats) +
-                                       5 * static_cast<size_t>(kTile)) +
-                      sizeof(int) * kTile;
-  const auto kernel = metric == kmeans::kMetricCie2000
-                          ? lloyd_tile_kernel<kmeans::kMetricCie2000>
-                          : lloyd_tile_kernel<kmeans::kMetricCie94>;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(kp) * (4 + stats + (gtab ? kGCols : 0)) +
+                       5 * static_cast<size_t>(kTile)) +
+      sizeof(int) * kTile;
+  auto kernel = lloyd_tile_kernel<kMetricCie94, kTierExact, 0>;
+  if (tier == kTierFactor) {
+    kernel = lloyd_tile_kernel<kMetricCie94, kTierFactor, 0>;
+  } else if (tier == kTierAlgebraic) {
+    kernel = lloyd_tile_kernel<kMetricCie94, kTierAlgebraic, 0>;
+  } else if (tier == kTierPrune) {
+    kernel = prune_m == 8 ? lloyd_tile_kernel<kMetricCie2000, kTierPrune, 8>
+                          : lloyd_tile_kernel<kMetricCie2000, kTierPrune, 16>;
+  } else if (metric == kMetricCie2000) {
+    kernel = lloyd_tile_kernel<kMetricCie2000, kTierExact, 0>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -239,8 +255,8 @@ int kmeans_lloyd_accumulate(const void* planes, int bf16, int64_t n_pix,
   }
   kernel<<<n_blocks, kThreads, smem, s>>>(
       planes, bf16, n_pix, n_valid, static_cast<const float*>(centroids), kp,
-      k_active, static_cast<const float*>(weight), stats,
-      static_cast<float*>(partials));
+      k_active, static_cast<const float*>(gtab), static_cast<const float*>(weight),
+      stats, static_cast<float*>(partials));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = kp * stats;

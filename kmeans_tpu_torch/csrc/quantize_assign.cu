@@ -3,10 +3,13 @@
 //
 // Replaces the Pallas TPU kernel `kmeans_tpu/ops/kernels.py::_quantize_kernel`
 // in packed-index mode (`fused_assign_packed`), for replace and dither with
-// the exact CIE94 and CIEDE2000 metrics. Under CIE94 the words it writes
-// equal the reference's word for word, pad bits included: the plain PyTorch
-// twin `kmeans_tpu_torch/ops/kernels.py::assign_packed_reference` is the
-// spec.
+// the exact CIE94 and CIEDE2000 metrics and their fast tiers: the
+// factorized CIE94 score (`:845-847`, `:885-886`) and the pruned CIEDE2000
+// tier (`:892-936`), whose device functions live in screen.cuh. Under exact
+// CIE94 the words it writes equal the reference's word for word, pad bits
+// included: the plain PyTorch twin
+// `kmeans_tpu_torch/ops/kernels.py::assign_packed_reference` is the spec of
+// every tier.
 //
 // Design (for the GPU, not a block-by-block copy of the TPU kernel):
 // - One thread per output word. Word (tile t, row r < blk, lane l), with
@@ -22,8 +25,14 @@
 //   live in shared memory; the centroid loop is a runtime loop over
 //   k < k_active with strict `<`, so the first minimum wins and no
 //   compile-time cap on k exists (k = 1024 uses 16 KB).
-// - The metric is a template parameter (delta_e.cuh::pixel_distance); the
-//   launcher picks the instance from its runtime argument.
+// - The metric, the tier and the pruned tier's candidate count m are
+//   template parameters (screen.cuh::nearest_centroid); the launcher picks
+//   one of five instances from its runtime arguments. The fast tiers stage
+//   the `[kp, 7]` feature table (28 B a centroid, 14 KB at kp = 512) in
+//   shared memory next to the centroids.
+// - Under the pruned tier a thread keeps one pixel's candidate list live at
+//   a time: 2 m registers (m = 8 or 16), filled by the screening loop and
+//   emptied by the exact pass before the thread's next pixel.
 //
 // Float rounding: every operation is one IEEE float32 operation in the
 // reference's order, written with the _rn intrinsics so that none is fused
@@ -38,14 +47,17 @@
 // 0.5 B/px, so the per-pixel powf calls and the per-pixel, per-centroid
 // divides and square root, not memory bandwidth, are the likely bound;
 // under CIEDE2000 the per-centroid atan2f, sinf, cosf and expf calls more
-// so. Left for later: the factorised CIE94 score (divide-free centroid
-// loop), vectorised 16-byte loads, and the colour-out mode.
+// so. The fast tiers take those out of the centroid loop: 12 operations
+// and a compare per centroid (plus the list insertion under prune, plus m
+// exact distances). Left for later: a fused-multiply-add form of the score,
+// vectorised 16-byte loads, and the colour-out mode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "colorspace.cuh"
 #include "delta_e.cuh"
+#include "screen.cuh"
 
 namespace {
 
@@ -63,18 +75,21 @@ __device__ __forceinline__ float bayer_value(int64_t x, int64_t y) {
   return __fsub_rn(__fdiv_rn(m, 16.0f), 0.5f);
 }
 
-template <int Metric>
+template <int Metric, int Tier, int M>
 __global__ void assign_packed_kernel(
     const uint8_t* __restrict__ rgb, int64_t n, int64_t width,
     const float* __restrict__ centroids, int kp, int k_active,
-    const float* __restrict__ gamma_lut, const float* __restrict__ threshold,
+    const float* __restrict__ gtab_in, const float* __restrict__ gamma_lut,
+    const float* __restrict__ threshold,
     int dither, int64_t row_offset, int bits, int tile_rows,
     int32_t* __restrict__ out, int64_t n_words) {
   extern __shared__ float smem[];
   float* lut = smem;               // [256]
   float* cent = smem + 256;        // [kp * 3]
   float* chroma = cent + 3 * kp;   // [kp]
+  float* gtab = chroma + kp;       // [kp * 7], fast tiers only
 
+  stage_g_table(gtab_in, gtab, kp);
   for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = gamma_lut[i];
   for (int i = threadIdx.x; i < kp; i += blockDim.x) {
     const float ca = centroids[3 * i + 1];
@@ -113,22 +128,10 @@ __global__ void assign_packed_kernel(
       b = __fadd_rn(b, adjust);
     }
 
-    // Pixel-side terms, hoisted out of the centroid loop
-    // (kmeans_tpu/ops/kernels.py:823-826, 863).
-    const float c1 = kmeans::chroma(a, b);
-    float sc, sh2;
-    cie94_weights(c1, &sc, &sh2);
-
-    float best_d = kBig;
-    int best_k = 0;
-    for (int k = 0; k < k_active; ++k) {
-      const float d = pixel_distance<Metric>(l, a, b, c1, sc, sh2, cent[3 * k + 0],
-                                             cent[3 * k + 1], cent[3 * k + 2], chroma[k]);
-      if (d < best_d) {
-        best_d = d;
-        best_k = k;
-      }
-    }
+    float best_d;
+    int best_k;
+    nearest_centroid<Metric, Tier, M>(l, a, b, cent, chroma, gtab, k_active, &best_k,
+                                      &best_d);
     word |= static_cast<uint32_t>(best_k) << (bits * j);
   }
   out[g] = static_cast<int32_t>(word);
@@ -140,25 +143,37 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns the launch's cudaError_t
 // (0 on success). All pointers are device pointers: rgb [n * 3] u8,
-// centroids [kp * 3] f32, metric 0 (CIE94) or 1 (CIEDE2000),
+// centroids [kp * 3] f32, metric 0 (CIE94) or 1 (CIEDE2000), tier 0
+// (exact), 1 (factorized, CIE94 only) or 3 (pruned, CIEDE2000 only, with
+// prune_m 8 or 16), gtab [kp * 7] f32 for the fast tiers (else ignored),
 // gamma_lut [256] f32, threshold [1] f32,
 // out [n_words] i32 with n_words = n_pad / ppw, n_pad a multiple of
 // tile_rows * 128. It allocates nothing and does not synchronise.
 int kmeans_assign_packed(const void* rgb, int64_t n, int64_t width,
                          const void* centroids, int kp, int k_active,
-                         int metric, const void* gamma_lut,
+                         int metric, int tier, const void* gtab, int prune_m,
+                         const void* gamma_lut,
                          const void* threshold, int dither,
                          int64_t row_offset, int bits, int tile_rows,
                          void* out, int64_t n_words, void* stream) {
-  if (metric != kmeans::kMetricCie94 && metric != kmeans::kMetricCie2000) {
+  using namespace kmeans;
+  if (!tier_args_valid(metric, tier, gtab, prune_m, /*algebraic_ok=*/false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = metric == kmeans::kMetricCie2000
-                          ? assign_packed_kernel<kmeans::kMetricCie2000>
-                          : assign_packed_kernel<kmeans::kMetricCie94>;
+  auto kernel = assign_packed_kernel<kMetricCie94, kTierExact, 0>;
+  if (tier == kTierFactor) {
+    kernel = assign_packed_kernel<kMetricCie94, kTierFactor, 0>;
+  } else if (tier == kTierPrune) {
+    kernel = prune_m == 8 ? assign_packed_kernel<kMetricCie2000, kTierPrune, 8>
+                          : assign_packed_kernel<kMetricCie2000, kTierPrune, 16>;
+  } else if (metric == kMetricCie2000) {
+    kernel = assign_packed_kernel<kMetricCie2000, kTierExact, 0>;
+  }
+  if (tier == kTierExact) gtab = nullptr;
   const int threads = 256;
   const int64_t blocks = (n_words + threads - 1) / threads;
-  const size_t smem = sizeof(float) * (256 + 4 * static_cast<size_t>(kp));
+  const size_t smem =
+      sizeof(float) * (256 + (gtab ? 4 + kGCols : 4) * static_cast<size_t>(kp));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -168,7 +183,7 @@ int kmeans_assign_packed(const void* rgb, int64_t n, int64_t width,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), n, width,
       static_cast<const float*>(centroids), kp, k_active,
-      static_cast<const float*>(gamma_lut),
+      static_cast<const float*>(gtab), static_cast<const float*>(gamma_lut),
       static_cast<const float*>(threshold), dither, row_offset, bits,
       tile_rows, static_cast<int32_t*>(out), n_words);
   return static_cast<int>(cudaGetLastError());

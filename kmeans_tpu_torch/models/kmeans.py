@@ -11,7 +11,8 @@ Port of the trainers of `kmeans_tpu/models/kmeans.py`:
   each step's assignment and (sum, count) taken in one pass of the tile
   accumulator (`ops/kernels.py::lloyd_accumulate`, a CUDA kernel on the
   card), with no `[N, K]` intermediate; `fit_large` and
-  `fit_large_restarts` train on it;
+  `fit_large_restarts` train on it, and `fast=True` puts the accumulator's
+  fast forms under every step at k > 16;
 - `lloyd_chunked` / `fit_chunked`: the plain loop over row chunks of
   `_CHUNK_PIXELS`, for k > `ACCUM_MAX_K` past the element budget;
 - `fit_restarts`: `restarts` seedings from `derive_restart_seeds`, run one
@@ -192,19 +193,26 @@ def lloyd_accumulated(
     k_active: int | None = None,
     metric: str = "cie94",
     plane_dtype: str | None = None,
+    fast: bool = False,
 ) -> tuple[torch.Tensor, int]:
     """Lloyd loop on the tile accumulator: the port of `lloyd_pallas`
     (kmeans_tpu/models/kmeans.py:241). The pixels are packed once into
     `[3, M, 128]` planes; each iteration is one `lloyd_accumulate` pass
     (assignment and per-cluster sums together, no `[N, K]` one-hot).
     `plane_dtype="bfloat16"` stores the planes half-width, which quantizes
-    the training input (opt-in, as in the reference)."""
+    the training input (opt-in, as in the reference). `fast=True` acts
+    only at k > 16 (`:288`): each step then assigns by the factorized
+    CIE94 score or the pruned CIEDE2000 tier, so near-tie pixels may join
+    another cluster than under the exact step; smaller palettes train
+    exact."""
     if plane_dtype not in _PLANE_DTYPES:
         raise ValueError(f"plane_dtype must be None or 'bfloat16', got {plane_dtype!r}")
     planes, n_valid = pack_lab_planes(pixels, _PLANE_DTYPES[plane_dtype])
+    fast = bool(fast) and centroids.shape[0] > 16
 
     def totals(cents):
-        t = lloyd_accumulate(planes, cents, n_valid, k_active=k_active, metric=metric)
+        t = lloyd_accumulate(planes, cents, n_valid, k_active=k_active, metric=metric,
+                             fast=fast)
         return t[:, :3], t[:, 3]
 
     return _lloyd_loop(centroids, totals, convergence, max_iterations, k_active, metric)
@@ -276,12 +284,13 @@ def fit_large(
     k_active: int | None = None,
     metric: str = "cie94",
     plane_dtype: str | None = None,
+    fast: bool = False,
 ) -> tuple[torch.Tensor, int]:
-    """`fit` for large pixel counts: float32 seeding, then
+    """`fit` for large pixel counts: float32 seeding (always exact), then
     `lloyd_accumulated` (kmeans_tpu/models/kmeans.py:431)."""
     centroids = plusplus_init(pixels, k, first_index, k_active, metric)
     return lloyd_accumulated(
-        pixels, centroids, convergence, max_iterations, k_active, metric, plane_dtype
+        pixels, centroids, convergence, max_iterations, k_active, metric, plane_dtype, fast
     )
 
 
@@ -355,14 +364,18 @@ def fit_large_restarts(
     k_active: int | None = None,
     metric: str = "cie94",
     plane_dtype: str | None = None,
+    fast: bool = False,
 ) -> tuple[torch.Tensor, int]:
     """`fit_large` with `restarts` seedings (kmeans_tpu/models/kmeans.py:477).
     Each run's inertia is one extra accumulator pass with
     `emit_inertia=True` on float32 planes, whatever `plane_dtype` trained
-    it (`:519-547`); the lowest wins."""
+    it (`:519-547`); the lowest wins. Under `fast=True` that pass runs
+    exact for CIE94 (the factorized score is a rank, no distance) and
+    keeps the pruned tier for CIEDE2000, whose winning distance is exact
+    (`:534-543`)."""
     def one(seed):
         return fit_large(pixels, k, seed, convergence, max_iterations,
-                         k_active, metric, plane_dtype)
+                         k_active, metric, plane_dtype, fast)
 
     if restarts <= 1:
         return one(first_index)
@@ -370,7 +383,8 @@ def fit_large_restarts(
 
     def inertia(cents):
         totals = lloyd_accumulate(planes, cents, n_valid, k_active=k_active,
-                                  metric=metric, emit_inertia=True)
+                                  metric=metric, emit_inertia=True,
+                                  fast=bool(fast) and metric == "cie2000")
         return torch.sum(totals[:, 4])
 
     return _best_of_restarts(one, inertia, pixels.shape[0], first_index, restarts)

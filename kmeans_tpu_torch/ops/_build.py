@@ -131,6 +131,7 @@ def load_library() -> ctypes.CDLL:
         lib.kmeans_assign_packed.argtypes = [
             p, i64, i64,       # rgb, n, width
             p, i32, i32, i32,  # centroids, kp, k_active, metric
+            i32, p, i32,       # tier, gtab (or null), prune_m
             p, p,              # gamma_lut, threshold
             i32, i64,          # dither, row_offset
             i32, i32,          # bits, tile_rows
@@ -141,6 +142,7 @@ def load_library() -> ctypes.CDLL:
         lib.kmeans_meld_packed.argtypes = [
             p, i64,            # rgb, n
             p, i32, i32, i32,  # centroids, kp, k_active, metric
+            i32, p, i32,       # tier, gtab (or null), prune_m
             p, i32,            # gamma_lut, tile_rows
             p, i64,            # out, n_groups
             p,                 # stream
@@ -151,6 +153,7 @@ def load_library() -> ctypes.CDLL:
         lib.kmeans_lloyd_accumulate.argtypes = [
             p, i32, i64, i64,  # planes, bf16, n_pix, n_valid
             p, i32, i32, i32,  # centroids, kp, k_active, metric
+            i32, p, i32,       # tier, gtab (or null), prune_m
             p, i32,            # weight (or null), stats
             p, i32, p,         # partials, n_blocks, out
             p,                 # stream

@@ -1,17 +1,21 @@
-"""Time the CIE94 assign and accumulator kernels of one checkout on a card.
+"""Time the assign and accumulator kernels of one checkout on a card.
 
-    python3 kmeans_tpu_torch/tools/kernel_times.py [CHECKOUT]
+    python3 kmeans_tpu_torch/tools/kernel_times.py [--fast] [CHECKOUT]
 
 imports `kmeans_tpu_torch` from CHECKOUT (default: this file's checkout),
 builds its kernels into CHECKOUT/build, and prints one JSON line: the
-card's name and power limit, and the mean milliseconds of
+card's name and power limit, and the mean milliseconds of the exact CIE94
 `assign_packed` (k = 8, 64) and `lloyd_accumulate` (k = 8, 64, 256) on a
 seeded random 3840x2160 image, by CUDA events, each launch after a
-256 MB write that evicts the L2 cache. To compare two
-trees on one card, unpack the other one (`git archive`) into an ignored
-directory and run both in one call, in turns: A, B, B, A.
+256 MB write that evicts the L2 cache. With `--fast` it also times the
+fast tiers at k = 64 and 256: the factorized CIE94 and the pruned
+CIEDE2000 assign and accumulator, and the algebraic CIE94 accumulator
+(CHECKOUT must have them). To compare two trees on one card, unpack the
+other one (`git archive`) into an ignored directory and run both in one
+call, in turns: A, B, B, A.
 """
 
+import argparse
 import json
 import subprocess
 import sys
@@ -19,16 +23,20 @@ from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parents[2])
-sys.path.insert(0, str(ROOT.resolve()))
-
-import torch  # noqa: E402
-
-from kmeans_tpu_torch.ops import kernels  # noqa: E402
-from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab  # noqa: E402
-
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("checkout", nargs="?", default=Path(__file__).resolve().parents[2])
+    parser.add_argument("--fast", action="store_true", help="also time the fast tiers")
+    args = parser.parse_args()
+    root = Path(args.checkout)
+    sys.path.insert(0, str(root.resolve()))
+
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device available", file=sys.stderr)
         return 1
@@ -61,13 +69,25 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    out = {"checkout": str(ROOT), "card": card}
+    out = {"checkout": str(root), "card": card}
     for k in (8, 64):
         cents = palette(k)
         out[f"assign_k{k}_ms"] = ms(lambda: kernels.assign_packed(rgb, cents, 0.0), 20)
     for k in (8, 64, 256):
         cents = palette(k)
         out[f"lloyd_k{k}_ms"] = ms(lambda: kernels.lloyd_accumulate(planes, cents, n_valid), 10)
+    if args.fast:
+        for k in (64, 256):
+            cents = palette(k)
+            for metric in ("cie94", "cie2000"):
+                out[f"assign_fast_{metric}_k{k}_ms"] = ms(
+                    lambda: kernels.assign_packed(rgb, cents, 0.0, metric=metric, fast=True), 5)
+                out[f"lloyd_fast_{metric}_k{k}_ms"] = ms(
+                    lambda: kernels.lloyd_accumulate(planes, cents, n_valid, metric=metric,
+                                                     fast=True), 5)
+            out[f"lloyd_fast_cie94_inertia_k{k}_ms"] = ms(
+                lambda: kernels.lloyd_accumulate(planes, cents, n_valid, emit_inertia=True,
+                                                 fast=True), 5)
     print(json.dumps(out), flush=True)
     return 0
 

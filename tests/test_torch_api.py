@@ -98,14 +98,13 @@ def test_rgb_color_space_palette(processors):
     np.testing.assert_array_equal(np.round(got * 255), np.round(want * 255))
 
 
-def test_cpu_path_launches_no_kernel(processors, monkeypatch):
+def test_cpu_path_launches_no_kernel(processors):
     _, port = processors
-    monkeypatch.setattr(kernels, "ASSIGN_PACKED_LAUNCHES", 0)
-    monkeypatch.setattr(kernels, "MELD_PACKED_LAUNCHES", 0)
+    kernels.LAUNCHES_BY_MODE.clear()
     port.reduce(4, _image(40, 50))
     port.find(_image(40, 50), [[0, 0, 0], [255, 255, 255]])
     port.find(_image(40, 50), [[0, 0, 0], [255, 255, 255]], kt.ReduceMode.MELD)
-    assert kernels.ASSIGN_PACKED_LAUNCHES == kernels.MELD_PACKED_LAUNCHES == 0
+    assert kernels.launches("assign_packed") == kernels.launches("meld_packed") == 0
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -118,8 +117,8 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"delta_e": "2000", "fast": True}, "B5"), ({"bucketing": True}, "A.9"),
-     ({"fast": True}, "B5"), ({"pipeline": True}, "A.13")],
+    [({"bucketing": True}, "A.9"), ({"pipeline": True}, "A.13"),
+     ({"fast": True, "bucketing": True}, "A.9")],
 )
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -127,16 +126,18 @@ def test_unported_options_raise(kwargs, item):
 
 
 @pytest.mark.parametrize(
-    "kwargs", [{"restarts": 2}, {"train_dtype": "bfloat16"}, {"train_dtype": "float32"}]
+    "kwargs", [{"restarts": 2}, {"train_dtype": "bfloat16"}, {"train_dtype": "float32"},
+               {"fast": True}]
 )
 def test_ported_options_accepted(processors, kwargs):
     """Options the reference routes through its trainers run here too; on
     the shrunk image `train_dtype` changes nothing (it reaches only the
-    accumulator's planes)."""
+    accumulator's planes), and at k = 4 neither does `fast` (it acts at
+    16 < k <= 512; tests/test_torch_fast.py drives it there)."""
     port = kt.ImageProcessor(device="cpu", **kwargs)
     img = _image(40, 50)
     pal = port.palette(4, img)
-    if "train_dtype" in kwargs:
+    if "restarts" not in kwargs:
         np.testing.assert_array_equal(pal, processors[1].palette(4, img))
     with pytest.raises(ValueError):
         kt.ImageProcessor(device="cpu", train_dtype="float16")

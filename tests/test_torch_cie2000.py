@@ -179,9 +179,8 @@ def test_accumulator_twin_matches_pallas_kernel():
     assert (np.abs(got - want) <= bound).all()
 
 
-def test_cpu_wrappers_run_the_twins(monkeypatch):
-    monkeypatch.setattr(kernels, "ASSIGN_PACKED_LAUNCHES", 0)
-    monkeypatch.setattr(kernels, "LLOYD_ACCUMULATE_LAUNCHES", 0)
+def test_cpu_wrappers_run_the_twins():
+    kernels.LAUNCHES_BY_MODE.clear()
     rgb, pal = _case(16, 16, 5, seed=3)
     cents = torch.from_numpy(pal.copy())
     thr = dither_threshold(cents, metric="cie2000")
@@ -192,7 +191,7 @@ def test_cpu_wrappers_run_the_twins(monkeypatch):
     planes, n = kernels.pack_lab_planes(srgb8_to_lab(torch.from_numpy(rgb.reshape(-1, 3))))
     totals = kernels.lloyd_accumulate(planes, cents, n, metric="cie2000")
     assert float(totals[:, 3].sum()) == n
-    assert kernels.ASSIGN_PACKED_LAUNCHES == kernels.LLOYD_ACCUMULATE_LAUNCHES == 0
+    assert kernels.launches("assign_packed") == kernels.launches("lloyd_accumulate") == 0
 
 
 def _image(h, w, seed):

@@ -40,11 +40,11 @@ def _case(h, w, k, seed, device):
 def test_kernel_matches_twin(cuda, k, mode):
     rgb, cents = _case(61, 97, k, 500 + k, cuda)
     thr = dither_threshold(cents) if mode == "dither" else 0.0
-    before = kernels.ASSIGN_PACKED_LAUNCHES
+    before = kernels.launches("assign_packed")
     got = kernels.assign_packed(rgb, cents, thr, mode=mode, row_offset=1)
     want = kernels.assign_packed_reference(rgb, cents, thr, mode=mode, row_offset=1)
     torch.cuda.synchronize()
-    assert kernels.ASSIGN_PACKED_LAUNCHES == before + 1
+    assert kernels.launches("assign_packed") == before + 1
     assert torch.equal(got, want)
 
 
@@ -85,11 +85,11 @@ def test_meld_kernel_matches_twin(cuda, k, metric, repeat):
     rgb, cents = _case(61, 97, k, 800 + k, cuda)
     if repeat:
         cents[-1] = cents[0]
-    before = kernels.MELD_PACKED_LAUNCHES
+    before = kernels.launches("meld_packed")
     got = kernels.meld_packed(rgb, cents, metric=metric)
     want = kernels.meld_packed_reference(rgb, cents, metric=metric)
     torch.cuda.synchronize()
-    assert kernels.MELD_PACKED_LAUNCHES == before + 1
+    assert kernels.launches("meld_packed") == before + 1
     if metric == "cie94":
         assert torch.equal(got, want)
     rows = kernels.quant_tile_rows(k)
@@ -106,9 +106,9 @@ def test_reduce_on_card_matches_cpu(cuda):
     rgb = np.stack([x * 255 // 130, y * 255 // 90, (x + y) * 255 // 220], -1)
     rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
     img = np.concatenate([rgb, np.full((90, 130, 1), 255, np.uint8)], -1)
-    before = kernels.ASSIGN_PACKED_LAUNCHES
+    before = kernels.launches("assign_packed")
     on_card = ImageProcessor().reduce(8, img, reduce_mode=ReduceMode.DITHER).pixels
-    assert kernels.ASSIGN_PACKED_LAUNCHES == before + 1
+    assert kernels.launches("assign_packed") == before + 1
     on_cpu = ImageProcessor(device="cpu").reduce(8, img, reduce_mode=ReduceMode.DITHER).pixels
     np.testing.assert_array_equal(on_card, on_cpu)
 
@@ -135,13 +135,13 @@ def test_accumulator_kernel_matches_twin(cuda, k, k_active, inertia, bf16, metri
     """Counts equal; the other columns within 1e-5 * (|twin| + 128 * count);
     a second launch gives the same totals."""
     planes, cents, n = _planes(40_001, k, 600 + k, cuda, bf16)
-    before = kernels.LLOYD_ACCUMULATE_LAUNCHES
+    before = kernels.launches("lloyd_accumulate")
     args = (planes, cents, n, k_active)
     got = kernels.lloyd_accumulate(*args, emit_inertia=inertia, metric=metric)
     again = kernels.lloyd_accumulate(*args, emit_inertia=inertia, metric=metric)
     want = kernels.lloyd_accumulate_reference(*args, emit_inertia=inertia, metric=metric)
     torch.cuda.synchronize()
-    assert kernels.LLOYD_ACCUMULATE_LAUNCHES == before + 2
+    assert kernels.launches("lloyd_accumulate") == before + 2
     assert torch.equal(got, again)
     assert torch.equal(got[:, 3], want[:, 3])
     bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
@@ -158,10 +158,10 @@ def test_full_resolution_palette_on_card_matches_cpu(cuda, monkeypatch):
     rgb = np.stack([x * 255 // 130, y * 255 // 90, (x + y) * 255 // 220], -1)
     rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
     img = np.concatenate([rgb, np.full((90, 130, 1), 255, np.uint8)], -1)
-    before = kernels.LLOYD_ACCUMULATE_LAUNCHES
+    before = kernels.launches("lloyd_accumulate")
     card = ImageProcessor(train_max_size=None)
     on_card = card.palette(8, img)
-    assert kernels.LLOYD_ACCUMULATE_LAUNCHES == before + card.last_iterations
+    assert kernels.launches("lloyd_accumulate") == before + card.last_iterations
     on_cpu = ImageProcessor(device="cpu", train_max_size=None).palette(8, img)
     np.testing.assert_array_equal(on_card, on_cpu)
 
@@ -180,15 +180,99 @@ def test_meld_and_cie2000_reduce_on_card_match_cpu(cuda, delta_e):
     img = np.concatenate([rgb, np.full((90, 130, 1), 255, np.uint8)], -1)
     colors = rng.integers(0, 256, (16, 3), dtype=np.uint8)
     card, cpu = ImageProcessor(delta_e=delta_e), ImageProcessor(device="cpu", delta_e=delta_e)
-    before = kernels.MELD_PACKED_LAUNCHES
+    before = kernels.launches("meld_packed")
     pairs = [(card.reduce(8, img, reduce_mode=ReduceMode.MELD).pixels,
               cpu.reduce(8, img, reduce_mode=ReduceMode.MELD).pixels),
              (card.find(img, colors, ReduceMode.MELD).pixels,
               cpu.find(img, colors, ReduceMode.MELD).pixels),
              (card.reduce(8, img, reduce_mode=ReduceMode.DITHER).pixels,
               cpu.reduce(8, img, reduce_mode=ReduceMode.DITHER).pixels)]
-    assert kernels.MELD_PACKED_LAUNCHES == before + 2
+    assert kernels.launches("meld_packed") == before + 2
     np.testing.assert_array_equal(card.palette(8, img), cpu.palette(8, img))
     for (on_card, on_cpu), bar in zip(pairs, (1e-3, 1e-3, 1e-4)):
         step = np.abs(on_card.astype(int) - on_cpu.astype(int)).max(-1)
         assert step.max() <= 1 and (step > 0).sum() <= bar * 90 * 130
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize(
+    "k,k_active,mode",
+    [(17, None, "replace"), (64, 5, "dither"), (129, None, "replace"), (256, 12, "dither"),
+     (512, None, "replace"), (513, None, "replace")],
+)
+def test_fast_assign_kernel_matches_twin(cuda, k, k_active, mode, metric):
+    """The factorized CIE94 and pruned CIEDE2000 assign tiers: equal words.
+    `k_active` 5 and 12 leave candidate slots unfilled (m = 8, 16); k = 513
+    runs exact."""
+    rgb, cents = _case(61, 97, k, 900 + k, cuda)
+    thr = dither_threshold(cents, k_active, metric) if mode == "dither" else 0.0
+    before = kernels.launches("assign_packed")
+    got = kernels.assign_packed(rgb, cents, thr, k_active, mode, 2, metric, fast=True)
+    want = kernels.assign_packed_reference(rgb, cents, thr, k_active, mode, 2, metric, fast=True)
+    torch.cuda.synchronize()
+    assert kernels.launches("assign_packed") == before + 1
+    assert torch.equal(got, want)
+    if k == 513:
+        assert torch.equal(got, kernels.assign_packed(rgb, cents, thr, k_active, mode, 2, metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("k,k_active", [(17, None), (64, 5), (129, 12), (512, None), (513, None)])
+def test_fast_meld_kernel_matches_twin(cuda, k, k_active, metric):
+    """The factorized CIE94 and pruned CIEDE2000 meld tiers: equal words."""
+    rgb, cents = _case(61, 97, k, 950 + k, cuda)
+    before = kernels.launches("meld_packed")
+    got = kernels.meld_packed(rgb, cents, k_active, metric, fast=True)
+    want = kernels.meld_packed_reference(rgb, cents, k_active, metric, fast=True)
+    torch.cuda.synchronize()
+    assert kernels.launches("meld_packed") == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,k_active,inertia,bf16,metric",
+    [(8, None, False, False, "cie94"), (24, 20, False, True, "cie94"),   # factorized
+     (8, None, True, False, "cie94"), (300, None, True, False, "cie94"),  # algebraic
+     (24, None, True, False, "cie2000"), (129, 12, False, False, "cie2000"),  # pruned
+     (512, None, True, True, "cie2000"), (16, None, True, False, "cie2000")],  # exact
+)
+def test_fast_accumulator_kernel_matches_twin(cuda, k, k_active, inertia, bf16, metric):
+    """The accumulator's fast forms: counts equal, the other columns within
+    1e-5 * (|twin| + 128 * count), equal totals twice."""
+    planes, cents, n = _planes(40_001, k, 1000 + k, cuda, bf16)
+    args = (planes, cents, n, k_active)
+    kwargs = {"emit_inertia": inertia, "metric": metric, "fast": True}
+    before = kernels.launches("lloyd_accumulate")
+    got = kernels.lloyd_accumulate(*args, **kwargs)
+    again = kernels.lloyd_accumulate(*args, **kwargs)
+    want = kernels.lloyd_accumulate_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernels.launches("lloyd_accumulate") == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, 3], want[:, 3])
+    bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+    assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta_e", ["94", "2000"])
+def test_fast_reduce_on_card_matches_cpu(cuda, delta_e):
+    """`ImageProcessor(fast=True)` at k = 24 on the card against the CPU:
+    replace within 1e-4 of the pixels, meld within 1 u8 step on 1e-3."""
+    rng = np.random.default_rng(10)
+    y, x = np.mgrid[0:90, 0:130]
+    rgb = np.stack([x * 255 // 130, y * 255 // 90, (x + y) * 255 // 220], -1)
+    rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
+    img = np.concatenate([rgb, np.full((90, 130, 1), 255, np.uint8)], -1)
+    card = ImageProcessor(delta_e=delta_e, fast=True)
+    cpu = ImageProcessor(device="cpu", delta_e=delta_e, fast=True)
+    np.testing.assert_array_equal(card.palette(24, img), cpu.palette(24, img))
+    for mode, bar in ((ReduceMode.REPLACE, 1e-4), (ReduceMode.MELD, 1e-3)):
+        on_card = card.reduce(24, img, reduce_mode=mode).pixels.astype(int)
+        on_cpu = cpu.reduce(24, img, reduce_mode=mode).pixels.astype(int)
+        step = np.abs(on_card - on_cpu).max(-1)
+        assert (step > 0).sum() <= bar * 90 * 130
+        assert mode is ReduceMode.REPLACE or step.max() <= 1

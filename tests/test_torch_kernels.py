@@ -119,11 +119,11 @@ def test_words_unpack_to_plain_indices(k):
     np.testing.assert_array_equal(got.astype(np.int64), want)
 
 
-def test_cpu_call_does_not_count_a_launch(monkeypatch):
+def test_cpu_call_does_not_count_a_launch():
     rgb, pal = _case(16, 16, 4, seed=5)
-    monkeypatch.setattr(kernels, "ASSIGN_PACKED_LAUNCHES", 0)
+    kernels.LAUNCHES_BY_MODE.clear()
     kernels.assign_packed(torch.from_numpy(rgb), centroids_from_reference(pal), 0.0)
-    assert kernels.ASSIGN_PACKED_LAUNCHES == 0
+    assert kernels.launches("assign_packed") == 0
 
 
 def test_wrapper_rejects_what_it_does_not_take():

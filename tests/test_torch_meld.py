@@ -126,12 +126,12 @@ def test_unpack_rgb24_matches_reference():
                                       ref_unpack_rgb24(words, h, w, rows))
 
 
-def test_wrapper_rules(monkeypatch):
-    monkeypatch.setattr(kernels, "MELD_PACKED_LAUNCHES", 0)
+def test_wrapper_rules():
+    kernels.LAUNCHES_BY_MODE.clear()
     rgba, pal = _case(8, 8, 4, seed=13)
     rgb, cents = torch.from_numpy(np.ascontiguousarray(rgba[..., :3])), torch.from_numpy(pal)
     assert torch.equal(kernels.meld_packed(rgb, cents, 3), kernels.meld_packed_reference(rgb, cents, 3))
-    assert kernels.MELD_PACKED_LAUNCHES == 0
+    assert kernels.launches("meld_packed") == 0
     with pytest.raises(ValueError, match="unknown metric"):
         kernels.meld_packed(rgb, cents, metric="cie76")
     with pytest.raises(ValueError, match="k_active"):
