@@ -50,18 +50,30 @@ from `kmeans_tpu_torch/csrc/` and then:
    output against the plain version's; `fast_vs_exact`, the share of
    pixels (or of per-cluster counts) each fast mode moves against the
    exact kernel on the same palette; and a 150x210 k=24 reduce on the
-   card against the CPU;
+   card against the CPU. Then frame batching and palettes past 1024
+   colours: `frames_kernel_vs_plain` (the frames modes of the assign and
+   meld kernels: packed, meld, RGBA; B = 1, 3, 8; k = 1..1024; per-frame
+   `k_active` and thresholds; one image through B palettes; both metrics;
+   the fast tiers at k = 64), `colour_out_vs_plain` (`quantize_rgba` at
+   k = 1..16384, `assign_u8`, the meld kernel at k = 16384: one chunk of
+   staged centroids and several), the slice on 16 frames of 1920x1080 and
+   the 4K image (`reduce_images`, `find_batch`, `palette_images`,
+   `reduce_batch`, `reduce(2048)`, `find` with 2048 and 16384 colours),
+   each path with exactly its one launch and its output against the
+   plain version's, and a small batch on the card against the CPU;
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
    beside its bound; the fast modes at k = 64 and k = 256 in turns with
-   the exact kernel at the same k.
+   the exact kernel at the same k; the new kernel modes at the slice's
+   shapes; one frames launch against 16 single-frame launches, and
+   `reduce_images` against 16 `reduce` calls end to end, in turns.
 
 Every phase prints one JSON line. The script exits non-zero on any
 failure, and when no CUDA device is present. Its last three lines are the
 kernels' summary (`launches` counts the launches of the driven paths;
 `launched_by` says whether they came through `ImageProcessor` or, for the
-one form no entry point reaches, a direct call of the wrapper), the card's
+forms no entry point reaches, a direct call of the wrapper), the card's
 `nvidia-smi` line, and
 `{"ok": true, "device": {...}}`.
 """
@@ -310,34 +322,44 @@ def accum_bound(n_pix, n_valid, kp, k_active, stats, bf16=False, weighted=False,
     return _bound(bytes_moved, ops)
 
 
-def assign_bound(n, n_pad, n_words, kp, k_active, metric="cie94", tier="exact"):
+def assign_bound(n, n_pad, n_words, kp, k_active, metric="cie94", tier="exact",
+                 out_bytes=4, palette_words=False):
     """The least time (ms) the card could take for one replace-mode
-    assign call, and what bounds it. Bytes: the RGB image read once, the
-    words written once, the gamma table and centroids read once. Float32
-    operations, as `csrc/quantize_assign.cu` spells them, for each of the
-    `n_pad` pixels it computes: 18 for RGB -> XYZ, 9 for the three Lab
-    f-functions (each `powf` counted as one), 6 for L, a, b, `PIXEL_OPS`
-    pixel-side terms and `centroid_ops` over the centroids."""
-    bytes_moved = 3 * n + 4 * n_words + 256 * 4 + _table_bytes(kp, tier)
-    ops = n_pad * (33 + PIXEL_OPS[tier] + centroid_ops(metric, tier, kp, k_active))
+    assign call, and what bounds it. `k_active` is an int, or a list of
+    one per frame for a frames launch (each frame `n` pixels, `n_words`
+    outputs). Bytes: each frame's RGB read once, its outputs of
+    `out_bytes` each written once (packed and RGBA words 4, u8 indices 1),
+    the gamma table and its centroids (and, for RGBA, its palette's words)
+    read once. Float32 operations, as `csrc/quantize_assign.cu` spells
+    them, for each of the `n_pad` pixels it computes: 18 for RGB -> XYZ,
+    9 for the three Lab f-functions (each `powf` counted as one), 6 for L,
+    a, b, `PIXEL_OPS` pixel-side terms and `centroid_ops` over the
+    centroids."""
+    k_actives = k_active if isinstance(k_active, list) else [k_active]
+    bytes_moved = 256 * 4 + len(k_actives) * (
+        3 * n + out_bytes * n_words + _table_bytes(kp, tier) + (4 * kp if palette_words else 0))
+    ops = n_pad * sum(33 + PIXEL_OPS[tier] + centroid_ops(metric, tier, kp, ka)
+                      for ka in k_actives)
     return _bound(bytes_moved, ops)
 
 
 def meld_bound(n, n_pad, kp, k_active, metric, tier="exact"):
     """The least time (ms) the card could take for one meld call, and what
-    bounds it. Bytes: the RGB image read once, the 3 B/px of words written
-    once, the gamma table and centroids read once. Float32 operations, as
-    `csrc/quantize_meld.cu` spells them, for each of the `n_pad` pixels:
-    33 into Lab and `PIXEL_OPS` pixel terms (as `assign_bound`),
-    `centroid_ops` over the centroids, one more distance and 4 weights for
-    d(closest, second) (and, under the factorized tier, one more exact
-    distance for the numerator), 4 for the factor, 9 for the blend, 53
-    back to u8 sRGB (three `powf` counted as one each)."""
-    bytes_moved = 3 * n + 3 * n_pad + 256 * 4 + _table_bytes(kp, tier)
+    bounds it; `k_active` as in `assign_bound`. Bytes: each frame's RGB
+    read once, its 3 B/px of words written once, the gamma table and its
+    centroids read once. Float32 operations, as `csrc/quantize_meld.cu`
+    spells them, for each of the `n_pad` pixels: 33 into Lab and
+    `PIXEL_OPS` pixel terms (as `assign_bound`), `centroid_ops` over the
+    centroids, one more distance and 4 weights for d(closest, second)
+    (and, under the factorized tier, one more exact distance for the
+    numerator), 4 for the factor, 9 for the blend, 53 back to u8 sRGB
+    (three `powf` counted as one each)."""
+    k_actives = k_active if isinstance(k_active, list) else [k_active]
+    bytes_moved = 256 * 4 + len(k_actives) * (3 * n + 3 * n_pad + _table_bytes(kp, tier))
     m = METRIC_OPS[metric]
     extra = m if tier == "factor" else 0
-    ops = n_pad * (33 + PIXEL_OPS[tier] + centroid_ops(metric, tier, kp, k_active)
-                   + m + extra + 4 + 4 + 9 + 53)
+    ops = n_pad * sum(33 + PIXEL_OPS[tier] + centroid_ops(metric, tier, kp, ka)
+                      + m + extra + 4 + 4 + 9 + 53 for ka in k_actives)
     return _bound(bytes_moved, ops)
 
 
@@ -370,8 +392,8 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def profile_reduce(proc, image, card: str, what: str = "reduce 3840x2160 k=8 replace") -> dict:
-    """One warm 4K reduce under torch.profiler: the device's busy time (the
+def profile_call(call, card: str, what: str) -> dict:
+    """One warm `call()` under torch.profiler: the device's busy time (the
     union of the intervals of every event on the card: kernels and copies),
     its share of the wall time, and the costliest device events by name.
     The profiler's own host overhead lengthens the wall time, so the idle
@@ -380,11 +402,9 @@ def profile_reduce(proc, image, card: str, what: str = "reduce 3840x2160 k=8 rep
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kmeans_tpu_torch import ReduceMode
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        proc.reduce(K, image, reduce_mode=ReduceMode.REPLACE)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -885,6 +905,562 @@ def time_fast(dev, lab_4k, palettes, flush, card) -> dict:
     return summary
 
 
+# --- Frame batching and palettes past 1024 colours ---------------------------
+
+FRAMES_KS = (1, 8, 17, 257, 1024)
+FRAMES_KS_2000 = (1, 8, 17, 257)
+FRAME_SHAPES = ((61, 97), (30, 41))  # H not a multiple of 4: per-frame dither phase
+COLOUR_OUT_KS = (1, 8, 1025, 2048, 16384)
+N_FRAMES, FRAME_H, FRAME_W = 16, 1080, 1920
+BIG_K = 2048  # past INDEXED_MAX_K: the colour-out pass
+HUGE_K = 16384  # past one shared-memory chunk (STAGE_CHUNK) of centroids
+
+
+def _frame_images(b, h, w, seed, device):
+    rng = np.random.default_rng(seed)
+    import torch
+
+    return torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(device)
+
+
+def _rgba_step(a, b):
+    """Largest channel step of each pixel between two RGBA uint8 arrays."""
+    return np.abs(a.astype(np.int64) - b.astype(np.int64)).max(-1)
+
+
+def _frames_outputs(form, words, b, h, w, k):
+    """`[b, h, w, 4]` RGBA (or `[b, h, w]` indices for packed) from a
+    frames launch's host copy."""
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.utils.packing import (
+        pack_bits,
+        unpack_rgb24_tile_words,
+        unpack_tile_words,
+    )
+
+    rows = kernels.quant_tile_rows(k)
+    out = words.cpu().numpy()
+    if form == "rgba":
+        return out
+    if form == "meld":
+        return np.stack([unpack_rgb24_tile_words(out[f], h, w, rows) for f in range(b)])
+    return np.stack([unpack_tile_words(out[f], h, w, pack_bits(k), rows) for f in range(b)])
+
+
+def frames_case(form, b, h, w, k, metric, device, shared=False, fast=False, seed=7):
+    """The frames mode of one kernel against its plain twin on one case:
+    `b` frames (or one image `shared` by `b` palettes: frame stride 0),
+    each with its own palette, `k_active` and dither threshold. Returns
+    the case's JSON line: mismatched words, and the outputs' largest
+    difference (index for packed, channel step for meld and RGBA)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.ops.quantize import dither_thresholds
+
+    frames = _frame_images(b, h, w, seed + k + b, device)
+    if shared:
+        frames = frames[:1].expand(b, h, w, 3)
+    rng = np.random.default_rng(seed + 31 * k)
+    cents = srgb8_to_lab(torch.from_numpy(
+        rng.integers(0, 256, (b, k, 3), dtype=np.uint8)).to(device)).contiguous()
+    k_actives = [max(1, k - (f * k) // (b + 1)) for f in range(b)]
+    thr = dither_thresholds(cents, k_actives, metric)
+    if form == "meld":
+        got = kernels.meld_frames_packed(frames, cents, k_actives, metric, fast)
+        want = kernels.meld_frames_packed_reference(frames, cents, k_actives, metric, fast)
+    elif form == "packed":
+        got = kernels.assign_frames_packed(frames, cents, thr, k_actives, "dither", metric, fast)
+        want = kernels.assign_frames_packed_reference(frames, cents, thr, k_actives, "dither",
+                                                      metric, fast)
+    else:
+        got = kernels.quantize_frames(frames, cents, thr, k_actives, "dither", metric, fast)
+        want = kernels.quantize_frames_reference(frames, cents, thr, k_actives, "dither",
+                                                 metric, fast)
+    torch.cuda.synchronize()
+    a = _frames_outputs(form, got, b, h, w, k)
+    z = _frames_outputs(form, want, b, h, w, k)
+    diff = (np.abs(a.astype(np.int64) - z.astype(np.int64)) if form == "packed"
+            else _rgba_step(a, z))
+    return {"phase": "frames_kernel_vs_plain", "form": form, "frames": b, "h": h, "w": w,
+            "k": k, "k_actives": k_actives, "metric": metric, "shared_image": shared,
+            "tier": kernels.assign_tier(fast, metric, k),
+            "mismatched_words": int((got != want).sum().item()),
+            "differing_pixels": int((diff > 0).sum()), "max_abs_err": int(diff.max()),
+            "pixels": b * h * w}
+
+
+def frames_kernel_checks(device) -> dict:
+    """`frames_kernel_vs_plain`: the packed, meld and RGBA frames modes
+    against their twins over B = 1, 3, 8, k = 1..1024, ragged frames, per-
+    frame `k_active` and thresholds, frame stride 0, both metrics, and the
+    fast tiers at k = 64: equal words (meld under CIEDE2000: within 1 u8
+    step on 1e-4 of the pixels). Returns the largest error by (form,
+    metric, tier)."""
+    failures, err = [], {}
+    cases = []
+    for metric, ks in (("cie94", FRAMES_KS), ("cie2000", FRAMES_KS_2000)):
+        for i, k in enumerate(ks):
+            for j, form in enumerate(("packed", "meld", "rgba")):
+                b = (1, 3, 8)[(i + j) % 3] if k < 257 or metric == "cie94" else 3
+                if k == 1024:
+                    b = 3 if form == "packed" else 1
+                h, w = FRAME_SHAPES[(i + j) % 2]
+                cases.append((form, b, h, w, k, metric, (i + j) % 4 == 3, False))
+    for metric in ("cie94", "cie2000"):
+        for form in ("packed", "meld"):
+            cases.append((form, 3, 61, 97, FAST_K, metric, form == "meld", True))
+    for form, b, h, w, k, metric, shared, fast in cases:
+        line = frames_case(form, b, h, w, k, metric, device, shared, fast)
+        emit(line)
+        key = (form, metric, line["tier"])
+        err[key] = max(err.get(key, 0), line["max_abs_err"])
+        ok = line["mismatched_words"] == 0 or (
+            form == "meld" and metric == "cie2000" and line["max_abs_err"] <= 1
+            and line["differing_pixels"] <= 1e-4 * line["pixels"])
+        if not ok:
+            failures.append(f"frames_kernel_vs_plain: {line}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return err
+
+
+def colour_out_checks(device) -> dict:
+    """`colour_out_vs_plain`: `quantize_rgba` against its twin at k = 1,
+    8, 1025, 2048, 16384 (one chunk of staged centroids below 4096, the
+    chunked instance above), replace and dither, CIE94, and at k = 8, 1025
+    under CIEDE2000; `assign_u8` at k = 8, 256; the meld kernel at
+    k = 16384 (the staging repair); and the chunked instances under
+    CIEDE2000 at k = 1025 with `STAGE_CHUNK` lowered to 256 (the twin of
+    a 16384-entry CIEDE2000 palette takes minutes). Equal RGBA, indices
+    and words (meld under CIEDE2000: within 1 u8 step on 1e-4 of the
+    pixels). Returns the largest error of each kernel instance."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.quantize import dither_threshold
+    from kmeans_tpu_torch.utils.packing import unpack_rgb24_tile_words
+
+    failures, err = [], {}
+    rng = np.random.default_rng(SEED + 77)
+    rgb = torch.from_numpy(rng.integers(0, 256, (61, 97, 3), dtype=np.uint8)).to(device)
+    default_chunk = kernels.STAGE_CHUNK
+    cases = [(k, mode, "cie94", default_chunk) for k in COLOUR_OUT_KS
+             for mode in ("replace", "dither")]
+    cases += [(k, mode, "cie2000", default_chunk) for k in (8, 1025)
+              for mode in ("replace", "dither")]
+    for k, mode, metric, chunk in cases + [(1025, "dither", "cie2000", 256)]:
+        kernels.STAGE_CHUNK = chunk
+        cents = random_palette_lab(k, SEED + k, device)
+        thr = dither_threshold(cents, metric=metric) if mode == "dither" else 0.0
+        got = kernels.quantize_rgba(rgb, cents, thr, mode=mode, metric=metric)
+        want = kernels.quantize_rgba_reference(rgb, cents, thr, mode=mode, metric=metric)
+        torch.cuda.synchronize()
+        step = _rgba_step(got.cpu().numpy(), want.cpu().numpy())
+        chunked = k > kernels.STAGE_CHUNK
+        line = {"phase": "colour_out_vs_plain", "kernel": "quantize_rgba", "k": k,
+                "mode": mode, "metric": metric, "chunked": chunked,
+                "differing_pixels": int((step > 0).sum()), "max_abs_err": int(step.max())}
+        emit(line)
+        key = ("quantize_rgba", metric, chunked)
+        err[key] = max(err.get(key, 0), line["max_abs_err"])
+        if line["differing_pixels"]:
+            failures.append(f"colour_out_vs_plain: {line}")
+    for k, mode in ((8, "replace"), (256, "dither")):
+        cents = random_palette_lab(k, SEED + k, device)
+        thr = dither_threshold(cents) if mode == "dither" else 0.0
+        got = kernels.assign_u8(rgb, cents, thr, mode=mode)
+        want = kernels.assign_u8_reference(rgb, cents, thr, mode=mode)
+        diff = int((got.int() - want.int()).abs().max().item())
+        emit({"phase": "colour_out_vs_plain", "kernel": "assign_u8", "k": k, "mode": mode,
+              "metric": "cie94", "flipped_indices": int((got != want).sum().item()),
+              "max_abs_err": diff})
+        err["assign_u8", "cie94", False] = max(err.get(("assign_u8", "cie94", False), 0), diff)
+        if diff:
+            failures.append(f"assign_u8 k={k} {mode}: {diff}")
+    for k, metric, chunk in ((HUGE_K, "cie94", default_chunk), (1025, "cie2000", 256)):
+        kernels.STAGE_CHUNK = chunk
+        cents = random_palette_lab(k, SEED + k, device)
+        cents[-1] = cents[0]  # a repeated colour: its pixels blend to NaN, written black
+        got = kernels.meld_packed(rgb, cents, metric=metric)
+        want = kernels.meld_packed_reference(rgb, cents, metric=metric)
+        torch.cuda.synchronize()
+        rows = kernels.quant_tile_rows(k)
+        step = _rgba_step(unpack_rgb24_tile_words(got.cpu().numpy(), 61, 97, rows),
+                          unpack_rgb24_tile_words(want.cpu().numpy(), 61, 97, rows))
+        line = {"phase": "colour_out_vs_plain", "kernel": "meld_packed", "k": k,
+                "metric": metric, "chunked": k > kernels.STAGE_CHUNK,
+                "mismatched_words": int((got != want).sum().item()),
+                "differing_pixels": int((step > 0).sum()), "max_abs_err": int(step.max())}
+        emit(line)
+        err["meld_packed", metric, True] = max(err.get(("meld_packed", metric, True), 0),
+                                               line["max_abs_err"])
+        if line["mismatched_words"] and (metric == "cie94" or line["max_abs_err"] > 1
+                                         or line["differing_pixels"] > 1e-4 * 61 * 97):
+            failures.append(f"meld at k={k}: {line}")
+    kernels.STAGE_CHUNK = default_chunk
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return err
+
+
+def frames_rgba(seed, b=N_FRAMES, h=FRAME_H, w=FRAME_W) -> list:
+    """`b` synthetic RGBA frames, each its own seed."""
+    return [synthetic_image(h, w, seed=seed + f) for f in range(b)]
+
+
+def drive_frames(image, frames, device) -> dict:
+    """The slice at full width: `reduce_images` on 16 frames of 1920x1080
+    (k = 8 replace, dither and meld; k = 64 `fast=True` replace and meld
+    under both metrics; k = 2048 on two frames), `find_batch` with 16
+    colours (dither, meld), `palette_images` at k = 8, `reduce_batch` on
+    the 4K image at ks (4, 8, 16, 32), `reduce(2048)` replace and dither,
+    `find` with 2048 colours, and `find` with 16384 colours on one frame
+    (replace and meld: the chunked instances). Each path is driven with
+    the launch counts set to 0 just before it and read just after; each
+    must launch exactly its one kernel. Returns the outputs, the paths'
+    launches and seconds, and the processors."""
+    import torch
+
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.api import _colors_to_lab
+    from kmeans_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 16)
+    colors16 = rng.integers(0, 256, (16, 4), dtype=np.uint8)
+    colors_big = rng.integers(0, 256, (BIG_K, 4), dtype=np.uint8)
+    colors_huge = rng.integers(0, 256, (HUGE_K, 4), dtype=np.uint8)
+    for c in (colors16, colors_big, colors_huge):
+        c[:, 3] = 255
+    dev4k = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to(device)
+    lab16 = torch.from_numpy(_colors_to_lab(colors16)).to(device)
+    procs = {"94": ImageProcessor(device="cuda"),
+             "fast94": ImageProcessor(device="cuda", fast=True),
+             "fast2000": ImageProcessor(device="cuda", fast=True, delta_e="2000")}
+    p94 = procs["94"]
+    R, D, M = ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD
+    calls = {
+        "reduce_images k=8 replace": lambda: p94.reduce_images(frames, K, R),
+        "reduce_images k=8 dither": lambda: p94.reduce_images(frames, K, D),
+        "reduce_images k=8 meld": lambda: p94.reduce_images(frames, K, M),
+        "reduce_images k=64 fast replace": lambda: procs["fast94"].reduce_images(
+            frames, FAST_K, R),
+        "reduce_images k=64 fast meld": lambda: procs["fast94"].reduce_images(frames, FAST_K, M),
+        "reduce_images k=64 fast replace delta_e=2000": lambda: procs["fast2000"].reduce_images(
+            frames, FAST_K, R),
+        "reduce_images k=64 fast meld delta_e=2000": lambda: procs["fast2000"].reduce_images(
+            frames, FAST_K, M),
+        "reduce_images k=2048 replace, 2 frames": lambda: p94.reduce_images(frames[:2], BIG_K),
+        "find_batch 16 colours dither": lambda: p94.find_batch(frames, colors16, D),
+        "find_batch 16 colours meld": lambda: p94.find_batch(frames, colors16, M),
+        "palette_images k=8": lambda: p94.palette_images(frames, K),
+        "reduce_batch 4K ks (4, 8, 16, 32)": lambda: p94.reduce_batch(image, (4, 8, 16, 32)),
+        "reduce 4K k=2048 replace": lambda: p94.reduce(BIG_K, image),
+        "reduce 4K k=2048 dither": lambda: p94.reduce(BIG_K, image, reduce_mode=D),
+        "find 4K 2048 colours": lambda: p94.find(image, colors_big),
+        "find 1080p 16384 colours replace": lambda: p94.find(frames[0], colors_huge),
+        "find 1080p 16384 colours meld": lambda: p94.find(frames[0], colors_huge, M),
+        # No entry point of either package reaches the u8-index form: its
+        # path is the wrapper itself.
+        "assign_u8 4K 16 colours, direct wrapper call": lambda: kernels.assign_u8(
+            dev4k, lab16, 0.0),
+    }
+    frames_launch = {"assign_frames_packed cie94 exact": 1}
+    want = {
+        "reduce_images k=8 replace": frames_launch,
+        "reduce_images k=8 dither": frames_launch,
+        "reduce_images k=8 meld": {"meld_frames_packed cie94 exact": 1},
+        "reduce_images k=64 fast replace": {"assign_frames_packed cie94 factor": 1},
+        "reduce_images k=64 fast meld": {"meld_frames_packed cie94 factor": 1},
+        "reduce_images k=64 fast replace delta_e=2000": {"assign_frames_packed cie2000 prune": 1},
+        "reduce_images k=64 fast meld delta_e=2000": {"meld_frames_packed cie2000 prune": 1},
+        "reduce_images k=2048 replace, 2 frames": {"quantize_frames cie94 exact": 1},
+        "find_batch 16 colours dither": {"assign_packed cie94 exact": 1},
+        "find_batch 16 colours meld": {"meld_packed cie94 exact": 1},
+        "palette_images k=8": {},
+        "reduce_batch 4K ks (4, 8, 16, 32)": frames_launch,
+        "reduce 4K k=2048 replace": {"quantize_rgba cie94 exact": 1},
+        "reduce 4K k=2048 dither": {"quantize_rgba cie94 exact": 1},
+        "find 4K 2048 colours": {"quantize_rgba cie94 exact": 1},
+        "find 1080p 16384 colours replace": {"quantize_rgba cie94 exact-chunked": 1},
+        "find 1080p 16384 colours meld": {"meld_packed cie94 exact-chunked": 1},
+        "assign_u8 4K 16 colours, direct wrapper call": {"assign_u8 cie94 exact": 1},
+    }
+    outs, paths, seconds = {}, {}, {}
+    for name, fn in calls.items():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        paths[name] = mode_counts()
+    emit({"phase": "frames_slice", "launches_by_path": paths, "seconds": seconds})
+    if paths != want:
+        raise AssertionError(f"frames slice launches {paths}, want {want}")
+    return {"outs": outs, "paths": paths, "procs": procs, "colors16": colors16,
+            "colors_big": colors_big, "colors_huge": colors_huge}
+
+
+def frames_slice_vs_plain(image, frames, device, drive) -> dict:
+    """Each output of `drive_frames` against the plain twins on the same
+    palettes (the trainings run again outside the counted paths; a
+    training is deterministic): CIE94 equal pixels, CIEDE2000 within 1 u8
+    step on 1e-4 of them; `palette_images` a palette of 8 opaque colours.
+    Returns the trained palettes, for the times."""
+    import torch
+
+    from kmeans_tpu_torch import Image
+    from kmeans_tpu_torch.api import _colors_to_lab, _lab_palette_to_u8, _unpack
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.quantize import dither_threshold, dither_thresholds
+
+    outs, procs = drive["outs"], drive["procs"]
+    stack = torch.from_numpy(np.stack([f[..., :3] for f in frames])).to(device)
+    dev = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to(device)
+    h, w = FRAME_H, FRAME_W
+
+    def check(name, got_images, want_rgba, metric):
+        step = np.stack([_rgba_step(g.pixels, x) for g, x in zip(got_images, want_rgba)])
+        differ = int((step > 0).sum())
+        line = {"phase": "slice_vs_plain", "call": name, "metric": metric,
+                "differing_pixels": differ, "max_channel_step": int(step.max()),
+                "pixels": int(step.size)}
+        emit(line)
+        ok = differ == 0 if metric == "cie94" else (
+            step.max() <= 1 and differ <= 1e-4 * step.size)
+        if not ok or not all((g.pixels[..., 3] == 255).all() for g in got_images):
+            raise AssertionError(f"{name}: {line}")
+
+    def plain_frames(cents, mode, metric, fast, frames_u8, k_actives=None):
+        b, k = cents.shape[0], cents.shape[1]
+        if mode == "meld":
+            words = kernels.meld_frames_packed_reference(frames_u8, cents, k_actives, metric, fast)
+            kind, pals = "meld", None
+        else:
+            thr = dither_thresholds(cents, k_actives, metric) if mode == "dither" else 0.0
+            if k > kernels.INDEXED_MAX_K:
+                return list(kernels.quantize_frames_reference(
+                    frames_u8, cents, thr, k_actives, mode, metric, fast).cpu().numpy())
+            words = kernels.assign_frames_packed_reference(frames_u8, cents, thr, k_actives,
+                                                           mode, metric, fast)
+            kind, pals = "indexed", _lab_palette_to_u8(cents)[0].cpu().numpy()
+        words = words.cpu().numpy()
+        return [_unpack(kind, words[f], frames_u8.shape[1], frames_u8.shape[2], k,
+                        None if pals is None else pals[f]) for f in range(b)]
+
+    palettes = {}
+    for name, proc, k, mode, metric, fast in (
+        ("reduce_images k=8 replace", procs["94"], K, "replace", "cie94", False),
+        ("reduce_images k=8 dither", procs["94"], K, "dither", "cie94", False),
+        ("reduce_images k=8 meld", procs["94"], K, "meld", "cie94", False),
+        ("reduce_images k=64 fast replace", procs["fast94"], FAST_K, "replace", "cie94", True),
+        ("reduce_images k=64 fast meld", procs["fast94"], FAST_K, "meld", "cie94", True),
+        ("reduce_images k=64 fast replace delta_e=2000", procs["fast2000"], FAST_K, "replace",
+         "cie2000", True),
+        ("reduce_images k=64 fast meld delta_e=2000", procs["fast2000"], FAST_K, "meld",
+         "cie2000", True),
+    ):
+        key = (k, metric)
+        if key not in palettes:
+            palettes[key] = proc._train_batched(stack, k, w, h)
+        check(name, outs[name], plain_frames(palettes[key], mode, metric, fast, stack), metric)
+    palettes[BIG_K, "cie94"] = procs["94"]._train_batched(stack[:2], BIG_K, w, h)
+    check("reduce_images k=2048 replace, 2 frames", outs["reduce_images k=2048 replace, 2 frames"],
+          plain_frames(palettes[BIG_K, "cie94"], "replace", "cie94", False, stack[:2]), "cie94")
+    ks = [4, 8, 16, 32]
+    cents_batch = procs["94"]._train_batched(dev, max(ks), WIDTH, HEIGHT, ks)
+    check("reduce_batch 4K ks (4, 8, 16, 32)", outs["reduce_batch 4K ks (4, 8, 16, 32)"],
+          plain_frames(cents_batch, "replace", "cie94", False,
+                       dev[None].expand(len(ks), HEIGHT, WIDTH, 3), ks), "cie94")
+    lab16 = torch.from_numpy(_colors_to_lab(drive["colors16"])).to(device)
+    tall = np.concatenate([f[..., :3] for f in frames])  # 1080 rows: a multiple of 4
+    tall_dev = torch.from_numpy(tall).to(device)
+    for mode in ("dither", "meld"):
+        thr = dither_threshold(lab16) if mode == "dither" else 0.0
+        if mode == "meld":
+            words, kind = kernels.meld_packed_reference(tall_dev, lab16), "meld"
+        else:
+            words, kind = kernels.assign_packed_reference(tall_dev, lab16, thr, mode=mode), \
+                "indexed"
+        plain = _unpack(kind, words.cpu().numpy(), N_FRAMES * h, w, 16,
+                        _lab_palette_to_u8(lab16)[0].cpu().numpy())
+        check(f"find_batch 16 colours {mode}", outs[f"find_batch 16 colours {mode}"],
+              list(plain.reshape(N_FRAMES, h, w, 4)), "cie94")
+    cents_big = procs["94"].extract_palette_kmeans(Image((WIDTH, HEIGHT), image), BIG_K)
+    for mode in ("replace", "dither"):
+        thr = dither_threshold(cents_big) if mode == "dither" else 0.0
+        check(f"reduce 4K k=2048 {mode}", [outs[f"reduce 4K k=2048 {mode}"]],
+              [kernels.quantize_rgba_reference(dev, cents_big, thr, mode=mode).cpu().numpy()],
+              "cie94")
+    lab_big = torch.from_numpy(_colors_to_lab(drive["colors_big"])).to(device)
+    check("find 4K 2048 colours", [outs["find 4K 2048 colours"]],
+          [kernels.quantize_rgba_reference(dev, lab_big, 0.0).cpu().numpy()], "cie94")
+    lab_huge = torch.from_numpy(_colors_to_lab(drive["colors_huge"])).to(device)
+    frame0 = stack[0]
+    check("find 1080p 16384 colours replace", [outs["find 1080p 16384 colours replace"]],
+          [kernels.quantize_rgba_reference(frame0, lab_huge, 0.0).cpu().numpy()], "cie94")
+    check("find 1080p 16384 colours meld", [outs["find 1080p 16384 colours meld"]],
+          [_unpack("meld", kernels.meld_packed_reference(frame0, lab_huge).cpu().numpy(), h, w,
+                   HUGE_K, None)], "cie94")
+    pal = outs["palette_images k=8"]
+    emit({"phase": "frames_slice", "palette_images_k8": ["#%02X%02X%02X" % tuple(c[:3])
+                                                         for c in pal]})
+    if pal.shape != (K, 4) or not (pal[:, 3] == 255).all():
+        raise AssertionError(f"palette_images: {pal.shape}")
+    return {"palettes": palettes, "lab_big": lab_big, "lab_huge": lab_huge, "stack": stack,
+            "dev": dev, "cents_big": cents_big}
+
+
+def frames_card_vs_cpu() -> None:
+    """One small batch on the card against the CPU: `reduce_images`,
+    `reduce_batch`, `find_batch` (dither and meld) and `palette_images` on
+    3 frames of 150x210: equal palettes; dither within 1e-4 of the pixels,
+    meld within 1 u8 step on 1e-3."""
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+
+    frames = frames_rgba(SEED + 50, 3, 150, 210)
+    colors = np.random.default_rng(SEED + 51).integers(0, 256, (12, 3), dtype=np.uint8)
+    card, cpu = ImageProcessor(device="cuda"), ImageProcessor(device="cpu")
+    same_palette = bool((card.palette_images(frames, K) == cpu.palette_images(frames, K)).all())
+    for mode in (ReduceMode.DITHER, ReduceMode.MELD):
+        for name, fn in (("reduce_images", lambda p: p.reduce_images(frames, K, mode)),
+                         ("reduce_batch", lambda p: p.reduce_batch(frames[0], (3, 8), mode)),
+                         ("find_batch", lambda p: p.find_batch(frames, colors, mode))):
+            step = np.stack([_rgba_step(a.pixels, b.pixels)
+                             for a, b in zip(fn(card), fn(cpu))])
+            differ = int((step > 0).sum())
+            emit({"phase": "card_vs_cpu", "mode": f"{name} {mode.value}",
+                  "differing_pixels": differ, "max_channel_step": int(step.max()),
+                  "pixels": int(step.size), "same_palette_images": same_palette})
+            bar = 1e-3 if mode is ReduceMode.MELD else 1e-4
+            if (not same_palette or differ > bar * step.size
+                    or (mode is ReduceMode.MELD and step.max() > 1)):
+                raise AssertionError(f"card vs cpu {name} {mode.value}: {differ} pixels differ")
+
+
+def time_frames(image, frames, device, card, drive, plain) -> dict:
+    """The new kernel instances' times at the slice's shapes (cold L2,
+    CUDA events), each beside its plain twin's time and its bound; the
+    frames launch at 16x1080p k=8 in turns with 16 single-frame launches;
+    `reduce_images` end to end in turns with 16 sequential `reduce` calls.
+    Returns `{kernel entry: (ms, plain_ms, bound_ms, bound_by)}`."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.quantize import dither_thresholds
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    stack, dev = plain["stack"], plain["dev"]
+    h, w = FRAME_H, FRAME_W
+    n_f = h * w
+    out = {}
+
+    def layout(k, ppw=1):
+        rows = kernels.quant_tile_rows(k) * kernels.LANES
+        n_pad = -(-n_f // rows) * rows
+        return n_pad, n_pad // ppw
+
+    def timed(entry, kernel, twin, bound, reps=10):
+        out[entry] = (cuda_ms(kernel, reps, flush), cuda_ms(twin, 1, flush), *bound)
+        emit({"phase": "timing", "what": entry, "card": card, "kernel_ms": out[entry][0],
+              "plain_ms": out[entry][1], "bound_ms": out[entry][2], "bound_by": out[entry][3]})
+
+    # The frames modes on the 16 frames' trained palettes.
+    ks16 = [K] * N_FRAMES
+    for metric, k, fast, tier in (("cie94", K, False, "exact"), ("cie94", FAST_K, True, "factor"),
+                                  ("cie2000", FAST_K, True, "prune")):
+        cents = plain["palettes"][k, metric]
+        ka = [k] * N_FRAMES
+        n_pad, n_words = layout(k, 32 // kernels.pack_bits(k))
+        suffix = "" if tier == "exact" else (
+            "[fast cie94, factorized]" if tier == "factor" else "[fast cie2000, pruned]")
+        timed(f"assign_frames_packed{suffix}",
+              lambda: kernels.assign_frames_packed(stack, cents, 0.0, None, "replace", metric,
+                                                   fast),
+              lambda: kernels.assign_frames_packed_reference(stack, cents, 0.0, None, "replace",
+                                                             metric, fast),
+              assign_bound(n_f, n_pad, n_words, k, ka, metric, tier), 5 if fast else 10)
+        n_pad, _ = layout(k)
+        timed(f"meld_frames_packed{suffix}",
+              lambda: kernels.meld_frames_packed(stack, cents, None, metric, fast),
+              lambda: kernels.meld_frames_packed_reference(stack, cents, None, metric, fast),
+              meld_bound(n_f, n_pad, k, ka, metric, tier), 5 if fast else 10)
+    cents2 = plain["palettes"][BIG_K, "cie94"]
+    n_pad, _ = layout(BIG_K)
+    timed("quantize_frames",
+          lambda: kernels.quantize_frames(stack[:2], cents2, 0.0),
+          lambda: kernels.quantize_frames_reference(stack[:2], cents2, 0.0),
+          assign_bound(n_f, n_pad, n_pad, BIG_K, [BIG_K] * 2, palette_words=True), 3)
+    # The colour-out and u8 modes at 4K, the chunked instances at 1080p.
+    n_4k = HEIGHT * WIDTH
+    rows = kernels.quant_tile_rows(BIG_K) * kernels.LANES
+    n_pad_4k = -(-n_4k // rows) * rows
+    cents_big = plain["cents_big"]
+    timed("quantize_rgba", lambda: kernels.quantize_rgba(dev, cents_big, 0.0),
+          lambda: kernels.quantize_rgba_reference(dev, cents_big, 0.0),
+          assign_bound(n_4k, n_pad_4k, n_pad_4k, BIG_K, BIG_K, palette_words=True), 3)
+    cents8 = plain["palettes"][K, "cie94"][0]
+    rows = kernels.quant_tile_rows(K) * kernels.LANES
+    n_pad8 = -(-n_4k // rows) * rows
+    timed("assign_u8", lambda: kernels.assign_u8(dev, cents8, 0.0),
+          lambda: kernels.assign_u8_reference(dev, cents8, 0.0),
+          assign_bound(n_4k, n_pad8, n_pad8, K, K, out_bytes=1))
+    lab_huge, frame0 = plain["lab_huge"], stack[0]
+    n_pad, _ = layout(HUGE_K)
+    timed("quantize_rgba[chunked]", lambda: kernels.quantize_rgba(frame0, lab_huge, 0.0),
+          lambda: kernels.quantize_rgba_reference(frame0, lab_huge, 0.0),
+          assign_bound(n_f, n_pad, n_pad, HUGE_K, HUGE_K, palette_words=True), 2)
+    timed("meld_packed[chunked]", lambda: kernels.meld_packed(frame0, lab_huge),
+          lambda: kernels.meld_packed_reference(frame0, lab_huge),
+          meld_bound(n_f, n_pad, HUGE_K, HUGE_K, "cie94"), 2)
+
+    # One frames launch against 16 single-frame launches, in turns.
+    cents = plain["palettes"][K, "cie94"]
+    thr = dither_thresholds(cents)
+
+    def one_launch():
+        kernels.assign_frames_packed(stack, cents, thr, None, "dither")
+
+    def sixteen():
+        for f in range(N_FRAMES):
+            kernels.assign_packed(stack[f], cents[f], thr[f], mode="dither")
+
+    turns = [cuda_ms(fn, 5, flush) for fn in (one_launch, sixteen, sixteen, one_launch)]
+    emit({"phase": "timing", "what": "dither 16x1920x1080 k=8: one frames launch against 16 "
+          "single-frame launches, in turns, cold L2", "card": card, "ms_in_turn": turns,
+          "frames_launch_ms": (turns[0] + turns[3]) / 2,
+          "sixteen_launches_ms": (turns[1] + turns[2]) / 2})
+
+    # reduce_images end to end against 16 sequential reduce calls, in turns,
+    # with their phases (summed over the 16 calls); then one of each profiled.
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    proc = drive["procs"]["94"]
+    calls = {"reduce_images": lambda: proc.reduce_images(frames, K),
+             "16 x reduce": lambda: [proc.reduce(K, f) for f in frames]}
+    runs = {what: [] for what in calls}
+    for what in ("reduce_images", "16 x reduce", "16 x reduce", "reduce_images",
+                 "reduce_images", "16 x reduce"):
+        phases: dict = {}
+        t0 = time.perf_counter()
+        with collect_phases(phases):
+            calls[what]()
+        runs[what].append(((time.perf_counter() - t0) * 1e3, phases))
+    names = ("host_prep", "upload", "device", "lloyd_sync", "readback", "unpack")
+    emit({"phase": "timing", "what": "reduce 16 frames of 1920x1080 at k=8 replace, e2e: "
+          "reduce_images against 16 sequential reduce calls, in turns", "card": card,
+          "ms_each": {w: [r[0] for r in v] for w, v in runs.items()},
+          "median_ms": {w: statistics.median(r[0] for r in v) for w, v in runs.items()},
+          "frames_per_s": {w: N_FRAMES * 1e3 / statistics.median(r[0] for r in v)
+                           for w, v in runs.items()},
+          "phases_ms": {w: {n: statistics.median(r[1].get(n, 0.0) for r in v) * 1e3
+                            for n in names} for w, v in runs.items()}})
+    for what, call in calls.items():
+        emit(profile_call(call, card, f"{what}, 16 frames of 1920x1080 k=8 replace"))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1197,6 +1773,17 @@ def main() -> int:
                 raise AssertionError(f"card vs cpu fast {mode.value} delta_e={delta_e}: "
                                      f"{differ} pixels differ, {over} by more than 1 step")
 
+    # 4f. Frame batching and palettes past 1024 colours: the frames and
+    # colour-out kernel modes against plain, the slice at full width (each
+    # path with its launches), its outputs against plain, and the card
+    # against the CPU.
+    frames_err = frames_kernel_checks(device)
+    colour_err = colour_out_checks(device)
+    frames = frames_rgba(SEED + 10)
+    drive = drive_frames(image, frames, device)
+    frames_plain = frames_slice_vs_plain(image, frames, device, drive)
+    frames_card_vs_cpu()
+
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
     shrunk_timing, full_timing, meld_timing, timing_2000 = timed_reduces({
@@ -1221,8 +1808,9 @@ def main() -> int:
             (ImageProcessor(device="cuda", fast=True, delta_e="2000"), ReduceMode.REPLACE),
     }, image, card, k=FAST_K, rounds=4):
         emit(line)
-    emit(profile_reduce(proc, image, card))
-    emit(profile_reduce(full, image, card, "full-resolution reduce 3840x2160 k=8 replace"))
+    emit(profile_call(lambda: proc.reduce(K, image), card, "reduce 3840x2160 k=8 replace"))
+    emit(profile_call(lambda: full.reduce(K, image), card,
+                      "full-resolution reduce 3840x2160 k=8 replace"))
 
     timings = {}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
@@ -1337,6 +1925,8 @@ def main() -> int:
               "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by})
 
     fast_times = time_fast(dev, lab_4k, trained, flush, card)
+    del flush
+    frames_times = time_frames(image, frames, device, card, drive, frames_plain)
 
     def entry(name, source, replaces, launches_, err, times, launched_by="ImageProcessor"):
         return {"name": name, "route": "cuda", "source": f"kmeans_tpu_torch/csrc/{source}",
@@ -1349,6 +1939,12 @@ def main() -> int:
         total = sum(path.get(mode, 0) for path in fast["paths"].values())
         if total < 1:
             raise AssertionError(f"the fast slice never launched {mode}")
+        return total
+
+    def frames_launches(mode):
+        total = sum(path.get(mode, 0) for path in drive["paths"].values())
+        if total < 1:
+            raise AssertionError(f"the frames slice never launched {mode}")
         return total
 
     counts_2000, counts_full_2000 = meld_slice["counts_2000"], meld_slice["counts_full_2000"]
@@ -1390,6 +1986,49 @@ def main() -> int:
         entry("lloyd_accumulate[fast cie2000, pruned]", "lloyd_accumulate.cu", 1411,
               fast_launches("lloyd_accumulate cie2000 prune"), fast_err["lloyd", "prune"],
               fast_times["lloyd", "cie2000", "prune"]),
+        # Colour out (B2), any palette size: 4K k=2048; the chunked instance
+        # (past STAGE_CHUNK centroids) at 1080p k=16384.
+        entry("quantize_rgba", "quantize_assign.cu", 1104,
+              frames_launches("quantize_rgba cie94 exact"),
+              colour_err["quantize_rgba", "cie94", False], frames_times["quantize_rgba"]),
+        entry("quantize_rgba[chunked]", "quantize_assign.cu", 1104,
+              frames_launches("quantize_rgba cie94 exact-chunked"),
+              colour_err["quantize_rgba", "cie94", True], frames_times["quantize_rgba[chunked]"]),
+        entry("assign_u8", "quantize_assign.cu", 1635,
+              frames_launches("assign_u8 cie94 exact"),
+              colour_err["assign_u8", "cie94", False], frames_times["assign_u8"],
+              launched_by="direct wrapper call, no API route"),
+        # The meld kernel past one chunk of staged centroids (the repair).
+        entry("meld_packed[chunked]", "quantize_meld.cu", 1878,
+              frames_launches("meld_packed cie94 exact-chunked"),
+              colour_err["meld_packed", "cie94", True], frames_times["meld_packed[chunked]"]),
+        # The frames batch (B7) at 16x1080p: k=8 exact, k=64 fast; colour
+        # out on 2 frames at k=2048.
+        entry("assign_frames_packed", "quantize_assign.cu", 2092,
+              frames_launches("assign_frames_packed cie94 exact"),
+              frames_err["packed", "cie94", "exact"], frames_times["assign_frames_packed"]),
+        entry("assign_frames_packed[fast cie94, factorized]", "quantize_assign.cu", 2092,
+              frames_launches("assign_frames_packed cie94 factor"),
+              frames_err["packed", "cie94", "factor"],
+              frames_times["assign_frames_packed[fast cie94, factorized]"]),
+        entry("assign_frames_packed[fast cie2000, pruned]", "quantize_assign.cu", 2092,
+              frames_launches("assign_frames_packed cie2000 prune"),
+              frames_err["packed", "cie2000", "prune"],
+              frames_times["assign_frames_packed[fast cie2000, pruned]"]),
+        entry("meld_frames_packed", "quantize_meld.cu", 2129,
+              frames_launches("meld_frames_packed cie94 exact"),
+              frames_err["meld", "cie94", "exact"], frames_times["meld_frames_packed"]),
+        entry("meld_frames_packed[fast cie94, factorized]", "quantize_meld.cu", 2129,
+              frames_launches("meld_frames_packed cie94 factor"),
+              frames_err["meld", "cie94", "factor"],
+              frames_times["meld_frames_packed[fast cie94, factorized]"]),
+        entry("meld_frames_packed[fast cie2000, pruned]", "quantize_meld.cu", 2129,
+              frames_launches("meld_frames_packed cie2000 prune"),
+              frames_err["meld", "cie2000", "prune"],
+              frames_times["meld_frames_packed[fast cie2000, pruned]"]),
+        entry("quantize_frames", "quantize_assign.cu", 2057,
+              frames_launches("quantize_frames cie94 exact"),
+              frames_err["rgba", "cie94", "exact"], frames_times["quantize_frames"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -413,3 +413,150 @@ def fit_chunked(
         one, lambda c: _sum_min_d2(pixels, c, valid, metric),
         pixels.shape[0], first_index, restarts,
     )
+
+
+# --- Batched training -------------------------------------------------------
+
+# Member x pixel x cluster elements of one group of the batched assignment's
+# `[members, N, K]` distances (~256 MB in float32); members are independent,
+# so the grouping changes no result.
+_BATCH_ELEMS = 1 << 26
+
+
+def plusplus_init_batched(
+    pixels: torch.Tensor,
+    k: int,
+    first_indices,
+    k_actives,
+    metric: str = "cie94",
+) -> torch.Tensor:
+    """`plusplus_init` of M members at once: `pixels[M, N, 3]` (one image
+    expanded along M shares its pixels), member `i` seeded at flat index
+    `first_indices[i]` with `k_actives[i]` centroids -> `[M, k, 3]`. The
+    same elementwise operations per member; members past their `k_active`
+    keep zero rows."""
+    m = pixels.shape[0]
+    _, dist_sq = metric_fns(metric)
+    rows = torch.arange(m, device=pixels.device)
+    ka = torch.tensor(k_actives, dtype=torch.int64).to(pixels.device)
+    centroids = torch.zeros((m, k, 3), dtype=torch.float32, device=pixels.device)
+    c0 = pixels[rows, torch.tensor(first_indices, dtype=torch.int64).to(pixels.device)]
+    centroids[:, 0] = c0
+    dmap = dist_sq(pixels, c0[:, None, :])
+    for j in range(1, min(k, max(k_actives))):
+        new_c = pixels[rows, torch.argmax(dmap, dim=1)]
+        take = j < ka
+        centroids[:, j] = torch.where(take[:, None], new_c, centroids[:, j])
+        dmap = torch.where(take[:, None], torch.minimum(dmap, dist_sq(pixels, new_c[:, None, :])),
+                           dmap)
+    return centroids
+
+
+def _assign_batched(pixels, centroids, valid, metric):
+    """`assign_clusters` of each member, `[M, N]`, in groups of members
+    whose distances fit `_BATCH_ELEMS`."""
+    m, n = pixels.shape[0], pixels.shape[1]
+    step = max(1, _BATCH_ELEMS // max(n * centroids.shape[1], 1))
+    out = []
+    for i in range(0, m, step):
+        px, cents, ok = pixels[i:i + step], centroids[i:i + step], valid[i:i + step]
+        _, dist_sq = metric_fns(metric)
+        d2 = dist_sq(px[:, :, None, :], cents[:, None, :, :])
+        out.append(torch.argmin(torch.where(ok[:, None, :], d2, torch.full_like(d2, _BIG)), dim=2))
+    return torch.cat(out)
+
+
+def lloyd_batched(
+    pixels: torch.Tensor,
+    centroids: torch.Tensor,
+    k_actives,
+    convergence: float = LAB_CONVERGENCE,
+    max_iterations: int = MAX_ITERATIONS,
+    metric: str = "cie94",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`lloyd` of M members in one loop: `pixels[M, N, 3]`, `centroids[M,
+    k, 3]`, `k_actives` M ints. Each step assigns every member at once
+    (`_assign_batched`) and takes each member's `(sums, counts)` with the
+    solo `_update_centroids`. A member that votes converged at a check
+    freezes: later steps leave its centroids and iteration count alone, as
+    a batched `lax.while_loop` does, so each member's result is its solo
+    `lloyd`'s. One host synchronisation per check for all members.
+    Returns `(centroids [M, k, 3], iterations [M] int64)`."""
+    m, k = centroids.shape[0], centroids.shape[1]
+    device = centroids.device
+    ka = torch.tensor(k_actives, dtype=torch.int64).to(device)
+    valid = torch.arange(k, device=device)[None, :] < ka[:, None]
+    dist, _ = metric_fns(metric)
+    running = torch.ones(m, dtype=torch.bool, device=device)
+    iters = torch.zeros(m, dtype=torch.int64, device=device)
+    for j in range(max_iterations):
+        assign = _assign_batched(pixels, centroids, valid, metric)
+        totals = [_update_centroids(pixels[i], assign[i], k) for i in range(m)]
+        sums = torch.stack([t[0] for t in totals])
+        counts = torch.stack([t[1] for t in totals])
+        nonempty = counts > 0
+        new_centroids = torch.where(
+            nonempty[..., None], sums / torch.clamp(counts, min=1.0)[..., None], centroids
+        )
+        checked = j > 0 and j % CONVERGENCE_CHECK_EVERY == 0
+        if checked:
+            votes = nonempty & (dist(new_centroids, centroids) < convergence)
+            converged = torch.all(votes | ~valid, dim=1)
+        centroids = torch.where(running[:, None, None], new_centroids, centroids)
+        iters = torch.where(running, j + 1, iters)
+        if checked:
+            running = running & ~converged
+            with phase("lloyd_sync"):
+                if not bool(running.any().item()):
+                    break
+    return centroids, iters
+
+
+def fit_restarts_batched(
+    pixels: torch.Tensor,
+    k: int,
+    first_index: int,
+    restarts: int = 1,
+    convergence: float = LAB_CONVERGENCE,
+    max_iterations: int = MAX_ITERATIONS,
+    k_actives=None,
+    metric: str = "cie94",
+) -> tuple[torch.Tensor, list]:
+    """`fit_restarts` of B members in one loop, the counterpart of the
+    reference's `jax.vmap(fit_restarts)` (kmeans_tpu/api.py:3294, 3771):
+    `pixels` is `[B, N, 3]` (member b trains on `pixels[b]`, all at `k`),
+    or one `[N, 3]` image shared by B members with `k_actives` (B ints; the
+    kmax padding of `reduce_batch`). Every member seeds at `first_index`
+    (restart r at `derive_restart_seeds`'s r-th index) and all B x restarts
+    runs share one `lloyd_batched` loop; each member keeps its run of least
+    inertia, the first on a tie. Returns `(centroids [B, k, 3], iterations
+    of each member's winner)`."""
+    n = pixels.shape[-2]
+    if pixels.dim() == 2:
+        if k_actives is None:
+            raise ValueError("a shared [N, 3] image needs k_actives, one per member")
+        b = len(k_actives)
+    else:
+        b = pixels.shape[0]
+    k_actives = [k] * b if k_actives is None else [int(x) for x in k_actives]
+    seeds = (derive_restart_seeds(n, first_index, restarts).tolist() if restarts > 1
+             else [first_index])
+    r = len(seeds)
+    if pixels.dim() == 2:
+        runs_px = pixels.expand(b * r, n, 3)
+    else:
+        runs_px = pixels.repeat_interleave(r, dim=0) if r > 1 else pixels
+    run_ka = [ka for ka in k_actives for _ in seeds]
+    cents = plusplus_init_batched(runs_px, k, seeds * b, run_ka, metric)
+    cents, iters = lloyd_batched(runs_px, cents, run_ka, convergence, max_iterations, metric)
+    iters = iters.tolist()
+    if r == 1:
+        return cents, iters
+    valid = torch.arange(k, device=pixels.device)[None, :] < torch.tensor(run_ka).to(
+        pixels.device)[:, None]
+    inertia = torch.stack([_sum_min_d2(runs_px[i], cents[i], valid[i], metric)
+                           for i in range(b * r)])
+    best = torch.argmin(inertia.reshape(b, r), dim=1).tolist()
+    return (torch.stack([cents[i * r + w] for i, w in enumerate(best)]),
+            [iters[i * r + w] for i, w in enumerate(best)])
+

@@ -128,26 +128,28 @@ def load_library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.kmeans_assign_packed.argtypes = [
-            p, i64, i64,       # rgb, n, width
-            p, i32, i32, i32,  # centroids, kp, k_active, metric
-            i32, p, i32,       # tier, gtab (or null), prune_m
-            p, p,              # gamma_lut, threshold
+        lib.kmeans_assign.argtypes = [
+            p, i64, i64, i64,  # rgb, n, width, frame_stride
+            i32, p, i32,       # frames, centroids, kp
+            i32, p, i32,       # k_active, k_actives (or null), chunk
+            i32, i32, p, i32,  # metric, tier, gtab (or null), prune_m
+            p, p, p,           # palette (or null), gamma_lut, thresholds
             i32, i64,          # dither, row_offset
-            i32, i32,          # bits, tile_rows
+            i32, i32, i32,     # out_mode, bits, tile_rows
             p, i64,            # out, n_words
             p,                 # stream
         ]
-        lib.kmeans_assign_packed.restype = i32
-        lib.kmeans_meld_packed.argtypes = [
-            p, i64,            # rgb, n
-            p, i32, i32, i32,  # centroids, kp, k_active, metric
-            i32, p, i32,       # tier, gtab (or null), prune_m
+        lib.kmeans_assign.restype = i32
+        lib.kmeans_meld.argtypes = [
+            p, i64, i64, i32,  # rgb, n, frame_stride, frames
+            p, i32,            # centroids, kp
+            i32, p, i32,       # k_active, k_actives (or null), chunk
+            i32, i32, p, i32,  # metric, tier, gtab (or null), prune_m
             p, i32,            # gamma_lut, tile_rows
             p, i64,            # out, n_groups
             p,                 # stream
         ]
-        lib.kmeans_meld_packed.restype = i32
+        lib.kmeans_meld.restype = i32
         lib.kmeans_lloyd_grid_blocks.argtypes = [i64]
         lib.kmeans_lloyd_grid_blocks.restype = i32
         lib.kmeans_lloyd_accumulate.argtypes = [

@@ -1,14 +1,24 @@
 """The port's three CUDA kernels, each with its plain PyTorch twin.
 
-1. The fused assign pass: u8 RGB -> packed palette indices. Port of
-   `kmeans_tpu/ops/kernels.py::fused_assign_packed` (the Pallas
-   `_quantize_kernel` in packed-index mode) for replace and dither under
-   the exact CIE94 and CIEDE2000 metrics and, with `fast=True` at
-   16 < kp <= 512, their fast tiers (below).
+1. The fused assign pass: u8 RGB -> the nearest palette entry of each
+   pixel, for replace and dither under the exact CIE94 and CIEDE2000
+   metrics and, with `fast=True` at 16 < kp <= 512, their fast tiers
+   (below). Port of the Pallas `_quantize_kernel`
+   (`kmeans_tpu/ops/kernels.py`) in three output forms: packed palette
+   indices (`assign_packed`, port of `fused_assign_packed`, kp <= 1024),
+   the palette colour as RGBA (`quantize_rgba`, port of `fused_quantize`,
+   any kp in one launch, where the reference splits kp > 1024 into
+   halves), and the u8 index (`assign_u8`, port of `fused_assign`,
+   kp <= 256); and its frames batch (`assign_frames_packed`,
+   `quantize_frames`, port of `_run_quantize_kernel_frames`): B frames,
+   each with its own palette, `k_active` and dither threshold, in one
+   launch.
 2. The meld pass: u8 RGB -> the blend of each pixel's two closest
    centroids, as RGB bytes packed into int32 words. Port of
    `fused_meld_packed` (the same Pallas kernel in meld mode with its
-   in-kernel RGB24 pack), both metrics, exact and fast tiers.
+   in-kernel RGB24 pack), both metrics, exact and fast tiers, any kp in
+   one launch; and its frames batch (`meld_frames_packed`, port of
+   `fused_meld_frames_packed`).
 3. The Lloyd tile accumulator: Lab planes -> per-cluster sums and counts
    of one Lloyd step. Port of `kmeans_tpu/ops/kernels.py::lloyd_accumulate`
    (the Pallas `_lloyd_acc_kernel`), both exact metrics and the fast
@@ -39,25 +49,33 @@ here.
 
 For each:
 
-- the wrapper (`assign_packed`, `meld_packed`, `lloyd_accumulate`) runs
-  the plain twin on a CPU tensor and launches the hand-written kernel
-  (`csrc/quantize_assign.cu`, `csrc/quantize_meld.cu`,
-  `csrc/lloyd_accumulate.cu`) on a CUDA tensor, or raises. There is no
-  fallback between them.
+- the wrapper (`assign_packed`, `quantize_rgba`, `assign_u8`,
+  `assign_frames_packed`, `quantize_frames`, `meld_packed`,
+  `meld_frames_packed`, `lloyd_accumulate`) runs the plain twin on a CPU
+  tensor and launches the hand-written kernel (`csrc/quantize_assign.cu`,
+  `csrc/quantize_meld.cu`, `csrc/lloyd_accumulate.cu`) on a CUDA tensor,
+  or raises. There is no fallback between them.
 - the twin (`*_reference`) repeats the kernel's float32 operations in the
-  same order with the same output layout. It is the spec the tests hold
-  to the JAX package, and the version the kernel is compared with on the
-  card. The distances are those of `ops/delta_e.py`, with the pixel-side
+  same order with the same output layout; a frames twin is the
+  single-image twin applied frame by frame and stacked. It is the spec
+  the tests hold to the JAX package, and the version the kernel is
+  compared with on the card. The distances are those of `ops/delta_e.py`, with the pixel-side
   terms hoisted out of the centroid loop (`_pixel_distances`); the CUDA
   kernels share them through `csrc/delta_e.cuh`.
 - `LAUNCHES_BY_MODE` counts kernel launches (never the twins' runs) by
-  `(wrapper, metric, tier)`; `launches(wrapper)` sums one wrapper's.
+  `(wrapper, metric, tier)`, the tier `"exact-chunked"` where a palette
+  past `STAGE_CHUNK` took the chunked instance; `launches(wrapper)` sums
+  one wrapper's.
 
 Assign word layout: the image is flattened and zero-padded to
 `n_pad = round_up(h * w, quant_tile_rows(kp) * LANES)` pixels. With
 `bits = pack_bits(kp)`, `ppw = 32 // bits` and `blk = tile_rows // ppw`, the
 output is `[n_pad // LANES // ppw, LANES]` int32, and word `(t * blk + r, l)`
 holds pixel `((t * tile_rows) + j * blk + r) * LANES + l` at bit `bits * j`.
+
+RGBA and u8 layout: `[n_pad]` words or bytes in pixel order, of which the
+first `h * w` are the image. Frames: `[B, ...]`, frame `f` the layout of
+a single image of the frame's shape.
 
 Meld word layout (`utils/packing.py::unpack_rgb24_tile_words` inverts it):
 the same padding, `blk = tile_rows // 4`, output `[3 * n_pad // 4 // LANES,
@@ -77,7 +95,7 @@ import collections
 import torch
 
 from kmeans_tpu_torch.ops._math import const
-from kmeans_tpu_torch.ops.colorspace import lab_to_srgb, srgb8_to_lab
+from kmeans_tpu_torch.ops.colorspace import lab_to_srgb, lab_to_srgb8, srgb8_to_lab
 from kmeans_tpu_torch.ops.delta_e import cie2000_sq_planes, metric_fns
 from kmeans_tpu_torch.ops.gamma_lut import gamma_lut
 from kmeans_tpu_torch.ops.quantize import BAYER_4X4
@@ -108,6 +126,13 @@ FAST_MAX_K = 512
 PRUNE_M = 8
 PRUNE_M_LARGE = 16
 PRUNE_M_GATE = 128
+
+# Centroids a block of the assign (RGBA, u8) and meld kernels stages in
+# shared memory at a time under the exact tier: a larger palette takes the
+# kernels' chunked instances, in one launch (83 KB of shared memory at most).
+STAGE_CHUNK = 4096
+# The assign kernel's output forms by the code they pass to CUDA.
+ASSIGN_OUTPUTS = {"packed": 0, "rgba": 1, "u8": 2}
 
 # The metrics the kernels take, by the integer code they pass to CUDA.
 KERNEL_METRICS = {"cie94": 0, "cie2000": 1}
@@ -165,16 +190,17 @@ def _check_image_args(rgb_u8, centroids_lab, k_active, metric) -> int:
     return k_active
 
 
-def _check_args(rgb_u8, centroids_lab, k_active, mode, metric) -> int:
-    """Validate what both assign versions take; return `k_active`."""
-    if mode == "meld":
-        raise ValueError("assign_packed supports replace/dither; meld is meld_packed")
+def _check_args(rgb_u8, centroids_lab, k_active, mode, metric, name="assign_packed",
+                max_k: int | None = INDEXED_MAX_K) -> int:
+    """Validate what the replace/dither versions take; return `k_active`.
+    `max_k` is the largest palette the output form serves (None: any)."""
     if mode not in ("replace", "dither"):
-        raise ValueError(f"assign_packed supports replace/dither, got {mode!r}")
-    if centroids_lab.dim() == 2 and centroids_lab.shape[0] > INDEXED_MAX_K:
-        raise NotImplementedError(
-            f"k = {centroids_lab.shape[0]} > {INDEXED_MAX_K}: the packed-index "
-            f"output serves k <= {INDEXED_MAX_K} (larger palettes: ROADMAP B2/B8)"
+        raise ValueError(f"{name} supports replace/dither, got {mode!r}"
+                         + ("; meld is meld_packed" if mode == "meld" else ""))
+    if max_k is not None and centroids_lab.dim() == 2 and centroids_lab.shape[0] > max_k:
+        raise ValueError(
+            f"k = {centroids_lab.shape[0]} > {max_k}: {name} serves k <= {max_k} "
+            "(quantize_rgba serves any k)"
         )
     return _check_image_args(rgb_u8, centroids_lab, k_active, metric)
 
@@ -251,17 +277,17 @@ def accum_tier(fast: bool, metric: str, kp: int, emit_inertia: bool) -> str:
 
 
 def factor_g_table(centroids_lab: torch.Tensor) -> torch.Tensor:
-    """Per-centroid rows `[kp, 7]` of the factorized score:
+    """Per-centroid rows `[..., kp, 7]` of the factorized score:
     `[L2, L2^2, C2, C2 * C2, a2, b2, a2^2 + b2^2]` with
     `C2 = sqrt(a2^2 + b2^2)` (kmeans_tpu/ops/kernels.py:474). Column 3 is
     the square of the rounded root, column 6 the sum itself: different
     bits. Built once per call, outside the kernel, on the centroids'
     device, so the kernel and its twin read the same seven floats."""
     c = centroids_lab.to(torch.float32)
-    l2, a2, b2 = c[:, 0], c[:, 1], c[:, 2]
+    l2, a2, b2 = c[..., 0], c[..., 1], c[..., 2]
     ab2 = a2 * a2 + b2 * b2
     c2 = torch.sqrt(ab2)
-    return torch.stack([l2, l2 * l2, c2, c2 * c2, a2, b2, ab2], dim=1).contiguous()
+    return torch.stack([l2, l2 * l2, c2, c2 * c2, a2, b2, ab2], dim=-1).contiguous()
 
 
 def screen_factors(l, a, b, c1):
@@ -407,6 +433,42 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
+def packed_palette(centroids_lab: torch.Tensor) -> torch.Tensor:
+    """Lab centroids `[..., kp, 3]` -> their colours as packed RGBA int32
+    words `[..., kp]`, R in the low byte, alpha 255
+    (kmeans_tpu/ops/kernels.py:1091 `_packed_palette`), converted by the
+    `lab_to_srgb8` that `api._lab_palette_to_u8` uses. Built by torch ops
+    outside the kernel, so the RGBA kernel and its twin select the same
+    words."""
+    rgb8 = lab_to_srgb8(centroids_lab).to(torch.int32)
+    return rgb8[..., 0] | (rgb8[..., 1] << 8) | (rgb8[..., 2] << 16) | -16777216
+
+
+def _nearest_reference(rgb_u8, centroids_lab, threshold, k_active, mode, row_offset,
+                       metric, fast):
+    """The assign twins' common pass: `(best_k [n_pad] int64, layout)`,
+    the nearest of the first `k_active` centroids to each padded pixel
+    (dither-adjusted in dither mode), by the tier of `assign_tier`."""
+    device = rgb_u8.device
+    h, w = rgb_u8.shape[0], rgb_u8.shape[1]
+    kp = centroids_lab.shape[0]
+    layout = _layout(h, w, kp)
+    n_pad = layout[1]
+    l, a, b = _padded_lab(rgb_u8, n_pad)
+    if mode == "dither":
+        flat = torch.arange(n_pad, dtype=torch.int64, device=device)
+        px = flat % w
+        py = flat // w + row_offset
+        m = torch.tensor(BAYER_4X4, dtype=torch.float32, device=device)
+        bayer = torch.div(m, const(16.0, m)) - 0.5
+        thr = torch.as_tensor(threshold, dtype=torch.float32, device=device)
+        adjust = thr * bayer[py % 4, px % 4]
+        l, a, b = l + adjust, a + adjust, b + adjust
+    best_k, _ = _argmin(l, a, b, centroids_lab, k_active, metric,
+                        assign_tier(fast, metric, kp))
+    return best_k, layout
+
+
 def assign_packed_reference(
     rgb_u8: torch.Tensor,
     centroids_lab: torch.Tensor,
@@ -419,39 +481,127 @@ def assign_packed_reference(
 ) -> torch.Tensor:
     """Plain PyTorch twin of the assign kernel, on any device: packed
     `[n_pad // LANES // ppw, LANES]` int32 palette indices of `rgb_u8`
-    (`[H, W, 3]` uint8) against `centroids_lab` (`[kp, 3]` Lab), under
-    `metric` (`"cie94"` or `"cie2000"`), strict `<` so the first minimum
-    wins, centroids `>= k_active` masked. In dither mode each pixel's Lab
-    is first moved by `threshold * (M4[y % 4][x % 4] / 16 - 0.5)`, with `y`
-    shifted by `row_offset`. `fast=True` picks the tier of `assign_tier`:
-    the argmin of the factorized score under CIE94, the pruned tier under
-    CIEDE2000, the exact loop at `kp <= 16` and `kp > 512`."""
+    (`[H, W, 3]` uint8) against `centroids_lab` (`[kp, 3]` Lab, kp <= 1024),
+    under `metric` (`"cie94"` or `"cie2000"`), strict `<` so the first
+    minimum wins, centroids `>= k_active` masked. In dither mode each
+    pixel's Lab is first moved by `threshold * (M4[y % 4][x % 4] / 16 - 0.5)`,
+    with `y` shifted by `row_offset`. `fast=True` picks the tier of
+    `assign_tier`: the argmin of the factorized score under CIE94, the
+    pruned tier under CIEDE2000, the exact loop at `kp <= 16` and
+    `kp > 512`."""
     k_active = _check_args(rgb_u8, centroids_lab, k_active, mode, metric)
-    device = rgb_u8.device
-    h, w = rgb_u8.shape[0], rgb_u8.shape[1]
-    kp = centroids_lab.shape[0]
-    n, n_pad, tile_rows, bits, ppw = _layout(h, w, kp)
-
-    l, a, b = _padded_lab(rgb_u8, n_pad)
-    if mode == "dither":
-        flat = torch.arange(n_pad, dtype=torch.int64, device=device)
-        px = flat % w
-        py = flat // w + row_offset
-        m = torch.tensor(BAYER_4X4, dtype=torch.float32, device=device)
-        bayer = torch.div(m, const(16.0, m)) - 0.5
-        thr = torch.as_tensor(threshold, dtype=torch.float32, device=device)
-        adjust = thr * bayer[py % 4, px % 4]
-        l, a, b = l + adjust, a + adjust, b + adjust
-
-    best_k, _ = _argmin(l, a, b, centroids_lab, k_active, metric,
-                        assign_tier(fast, metric, kp))
-
+    best_k, (_, n_pad, tile_rows, bits, ppw) = _nearest_reference(
+        rgb_u8, centroids_lab, threshold, k_active, mode, row_offset, metric, fast)
     # Fold ppw sublane blocks of each tile into one word.
     blk = tile_rows // ppw
     idx = best_k.reshape(n_pad // (tile_rows * LANES), ppw, blk, LANES)
-    shifts = (torch.arange(ppw, device=device) * bits).reshape(1, ppw, 1, 1)
+    shifts = (torch.arange(ppw, device=rgb_u8.device) * bits).reshape(1, ppw, 1, 1)
     words = (idx << shifts).sum(dim=1)  # disjoint bit fields: sum == or
     return _as_int32(words).reshape(-1, LANES)
+
+
+def quantize_rgba_reference(
+    rgb_u8: torch.Tensor,
+    centroids_lab: torch.Tensor,
+    threshold,
+    k_active: int | None = None,
+    mode: str = "replace",
+    row_offset: int = 0,
+    metric: str = "cie94",
+    fast: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch twin of the assign kernel's colour-out mode: the
+    `[H, W, 4]` uint8 RGBA image whose pixel is the `packed_palette` word of
+    its `assign_packed_reference` index, at any palette size
+    (kmeans_tpu/ops/kernels.py:1104 `fused_quantize`)."""
+    k_active = _check_args(rgb_u8, centroids_lab, k_active, mode, metric, "quantize_rgba",
+                           max_k=None)
+    best_k, (n, *_) = _nearest_reference(rgb_u8, centroids_lab, threshold, k_active, mode,
+                                         row_offset, metric, fast)
+    words = packed_palette(centroids_lab.to(rgb_u8.device))[best_k[:n]]
+    return words.view(torch.uint8).reshape(rgb_u8.shape[0], rgb_u8.shape[1], 4)
+
+
+def assign_u8_reference(
+    rgb_u8: torch.Tensor,
+    centroids_lab: torch.Tensor,
+    threshold,
+    k_active: int | None = None,
+    mode: str = "replace",
+    row_offset: int = 0,
+    metric: str = "cie94",
+    fast: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch twin of the assign kernel's u8-index mode: the
+    `[H, W]` uint8 palette index of each pixel, kp <= 256
+    (kmeans_tpu/ops/kernels.py:1635 `fused_assign`)."""
+    k_active = _check_args(rgb_u8, centroids_lab, k_active, mode, metric, "assign_u8",
+                           max_k=256)
+    best_k, (n, *_) = _nearest_reference(rgb_u8, centroids_lab, threshold, k_active, mode,
+                                         row_offset, metric, fast)
+    return best_k[:n].to(torch.uint8).reshape(rgb_u8.shape[0], rgb_u8.shape[1])
+
+
+def _thresholds(threshold, frames: int, device) -> torch.Tensor:
+    """`[frames]` float32 dither thresholds on `device` from a float, a
+    sequence of floats, or a float32 tensor of `frames` values already on
+    `device` (it stays there: no host round trip)."""
+    if isinstance(threshold, torch.Tensor):
+        if threshold.device != device or threshold.dtype != torch.float32:
+            raise ValueError("threshold must be float32 on the image's device")
+        if threshold.numel() != frames:
+            raise ValueError(f"threshold must hold {frames} value(s)")
+        return threshold.reshape(frames).contiguous()
+    if isinstance(threshold, (int, float)):
+        return torch.full((frames,), float(threshold), dtype=torch.float32, device=device)
+    values = [float(t) for t in threshold]
+    if len(values) != frames:
+        raise ValueError(f"threshold must hold {frames} value(s)")
+    return torch.tensor(values, dtype=torch.float32).to(device)
+
+
+def _launch_assign(name, frames_u8, centroids_lab, threshold, k_actives, mode, row_offset,
+                   metric, fast, out_mode):
+    """Launch `csrc/quantize_assign.cu` over `frames_u8` (`[B, H, W, 3]`
+    uint8 on a CUDA device, contiguous, or one image expanded along B) with
+    the palettes `centroids_lab` (`[B, kp, 3]`) and `k_actives` (None: kp in
+    every frame; else B ints, checked by the caller). Returns `(out, n)`:
+    `[B, n_words]` int32 (uint8 for `"u8"`) and the frame's pixel count."""
+    from kmeans_tpu_torch.ops._build import load_library
+
+    _check_cuda_frames(frames_u8, centroids_lab, name)
+    if not 0 <= row_offset < 1 << 62:
+        raise ValueError(f"row_offset must be a non-negative int, got {row_offset}")
+    lib = load_library()
+    device = frames_u8.device
+    b, h, w = frames_u8.shape[0], frames_u8.shape[1], frames_u8.shape[2]
+    kp = centroids_lab.shape[1]
+    thr = _thresholds(threshold, b, device)
+    n, n_pad, tile_rows, bits, ppw = _layout(h, w, kp)
+    if out_mode != "packed":
+        bits, ppw = 32, 1
+    n_words = n_pad // ppw
+    dtype = torch.uint8 if out_mode == "u8" else torch.int32
+    out = torch.empty((b, n_words), dtype=dtype, device=device)
+    tier = assign_tier(fast, metric, kp)
+    chunk = kp if tier != "exact" or out_mode == "packed" else STAGE_CHUNK
+    with torch.cuda.device(device):
+        lut = gamma_lut(device)
+        code, gtab = _tier_operands(tier, centroids_lab)
+        k_active, k_dev = _k_actives_operands(k_actives, device)
+        pal = packed_palette(centroids_lab) if out_mode == "rgba" else None
+        err = lib.kmeans_assign(
+            frames_u8.data_ptr(), n, w, _frame_stride(frames_u8), b,
+            centroids_lab.data_ptr(), kp, k_active, _ptr(k_dev), chunk,
+            KERNEL_METRICS[metric], code, _ptr(gtab), prune_m_for(kp),
+            _ptr(pal), lut.data_ptr(), thr.data_ptr(),
+            int(mode == "dither"), int(row_offset), ASSIGN_OUTPUTS[out_mode], bits, tile_rows,
+            out.data_ptr(), n_words,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, err, name)
+    LAUNCHES_BY_MODE[name, metric, tier + ("-chunked" if kp > chunk else "")] += 1
+    return out, n
 
 
 def assign_packed(
@@ -474,44 +624,62 @@ def assign_packed(
             rgb_u8, centroids_lab, threshold, k_active, mode, row_offset, metric, fast
         )
     k_active = _check_args(rgb_u8, centroids_lab, k_active, mode, metric)
-    _check_cuda_image(rgb_u8, centroids_lab, "assign_packed")
-    device = rgb_u8.device
-    if isinstance(threshold, torch.Tensor):
-        if threshold.device != device or threshold.dtype != torch.float32:
-            raise ValueError("threshold must be float32 on the image's device")
-        if threshold.numel() != 1:
-            raise ValueError("threshold must hold one value")
-        thr = threshold.reshape(1).contiguous()
-    else:
-        thr = torch.full((1,), float(threshold), dtype=torch.float32, device=device)
-    if not 0 <= row_offset < 1 << 62:
-        raise ValueError(f"row_offset must be a non-negative int, got {row_offset}")
+    out, _ = _launch_assign("assign_packed", rgb_u8[None], centroids_lab[None], threshold,
+                            [k_active], mode, row_offset, metric, fast, "packed")
+    return out.reshape(-1, LANES)
 
-    from kmeans_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    h, w = rgb_u8.shape[0], rgb_u8.shape[1]
-    kp = centroids_lab.shape[0]
-    n, n_pad, tile_rows, bits, ppw = _layout(h, w, kp)
-    n_words = n_pad // ppw
-    out = torch.empty((n_words // LANES, LANES), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        lut = gamma_lut(device)
-        tier = assign_tier(fast, metric, kp)
-        code, gtab = _tier_operands(tier, centroids_lab)
-        err = lib.kmeans_assign_packed(
-            rgb_u8.data_ptr(), n, w,
-            centroids_lab.data_ptr(), kp, k_active, KERNEL_METRICS[metric],
-            code, None if gtab is None else gtab.data_ptr(), prune_m_for(kp),
-            lut.data_ptr(), thr.data_ptr(),
-            int(mode == "dither"), int(row_offset),
-            bits, tile_rows,
-            out.data_ptr(), n_words,
-            torch.cuda.current_stream(device).cuda_stream,
+def quantize_rgba(
+    rgb_u8: torch.Tensor,
+    centroids_lab: torch.Tensor,
+    threshold,
+    k_active: int | None = None,
+    mode: str = "replace",
+    row_offset: int = 0,
+    metric: str = "cie94",
+    fast: bool = False,
+) -> torch.Tensor:
+    """The `[H, W, 4]` uint8 RGBA output of replace/dither at any palette
+    size; see `quantize_rgba_reference` for the contract. A CPU tensor runs
+    the plain twin; a CUDA tensor launches the assign kernel's colour-out
+    mode (one launch at any k: a palette past `STAGE_CHUNK` centroids is
+    staged in chunks) or raises. The result is a view of the kernel's
+    `[n_pad]` words."""
+    if rgb_u8.device.type == "cpu":
+        return quantize_rgba_reference(
+            rgb_u8, centroids_lab, threshold, k_active, mode, row_offset, metric, fast
         )
-    _raise_on_error(lib, err, "assign")
-    LAUNCHES_BY_MODE["assign_packed", metric, tier] += 1
-    return out
+    k_active = _check_args(rgb_u8, centroids_lab, k_active, mode, metric, "quantize_rgba",
+                           max_k=None)
+    out, n = _launch_assign("quantize_rgba", rgb_u8[None], centroids_lab[None], threshold,
+                            [k_active], mode, row_offset, metric, fast, "rgba")
+    return out[0, :n].view(torch.uint8).reshape(rgb_u8.shape[0], rgb_u8.shape[1], 4)
+
+
+def assign_u8(
+    rgb_u8: torch.Tensor,
+    centroids_lab: torch.Tensor,
+    threshold,
+    k_active: int | None = None,
+    mode: str = "replace",
+    row_offset: int = 0,
+    metric: str = "cie94",
+    fast: bool = False,
+) -> torch.Tensor:
+    """The `[H, W]` uint8 palette index of each pixel, kp <= 256; see
+    `assign_u8_reference` for the contract. A CPU tensor runs the plain
+    twin; a CUDA tensor launches the assign kernel's u8-index mode or
+    raises. No entry point of either package calls it (the reference's
+    `fused_assign` serves only its validation tools)."""
+    if rgb_u8.device.type == "cpu":
+        return assign_u8_reference(
+            rgb_u8, centroids_lab, threshold, k_active, mode, row_offset, metric, fast
+        )
+    k_active = _check_args(rgb_u8, centroids_lab, k_active, mode, metric, "assign_u8",
+                           max_k=256)
+    out, n = _launch_assign("assign_u8", rgb_u8[None], centroids_lab[None], threshold,
+                            [k_active], mode, row_offset, metric, fast, "u8")
+    return out[0, :n].reshape(rgb_u8.shape[0], rgb_u8.shape[1])
 
 
 def _tier_operands(tier: str, centroids: torch.Tensor):
@@ -522,19 +690,150 @@ def _tier_operands(tier: str, centroids: torch.Tensor):
     return KERNEL_TIERS[tier], gtab
 
 
-def _check_cuda_image(rgb_u8, centroids_lab, name: str) -> None:
-    if rgb_u8.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {rgb_u8.device}")
-    if centroids_lab.device != rgb_u8.device or centroids_lab.dtype != torch.float32:
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _k_actives_operands(k_actives, device):
+    """`(k_active, [B] int32 on device or None)` of a launch: one value for
+    every frame travels as a kernel argument, B values as a tensor."""
+    if len(set(k_actives)) == 1:
+        return k_actives[0], None
+    return 0, torch.tensor(k_actives, dtype=torch.int32).to(device)
+
+
+def _frame_stride(frames_u8: torch.Tensor) -> int:
+    """Pixels from one frame to the next: 0 for one image expanded along
+    the frame axis."""
+    return 0 if frames_u8.stride(0) == 0 else frames_u8.shape[1] * frames_u8.shape[2]
+
+
+def _check_cuda_frames(frames_u8, centroids_lab, name: str) -> None:
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {frames_u8.device}")
+    if centroids_lab.device != frames_u8.device or centroids_lab.dtype != torch.float32:
         raise ValueError("centroids must be float32 on the image's device")
-    if not (rgb_u8.is_contiguous() and centroids_lab.is_contiguous()):
-        raise ValueError(f"{name} needs contiguous image and centroids")
+    image = frames_u8[0] if frames_u8.stride(0) == 0 else frames_u8
+    if not (image.is_contiguous() and centroids_lab.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous images and centroids")
 
 
 def _raise_on_error(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.kmeans_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+# --- The frames batch ----------------------------------------------------------
+
+
+def _check_frames(frames_u8, centroids_lab, k_actives, metric, name):
+    """Validate a frames batch: `[B, H, W, 3]` uint8 frames (one image
+    expanded along B is a batch of stride 0), `[B, kp, 3]` palettes, and
+    `k_actives` None, one int for every frame, or B ints. Returns the B
+    ints."""
+    _check_metric(metric)
+    if frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4 or frames_u8.shape[-1] != 3:
+        raise ValueError(
+            f"{name}: expected [B, H, W, 3] uint8 frames, got "
+            f"{tuple(frames_u8.shape)} {frames_u8.dtype}"
+        )
+    b = frames_u8.shape[0]
+    if centroids_lab.dim() != 3 or centroids_lab.shape[0] != b or centroids_lab.shape[2] != 3:
+        raise ValueError(f"{name}: expected [{b}, K, 3] palettes, got "
+                         f"{tuple(centroids_lab.shape)}")
+    kp = centroids_lab.shape[1]
+    if k_actives is None or isinstance(k_actives, int):
+        k_actives = [kp if k_actives is None else k_actives] * b
+    k_actives = [int(k) for k in k_actives]
+    if len(k_actives) != b or not all(1 <= k <= kp for k in k_actives):
+        raise ValueError(f"{name}: k_actives must be {b} values in [1, {kp}]")
+    return k_actives
+
+
+def assign_frames_packed_reference(frames_u8, centroids_lab, thresholds, k_actives=None,
+                                   mode="replace", metric="cie94", fast=False):
+    """Plain PyTorch twin of the assign kernel's frames mode: frame `f`
+    against its own palette `centroids_lab[f]`, `k_actives[f]` and
+    `thresholds[f]`, as `assign_packed_reference` writes it alone, stacked:
+    `[B, W_f, LANES]` int32 (kmeans_tpu/ops/kernels.py:2092
+    `fused_assign_frames_packed`; kp <= 1024)."""
+    k_actives = _check_frames(frames_u8, centroids_lab, k_actives, metric,
+                              "assign_frames_packed")
+    thr = _thresholds(thresholds, len(k_actives), frames_u8.device)
+    return torch.stack([
+        assign_packed_reference(frames_u8[f], centroids_lab[f], thr[f], k, mode,
+                                metric=metric, fast=fast)
+        for f, k in enumerate(k_actives)
+    ])
+
+
+def quantize_frames_reference(frames_u8, centroids_lab, thresholds, k_actives=None,
+                              mode="replace", metric="cie94", fast=False):
+    """Plain PyTorch twin of the colour-out frames mode: each frame's
+    `quantize_rgba_reference` against its own palette, stacked:
+    `[B, H, W, 4]` uint8 (kmeans_tpu/ops/kernels.py:2057
+    `fused_quantize_frames`), any kp."""
+    k_actives = _check_frames(frames_u8, centroids_lab, k_actives, metric, "quantize_frames")
+    thr = _thresholds(thresholds, len(k_actives), frames_u8.device)
+    return torch.stack([
+        quantize_rgba_reference(frames_u8[f], centroids_lab[f], thr[f], k, mode,
+                                metric=metric, fast=fast)
+        for f, k in enumerate(k_actives)
+    ])
+
+
+def meld_frames_packed_reference(frames_u8, centroids_lab, k_actives=None, metric="cie94",
+                                 fast=False):
+    """Plain PyTorch twin of the meld kernel's frames mode: each frame's
+    `meld_packed_reference` against its own palette, stacked:
+    `[B, W_f, LANES]` int32 (kmeans_tpu/ops/kernels.py:2129
+    `fused_meld_frames_packed`), any kp."""
+    k_actives = _check_frames(frames_u8, centroids_lab, k_actives, metric,
+                              "meld_frames_packed")
+    return torch.stack([
+        meld_packed_reference(frames_u8[f], centroids_lab[f], k, metric, fast)
+        for f, k in enumerate(k_actives)
+    ])
+
+
+def assign_frames_packed(frames_u8, centroids_lab, thresholds, k_actives=None,
+                         mode="replace", metric="cie94", fast=False):
+    """Packed palette indices of B frames, each against its own palette, in
+    one launch; see `assign_frames_packed_reference` for the contract.
+    Frame `f` of the result unpacks as a single image of the frame's shape
+    (`utils/packing.py::unpack_tile_words`). `thresholds` is a float, B
+    floats, or `[B]` float32 on the frames' device. A CPU tensor runs the
+    plain twin; a CUDA tensor launches the assign kernel's frames mode or
+    raises. The reference's `FRAMES_MAX_BK` (a TPU scalar-memory limit) has
+    no counterpart: a block stages one frame's palette only."""
+    if frames_u8.device.type == "cpu":
+        return assign_frames_packed_reference(frames_u8, centroids_lab, thresholds,
+                                              k_actives, mode, metric, fast)
+    k_actives = _check_frames(frames_u8, centroids_lab, k_actives, metric,
+                              "assign_frames_packed")
+    _check_args(frames_u8[0], centroids_lab[0], None, mode, metric, "assign_frames_packed")
+    out, _ = _launch_assign("assign_frames_packed", frames_u8, centroids_lab, thresholds,
+                            k_actives, mode, 0, metric, fast, "packed")
+    return out.reshape(frames_u8.shape[0], -1, LANES)
+
+
+def quantize_frames(frames_u8, centroids_lab, thresholds, k_actives=None, mode="replace",
+                    metric="cie94", fast=False):
+    """`[B, H, W, 4]` uint8 RGBA of B frames, each against its own palette,
+    any kp, in one launch; see `quantize_frames_reference` for the
+    contract. A CPU tensor runs the plain twin; a CUDA tensor launches the
+    assign kernel's colour-out frames mode or raises."""
+    if frames_u8.device.type == "cpu":
+        return quantize_frames_reference(frames_u8, centroids_lab, thresholds, k_actives,
+                                         mode, metric, fast)
+    k_actives = _check_frames(frames_u8, centroids_lab, k_actives, metric, "quantize_frames")
+    _check_args(frames_u8[0], centroids_lab[0], None, mode, metric, "quantize_frames",
+                max_k=None)
+    out, n = _launch_assign("quantize_frames", frames_u8, centroids_lab, thresholds,
+                            k_actives, mode, 0, metric, fast, "rgba")
+    b, h, w = frames_u8.shape[0], frames_u8.shape[1], frames_u8.shape[2]
+    return out[:, :n].view(torch.uint8).reshape(b, h, w, 4)
 
 
 # --- The meld pass -----------------------------------------------------------
@@ -617,6 +916,37 @@ def meld_packed_reference(
     return _as_int32(words).reshape(-1, LANES)
 
 
+def _launch_meld(name, frames_u8, centroids_lab, k_actives, metric, fast):
+    """Launch `csrc/quantize_meld.cu` over `frames_u8` (as
+    `_launch_assign`); returns `[B, 3 * n_groups]` int32 words."""
+    from kmeans_tpu_torch.ops._build import load_library
+
+    _check_cuda_frames(frames_u8, centroids_lab, name)
+    lib = load_library()
+    device = frames_u8.device
+    b, h, w = frames_u8.shape[0], frames_u8.shape[1], frames_u8.shape[2]
+    kp = centroids_lab.shape[1]
+    n, n_pad, tile_rows, _, _ = _layout(h, w, kp)
+    n_groups = n_pad // 4
+    out = torch.empty((b, 3 * n_groups), dtype=torch.int32, device=device)
+    tier = assign_tier(fast, metric, kp)
+    chunk = kp if tier != "exact" else STAGE_CHUNK
+    with torch.cuda.device(device):
+        lut = gamma_lut(device)
+        code, gtab = _tier_operands(tier, centroids_lab)
+        k_active, k_dev = _k_actives_operands(k_actives, device)
+        err = lib.kmeans_meld(
+            frames_u8.data_ptr(), n, _frame_stride(frames_u8), b,
+            centroids_lab.data_ptr(), kp, k_active, _ptr(k_dev), chunk,
+            KERNEL_METRICS[metric], code, _ptr(gtab), prune_m_for(kp),
+            lut.data_ptr(), tile_rows, out.data_ptr(), n_groups,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_on_error(lib, err, name)
+    LAUNCHES_BY_MODE[name, metric, tier + ("-chunked" if kp > chunk else "")] += 1
+    return out
+
+
 def meld_packed(
     rgb_u8: torch.Tensor,
     centroids_lab: torch.Tensor,
@@ -627,37 +957,28 @@ def meld_packed(
     """RGB24-packed meld output of `rgb_u8`; see `meld_packed_reference`
     for the contract. A CPU tensor runs the plain twin. A CUDA tensor
     launches `csrc/quantize_meld.cu` on the current stream (built on first
-    use) or raises. Any palette size whose centroids fit in a block's
-    shared memory (about 14,000) takes one launch."""
+    use) or raises. Any palette size takes one launch: past `STAGE_CHUNK`
+    centroids the kernel stages them in chunks."""
     if rgb_u8.device.type == "cpu":
         return meld_packed_reference(rgb_u8, centroids_lab, k_active, metric, fast)
     k_active = _check_image_args(rgb_u8, centroids_lab, k_active, metric)
-    _check_cuda_image(rgb_u8, centroids_lab, "meld_packed")
+    return _launch_meld("meld_packed", rgb_u8[None], centroids_lab[None], [k_active],
+                        metric, fast).reshape(-1, LANES)
 
-    from kmeans_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    device = rgb_u8.device
-    h, w = rgb_u8.shape[0], rgb_u8.shape[1]
-    kp = centroids_lab.shape[0]
-    n, n_pad, tile_rows, _, _ = _layout(h, w, kp)
-    n_groups = n_pad // 4
-    out = torch.empty((3 * n_groups // LANES, LANES), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        lut = gamma_lut(device)
-        tier = assign_tier(fast, metric, kp)
-        code, gtab = _tier_operands(tier, centroids_lab)
-        err = lib.kmeans_meld_packed(
-            rgb_u8.data_ptr(), n,
-            centroids_lab.data_ptr(), kp, k_active, KERNEL_METRICS[metric],
-            code, None if gtab is None else gtab.data_ptr(), prune_m_for(kp),
-            lut.data_ptr(), tile_rows,
-            out.data_ptr(), n_groups,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _raise_on_error(lib, err, "meld")
-    LAUNCHES_BY_MODE["meld_packed", metric, tier] += 1
-    return out
+def meld_frames_packed(frames_u8, centroids_lab, k_actives=None, metric="cie94", fast=False):
+    """RGB24-packed meld output of B frames, each against its own palette,
+    in one launch; see `meld_frames_packed_reference` for the contract.
+    Frame `f` of the result unpacks as a single image
+    (`utils/packing.py::unpack_rgb24_tile_words`). A CPU tensor runs the
+    plain twin; a CUDA tensor launches the meld kernel's frames mode or
+    raises."""
+    if frames_u8.device.type == "cpu":
+        return meld_frames_packed_reference(frames_u8, centroids_lab, k_actives, metric, fast)
+    k_actives = _check_frames(frames_u8, centroids_lab, k_actives, metric,
+                              "meld_frames_packed")
+    return _launch_meld("meld_frames_packed", frames_u8, centroids_lab, k_actives, metric,
+                        fast).reshape(frames_u8.shape[0], -1, LANES)
 
 
 # --- The Lloyd tile accumulator -------------------------------------------

@@ -93,6 +93,34 @@ def dither_threshold(
     return dab / torch.sqrt(torch.full((), float(k_active), device=palette.device))
 
 
+def dither_thresholds(
+    palettes: torch.Tensor, k_actives=None, metric: str = "cie94"
+) -> torch.Tensor:
+    """`dither_threshold` of each of B palettes `[B, K, 3]` at once, with
+    `k_actives` None or B ints: `[B]` float32 on the palettes' device. The
+    same elementwise float32 operations in the same order per palette, one
+    loop over the palette axis for all of them (the reference vmaps its
+    `dither_threshold`, kmeans_tpu/api.py:3255)."""
+    dist, _ = metric_fns(metric)
+    b, k = palettes.shape[0], palettes.shape[1]
+    k_actives = [k] * b if k_actives is None else [int(x) for x in k_actives]
+    ka = torch.tensor(k_actives, dtype=torch.int32).to(palettes.device)
+    a = palettes[:, 0]
+    c = palettes[:, min(1, k - 1)]
+    dac = dist(a, c)
+    for i in range(2, min(k, max(k_actives))):
+        ci = palettes[:, i]
+        da = dist(ci, a)
+        dc = dist(ci, c)
+        active = i < ka
+        first = active & (da > dc) & (da > dac)
+        second = active & ~first & (dc > dac)
+        c = torch.where(first[:, None], ci, c)
+        a = torch.where(second[:, None], ci, a)
+        dac = torch.where(first, da, torch.where(second, dc, dac))
+    return dac / torch.sqrt(ka.to(torch.float32))
+
+
 def bayer_values(height: int, width: int, row_offset: int = 0, device=None):
     """`M4[y % 4][x % 4] / 16 - 0.5` for every pixel `[H, W]`, with `y`
     shifted by `row_offset` (kmeans_tpu/ops/quantize.py:150)."""

@@ -40,7 +40,7 @@ def _blend(top, bot, x0, x1, fx, fy):
     fy = fy[:, None, None]
     rows = top * (1.0 - fy) + bot * fy
     fx = fx[None, :, None]
-    return rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
+    return rows[..., x0, :] * (1.0 - fx) + rows[..., x1, :] * fx
 
 
 def resize_bilinear(
@@ -57,14 +57,15 @@ def resize_bilinear(
 def resize_uint8(
     image_u8: torch.Tensor, new_height: int, new_width: int
 ) -> torch.Tensor:
-    """uint8 `[H, W, C]` resize through the unorm float path, rounded back
-    to uint8 (kmeans_tpu/ops/resize.py:114). The sampled rows are gathered
-    in uint8 before the elementwise unorm conversion, which gives the same
-    bits as converting the whole image first and touches only those rows."""
-    h, w = image_u8.shape[0], image_u8.shape[1]
+    """uint8 `[..., H, W, C]` resize through the unorm float path, rounded
+    back to uint8 (kmeans_tpu/ops/resize.py:114); leading axes are frames,
+    each resized as alone. The sampled rows are gathered in uint8 before
+    the elementwise unorm conversion, which gives the same bits as
+    converting the whole image first and touches only those rows."""
+    h, w = image_u8.shape[-3], image_u8.shape[-2]
     y0, y1, fy = _axis_weights(new_height, h, image_u8.device)
     x0, x1, fx = _axis_weights(new_width, w, image_u8.device)
-    top = div(image_u8[y0].to(torch.float32), 255.0)
-    bot = div(image_u8[y1].to(torch.float32), 255.0)
+    top = div(image_u8[..., y0, :, :].to(torch.float32), 255.0)
+    bot = div(image_u8[..., y1, :, :].to(torch.float32), 255.0)
     out = _blend(top, bot, x0, x1, fx, fy)
     return torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)

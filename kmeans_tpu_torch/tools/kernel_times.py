@@ -5,7 +5,8 @@
 imports `kmeans_tpu_torch` from CHECKOUT (default: this file's checkout),
 builds its kernels into CHECKOUT/build, and prints one JSON line: the
 card's name and power limit, and the mean milliseconds of the exact CIE94
-`assign_packed` (k = 8, 64) and `lloyd_accumulate` (k = 8, 64, 256) on a
+`assign_packed` (k = 8, 64), `meld_packed` (k = 8, 1025) and
+`lloyd_accumulate` (k = 8, 64, 256) on a
 seeded random 3840x2160 image, by CUDA events, each launch after a
 256 MB write that evicts the L2 cache. With `--fast` it also times the
 fast tiers at k = 64 and 256: the factorized CIE94 and the pruned
@@ -73,6 +74,9 @@ def main() -> int:
     for k in (8, 64):
         cents = palette(k)
         out[f"assign_k{k}_ms"] = ms(lambda: kernels.assign_packed(rgb, cents, 0.0), 20)
+    for k in (8, 1025):
+        cents = palette(k)
+        out[f"meld_k{k}_ms"] = ms(lambda: kernels.meld_packed(rgb, cents), 20 if k == 8 else 3)
     for k in (8, 64, 256):
         cents = palette(k)
         out[f"lloyd_k{k}_ms"] = ms(lambda: kernels.lloyd_accumulate(planes, cents, n_valid), 10)

@@ -125,6 +125,17 @@ def test_unported_options_raise(kwargs, item):
         kt.ImageProcessor(device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("method,args", [
+    ("reduce_many", ([], 4)), ("find_many", ([], [[0, 0, 0]])), ("palette_many", ([], 4)),
+    ("warmup", ()),
+])
+def test_unported_batch_methods_raise(processors, method, args):
+    """The bucketed batch methods wait for bucketing (the frame batches of
+    one size run: tests/test_torch_frames.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        getattr(processors[1], method)(*args)
+
+
 @pytest.mark.parametrize(
     "kwargs", [{"restarts": 2}, {"train_dtype": "bfloat16"}, {"train_dtype": "float32"},
                {"fast": True}]
@@ -144,22 +155,21 @@ def test_ported_options_accepted(processors, kwargs):
 
 
 def test_unported_modes_raise(processors):
-    """Meld runs (any palette size); what stays refused raises and names
-    its ROADMAP item."""
+    """Meld runs, and so do replace and dither past 1024 colours (any
+    palette size; tests/test_torch_colour_out.py holds them to the
+    reference); what stays refused raises and names its ROADMAP item."""
     _, port = processors
     img = _image(20, 30)
     assert port.reduce(4, img, reduce_mode=kt.ReduceMode.MELD).pixels.shape == (20, 30, 4)
     one = port.find(img, [[1, 2, 3]], kt.ReduceMode.MELD).pixels
     assert (one.reshape(-1, 4) == [1, 2, 3, 255]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        port.find(img, np.zeros((1025, 3), np.uint8), kt.ReduceMode.DITHER)
+    big = port.find(img, np.zeros((1025, 3), np.uint8), kt.ReduceMode.DITHER).pixels
+    assert (big.reshape(-1, 4) == [0, 0, 0, 255]).all()
     for algo in (kt.Algorithm.OCTREE, kt.Algorithm.WU, kt.Algorithm.MEDIANCUT):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
             port.reduce(4, img, algo)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
             port.palette(4, img, algo)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        port.reduce(1025, img)
     with pytest.raises(ValueError):
         port.reduce(0, img)
     with pytest.raises(ValueError):

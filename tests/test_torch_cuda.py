@@ -14,7 +14,7 @@ from kmeans_tpu_torch import ImageProcessor, ReduceMode
 from kmeans_tpu_torch.ops import kernels
 from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
 from kmeans_tpu_torch.ops.delta_e import distance_cie2000_sq
-from kmeans_tpu_torch.ops.quantize import dither_threshold
+from kmeans_tpu_torch.ops.quantize import dither_threshold, dither_thresholds
 from kmeans_tpu_torch.utils.packing import pack_bits, unpack_rgb24_tile_words, unpack_tile_words
 
 torch.set_num_threads(2)
@@ -276,3 +276,150 @@ def test_fast_reduce_on_card_matches_cpu(cuda, delta_e):
         step = np.abs(on_card - on_cpu).max(-1)
         assert (step > 0).sum() <= bar * 90 * 130
         assert mode is ReduceMode.REPLACE or step.max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,mode,metric,chunk",
+    [(1, "replace", "cie94", None), (8, "dither", "cie94", None),
+     (1025, "replace", "cie94", None), (2048, "dither", "cie94", None),
+     (17, "dither", "cie2000", None), (300, "replace", "cie94", 64),
+     (300, "dither", "cie2000", 64)],
+)
+def test_colour_out_kernel_matches_twin(cuda, k, mode, metric, chunk, monkeypatch):
+    """`quantize_rgba` (the assign kernel's colour-out mode) against its
+    twin: equal RGBA. `chunk` lowers `STAGE_CHUNK` so that k = 300 takes
+    the chunked instance (the palette staged 64 centroids at a time)."""
+    if chunk:
+        monkeypatch.setattr(kernels, "STAGE_CHUNK", chunk)
+    rgb, cents = _case(61, 97, k, 1100 + k, cuda)
+    thr = dither_threshold(cents, metric=metric) if mode == "dither" else 0.0
+    before = dict(kernels.LAUNCHES_BY_MODE)
+    got = kernels.quantize_rgba(rgb, cents, thr, mode=mode, row_offset=1, metric=metric)
+    want = kernels.quantize_rgba_reference(rgb, cents, thr, mode=mode, row_offset=1,
+                                           metric=metric)
+    torch.cuda.synchronize()
+    tier = "exact-chunked" if chunk else "exact"
+    assert kernels.LAUNCHES_BY_MODE["quantize_rgba", metric, tier] == before.get(
+        ("quantize_rgba", metric, tier), 0) + 1
+    assert got.shape == (61, 97, 4) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,mode", [(8, "replace"), (256, "dither")])
+def test_u8_index_kernel_matches_twin(cuda, k, mode):
+    rgb, cents = _case(61, 97, k, 1200 + k, cuda)
+    thr = dither_threshold(cents) if mode == "dither" else 0.0
+    got = kernels.assign_u8(rgb, cents, thr, mode=mode)
+    want = kernels.assign_u8_reference(rgb, cents, thr, mode=mode)
+    assert got.shape == (61, 97) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,metric,chunk", [(16384, "cie94", None), (300, "cie94", 64),
+                                            (300, "cie2000", 64)])
+def test_meld_kernel_at_any_palette_size(cuda, k, metric, chunk, monkeypatch):
+    """The meld kernel past one shared-memory chunk of centroids (16,384
+    colours, or 300 with 64-centroid chunks) against its twin: CIE94 equal
+    words, CIEDE2000 within 1 u8 step on at most 1e-4 of the pixels."""
+    if chunk:
+        monkeypatch.setattr(kernels, "STAGE_CHUNK", chunk)
+    rgb, cents = _case(29, 41, k, 1300 + k, cuda)
+    cents[-1] = cents[0]
+    before = kernels.LAUNCHES_BY_MODE["meld_packed", metric, "exact-chunked"]
+    got = kernels.meld_packed(rgb, cents, metric=metric)
+    want = kernels.meld_packed_reference(rgb, cents, metric=metric)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES_BY_MODE["meld_packed", metric, "exact-chunked"] == before + 1
+    if metric == "cie94":
+        assert torch.equal(got, want)
+    rows = kernels.quant_tile_rows(k)
+    a = unpack_rgb24_tile_words(got.cpu().numpy(), 29, 41, rows).astype(int)
+    b = unpack_rgb24_tile_words(want.cpu().numpy(), 29, 41, rows).astype(int)
+    step = np.abs(a - b).max(-1)
+    assert step.max() <= 1 and (step > 0).sum() <= 29 * 41 // 10000
+
+
+def _frames(b, h, w, k, seed, device):
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(device)
+    pal = torch.from_numpy(rng.integers(0, 256, (b, k, 3), dtype=np.uint8)).to(device)
+    return frames, srgb8_to_lab(pal).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize(
+    "form,k,shared,fast",
+    [("packed", 8, False, False), ("packed", 257, True, False), ("packed", 64, False, True),
+     ("meld", 17, False, False), ("meld", 64, True, True),
+     ("rgba", 1025, False, False), ("rgba", 17, True, False)],
+)
+def test_frames_kernels_match_twins(cuda, form, k, shared, fast, metric):
+    """One launch over 3 frames of 30x41 (H not a multiple of 4: each
+    frame's dither phase restarts at its own row 0), each with its own
+    palette, `k_active` and threshold; `shared` puts one image through the
+    three palettes (frame stride 0). Equal words (meld under CIEDE2000:
+    within 1 u8 step on 1e-4 of the pixels)."""
+    frames, cents = _frames(3, 30, 41, k, 1400 + k, cuda)
+    if shared:
+        frames = frames[0][None].expand(3, 30, 41, 3)
+    k_actives = [k, max(1, k // 2), max(1, k - 3)]
+    thr = dither_thresholds(cents, k_actives, metric)
+    name = {"packed": "assign_frames_packed", "meld": "meld_frames_packed",
+            "rgba": "quantize_frames"}[form]
+    before = kernels.launches(name)
+    if form == "meld":
+        got = kernels.meld_frames_packed(frames, cents, k_actives, metric, fast)
+        want = kernels.meld_frames_packed_reference(frames, cents, k_actives, metric, fast)
+    else:
+        call = kernels.assign_frames_packed if form == "packed" else kernels.quantize_frames
+        twin = (kernels.assign_frames_packed_reference if form == "packed"
+                else kernels.quantize_frames_reference)
+        got = call(frames, cents, thr, k_actives, "dither", metric, fast)
+        want = twin(frames, cents, thr, k_actives, "dither", metric, fast)
+    torch.cuda.synchronize()
+    assert kernels.launches(name) == before + 1
+    assert got.shape == want.shape
+    if form != "meld" or metric == "cie94":
+        assert torch.equal(got, want)
+    else:
+        rows = kernels.quant_tile_rows(k)
+        for f in range(3):
+            a = unpack_rgb24_tile_words(got[f].cpu().numpy(), 30, 41, rows).astype(int)
+            b = unpack_rgb24_tile_words(want[f].cpu().numpy(), 30, 41, rows).astype(int)
+            step = np.abs(a - b).max(-1)
+            assert step.max() <= 1 and (step > 0).sum() <= 30 * 41 // 10000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [ReduceMode.DITHER, ReduceMode.MELD])
+def test_batch_entry_points_on_card_match_cpu(cuda, mode):
+    """`reduce_images`, `reduce_batch` (one frames launch each),
+    `find_batch` (one launch) and `palette_images` on the card against the
+    CPU: equal palettes; dither within 1e-4 of the pixels, meld within 1
+    u8 step on 1e-3."""
+    rng = np.random.default_rng(11)
+    y, x = np.mgrid[0:45, 0:70]
+    frames = []
+    for f in range(3):
+        rgb = np.stack([x * 255 // 70, y * 255 // 45, (x + y + 20 * f) * 255 // 155], -1)
+        rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
+        frames.append(np.concatenate([rgb, np.full((45, 70, 1), 255, np.uint8)], -1))
+    colors = rng.integers(0, 256, (12, 3), dtype=np.uint8)
+    card, cpu = ImageProcessor(), ImageProcessor(device="cpu")
+    kernels.LAUNCHES_BY_MODE.clear()
+    on_card = [card.reduce_images(frames, 8, mode), card.reduce_batch(frames[0], [3, 8], mode),
+               card.find_batch(frames, colors, mode)]
+    frames_name = "meld_frames_packed" if mode is ReduceMode.MELD else "assign_frames_packed"
+    single = "meld_packed" if mode is ReduceMode.MELD else "assign_packed"
+    assert kernels.launches(frames_name) == 2 and kernels.launches(single) == 1
+    on_cpu = [cpu.reduce_images(frames, 8, mode), cpu.reduce_batch(frames[0], [3, 8], mode),
+              cpu.find_batch(frames, colors, mode)]
+    np.testing.assert_array_equal(card.palette_images(frames, 8), cpu.palette_images(frames, 8))
+    bar = 1e-3 if mode is ReduceMode.MELD else 1e-4
+    for got, want in zip(on_card, on_cpu):
+        for a, b in zip(got, want):
+            step = np.abs(a.pixels.astype(int) - b.pixels.astype(int)).max(-1)
+            assert step.max() <= (1 if mode is ReduceMode.MELD else 255)
+            assert (step > 0).sum() <= bar * 45 * 70

@@ -131,7 +131,7 @@ def test_wrapper_rejects_what_it_does_not_take():
     t_rgb, cents = torch.from_numpy(rgb), centroids_from_reference(pal)
     with pytest.raises(ValueError, match="meld_packed"):
         kernels.assign_packed(t_rgb, cents, 0.0, mode="meld")
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+    with pytest.raises(ValueError, match="quantize_rgba serves any k"):
         kernels.assign_packed(t_rgb, torch.zeros((1025, 3)), 0.0)
     with pytest.raises(ValueError):
         kernels.assign_packed(t_rgb.float(), cents, 0.0)
