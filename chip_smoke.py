@@ -3,11 +3,13 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. It needs one
 CUDA device and the CUDA toolkit (`nvcc`); it builds the port's kernels
-from `kmeans_tpu_torch/csrc/` and then:
+from `kmeans_tpu_torch/csrc/` and the experiment tools' kernels from
+`kmeans_tpu_torch/tools/csrc/` (two libraries, built side by side) and
+then:
 
 1. device: prints the card (`nvidia-smi` name and power limit), torch and
    CUDA versions;
-2. build: compiles the kernels and prints the seconds it took;
+2. build: compiles both libraries and prints the seconds it took;
 3. kernel vs plain: holds `assign_packed` (the CUDA kernel) against
    `assign_packed_reference` (plain PyTorch) on the same CUDA tensors,
    over palette sizes, both modes, ragged shapes, `k_active < kp`,
@@ -59,21 +61,41 @@ from `kmeans_tpu_torch/csrc/` and then:
    staged centroids and several), the slice on 16 frames of 1920x1080 and
    the 4K image (`reduce_images`, `find_batch`, `palette_images`,
    `reduce_batch`, `reduce(2048)`, `find` with 2048 and 16384 colours),
-   each path with exactly its one launch and its output against the
-   plain version's, and a small batch on the card against the CPU;
+   each path with exactly its one launch (and, under dither, one launch
+   of the threshold kernel) and its output against the plain version's,
+   and a small batch on the card against the CPU. Then this slice:
+   `tf32_training` (`reduce`, `reduce_images` and the row-chunked
+   full-resolution trainer at k = 600 give equal outputs with TF32 on
+   through either torch API, and the caller's flags read back unchanged),
+   `frames_past_grid_limit` (65,537 frames of 4x4 through both frames
+   kernels: equal to split launches and to the twins),
+   `dither_threshold_vs_plain` (the threshold kernel's bits against the
+   twin's at k = 1..2048, both metrics, one and three palettes; times
+   against the plain loop; `reduce(2048)` dither against replace), and
+   the experiment tools through their entry points:
+   `exp_mxu_vs_plain` (`kmeans_tpu_torch.tools.exp_mxu`: factor-vpu
+   against its twin and the fast u8 assign, factor-mxu against its TF32
+   twin with each flip a near-tie, `mismatch_frac_vs_exact`, times beside
+   `argmin(feats @ G)` with TF32 off and on) and `exp_gather_vs_plain`
+   (`kmeans_tpu_torch.tools.exp_gather`: each table placement returns the
+   table's bits, the lut sums equal their twin, the pow sums their twin's
+   bits or counted ulps, times beside `torch.take`);
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
    beside its bound; the fast modes at k = 64 and k = 256 in turns with
    the exact kernel at the same k; the new kernel modes at the slice's
    shapes; one frames launch against 16 single-frame launches, and
-   `reduce_images` against 16 `reduce` calls end to end, in turns.
+   `reduce_images` against 16 `reduce` calls end to end, in turns; the
+   shrunk training at k = 8 and 2048 with the float64 one-hot product
+   against the float32 one, in turns.
 
 Every phase prints one JSON line. The script exits non-zero on any
 failure, and when no CUDA device is present. Its last three lines are the
 kernels' summary (`launches` counts the launches of the driven paths;
-`launched_by` says whether they came through `ImageProcessor` or, for the
-forms no entry point reaches, a direct call of the wrapper), the card's
+`launched_by` says whether they came through `ImageProcessor`, an
+experiment tool's evaluation pass or, for the forms no entry point
+reaches, a direct call of the wrapper), the card's
 `nvidia-smi` line, and
 `{"ok": true, "device": {...}}`.
 """
@@ -85,6 +107,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -726,7 +749,8 @@ def drive_fast(image, dev, device, lab_4k) -> dict:
     seeds = km.derive_restart_seeds(HEIGHT * WIDTH, km.reference_seed_index(WIDTH, HEIGHT), 2)
     restart_iters = [km.fit_large(lab_4k, FAST_K, s, fast=True)[1] for s in seeds.tolist()]
     want = {
-        "shrunk cie94": {"assign_packed cie94 factor": 3, "meld_packed cie94 factor": 2},
+        "shrunk cie94": {"assign_packed cie94 factor": 3, "meld_packed cie94 factor": 2,
+                         "dither_threshold cie94 exact": 1},
         "shrunk cie2000": {"assign_packed cie2000 prune": 2, "meld_packed cie2000 prune": 2},
         "full resolution cie94 restarts=2": {
             "assign_packed cie94 factor": 1, "lloyd_accumulate cie94 exact": 2,
@@ -1167,21 +1191,22 @@ def drive_frames(image, frames, device) -> dict:
             dev4k, lab16, 0.0),
     }
     frames_launch = {"assign_frames_packed cie94 exact": 1}
+    threshold = {"dither_threshold cie94 exact": 1}  # one launch for all B palettes
     want = {
         "reduce_images k=8 replace": frames_launch,
-        "reduce_images k=8 dither": frames_launch,
+        "reduce_images k=8 dither": {**frames_launch, **threshold},
         "reduce_images k=8 meld": {"meld_frames_packed cie94 exact": 1},
         "reduce_images k=64 fast replace": {"assign_frames_packed cie94 factor": 1},
         "reduce_images k=64 fast meld": {"meld_frames_packed cie94 factor": 1},
         "reduce_images k=64 fast replace delta_e=2000": {"assign_frames_packed cie2000 prune": 1},
         "reduce_images k=64 fast meld delta_e=2000": {"meld_frames_packed cie2000 prune": 1},
         "reduce_images k=2048 replace, 2 frames": {"quantize_frames cie94 exact": 1},
-        "find_batch 16 colours dither": {"assign_packed cie94 exact": 1},
+        "find_batch 16 colours dither": {"assign_packed cie94 exact": 1, **threshold},
         "find_batch 16 colours meld": {"meld_packed cie94 exact": 1},
         "palette_images k=8": {},
         "reduce_batch 4K ks (4, 8, 16, 32)": frames_launch,
         "reduce 4K k=2048 replace": {"quantize_rgba cie94 exact": 1},
-        "reduce 4K k=2048 dither": {"quantize_rgba cie94 exact": 1},
+        "reduce 4K k=2048 dither": {"quantize_rgba cie94 exact": 1, **threshold},
         "find 4K 2048 colours": {"quantize_rgba cie94 exact": 1},
         "find 1080p 16384 colours replace": {"quantize_rgba cie94 exact-chunked": 1},
         "find 1080p 16384 colours meld": {"meld_packed cie94 exact-chunked": 1},
@@ -1461,6 +1486,427 @@ def time_frames(image, frames, device, card, drive, plain) -> dict:
     return out
 
 
+# --- This slice: TF32 settings, frames past the grid limit, the threshold
+# kernel, and the two experiment tools (B9, B10) -----------------------------
+
+TF32_APIS = ("allow_tf32", "fp32_precision")
+TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
+THRESHOLD_KS = (1, 2, 3, 8, 257, 1024, 2048)
+GRID_FRAMES = 65_537  # past the 65,535 frames one grid's y extent holds
+MXU_RAGGED = (61, 97, 100)
+# Float32 operations of one pixel into the factorized features: 33 into
+# Lab (as `assign_bound`) and `PIXEL_OPS["factor"]`.
+FEATURE_OPS = 33 + PIXEL_OPS["factor"]
+
+
+def matmul_flags() -> dict:
+    """Every matmul-precision read torch offers; a read that raises (the
+    two APIs mixed) is recorded as such."""
+    import torch
+
+    m = torch.backends.cuda.matmul
+    reads = {"precision": torch.get_float32_matmul_precision,
+             "allow_tf32": lambda: m.allow_tf32}
+    if hasattr(m, "fp32_precision"):
+        reads["fp32_precision"] = lambda: m.fp32_precision
+    flags = {}
+    for name, read in reads.items():
+        try:
+            flags[name] = read()
+        except RuntimeError:
+            flags[name] = "raises"
+    return flags
+
+
+def set_tf32(how: str):
+    """Turn TF32 matmuls on through `how` (one of `TF32_APIS`); return a
+    callable that restores the previous setting exactly: the legacy flag
+    by the legacy API, then the new API's value."""
+    import torch
+
+    m = torch.backends.cuda.matmul
+    new_api = hasattr(m, "fp32_precision")
+    if how == "fp32_precision" and not new_api:
+        raise AssertionError(f"torch {torch.__version__} has no fp32_precision API")
+    saved_new = m.fp32_precision if new_api else None
+    saved_legacy = m.allow_tf32 if how == "allow_tf32" else None
+
+    def restore():
+        if how == "allow_tf32":
+            m.allow_tf32 = saved_legacy
+        if new_api:
+            m.fp32_precision = saved_new
+
+    if how == "allow_tf32":
+        m.allow_tf32 = True
+    else:
+        m.fp32_precision = "tf32"
+    return restore
+
+
+def tf32_training(image) -> None:
+    """C.1: `reduce(8)` on the 4K image (the shrunk trainer),
+    `reduce_images` on 3 frames (the batched trainer) and a k=600 palette
+    of a 640x600 image at full resolution (384,000 x 600 elements, past
+    the 192M-element gate: the plain row-chunked trainer), each run with
+    TF32 off, then on through each API: the outputs must be equal and the
+    caller's flags must read back unchanged."""
+    from kmeans_tpu_torch import ImageProcessor
+
+    frames = [synthetic_image(150, 210, seed=SEED + 30 + f) for f in range(3)]
+    mid = synthetic_image(600, 640, seed=SEED + 33)
+    proc = ImageProcessor(device="cuda")
+    full = ImageProcessor(device="cuda", train_max_size=None)
+
+    def run():
+        return ([proc.reduce(K, image).pixels]
+                + [r.pixels for r in proc.reduce_images(frames, K)]
+                + [full.palette(600, mid)])
+
+    before = matmul_flags()
+    want = run()
+    for how in TF32_APIS:
+        restore = set_tf32(how)
+        try:
+            during = matmul_flags()
+            got = run()
+        finally:
+            restore()
+        after = matmul_flags()
+        equal = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+        line = {"phase": "tf32_training", "api": how, "outputs_equal": equal,
+                "flags_before": before, "flags_during": during, "flags_after": after}
+        emit(line)
+        if not all(equal) or after != before or during == before:
+            raise AssertionError(f"tf32_training: {line}")
+
+
+def frames_past_grid_limit(device) -> None:
+    """C.2: `assign_frames_packed` (dither) and `meld_frames_packed` on
+    65,537 frames of 4x4 pixels, distinct palettes and `k_actives`, k=8:
+    the words of one call against the same kernels launched on frames
+    [0, 65535) and [65535, 65537) apart, and against the twins on frames
+    0, 65534, 65535 and 65536."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.ops.quantize import dither_thresholds
+
+    rng = np.random.default_rng(SEED + 40)
+    b = GRID_FRAMES
+    frames = torch.from_numpy(rng.integers(0, 256, (b, 4, 4, 3), dtype=np.uint8)).to(device)
+    pal = torch.from_numpy(rng.integers(0, 256, (b, K, 3), dtype=np.uint8)).to(device)
+    cents = srgb8_to_lab(pal).contiguous()
+    k_actives = [1 + f % K for f in range(b)]
+    thr = dither_thresholds(cents, k_actives)
+    for form in ("packed", "meld"):
+        def run(sl, form=form):
+            if form == "meld":
+                return kernels.meld_frames_packed(frames[sl], cents[sl], k_actives[sl])
+            return kernels.assign_frames_packed(frames[sl], cents[sl], thr[sl], k_actives[sl],
+                                                mode="dither")
+
+        whole = run(slice(None))  # each frame pads to a 32,768-pixel tile
+        split = [bool(torch.equal(whole[:65_535], run(slice(0, 65_535)))),
+                 bool(torch.equal(whole[65_535:], run(slice(65_535, None))))]
+        twins = []
+        for f in (0, 65_534, 65_535, 65_536):
+            if form == "meld":
+                want = kernels.meld_packed_reference(frames[f], cents[f], k_actives[f])
+            else:
+                want = kernels.assign_packed_reference(frames[f], cents[f], thr[f],
+                                                       k_actives[f], mode="dither")
+            twins.append(bool(torch.equal(whole[f], want.reshape(whole[f].shape))))
+        torch.cuda.synchronize()
+        line = {"phase": "frames_past_grid_limit", "form": form, "frames": b,
+                "equal_to_split_launches": split, "equal_to_twins_at_0_65534_65535_65536": twins}
+        emit(line)
+        del whole
+        if not all(split + twins):
+            raise AssertionError(f"frames past the grid limit: {line}")
+
+
+def _events_ms(fn) -> float:
+    """Milliseconds of one call of `fn` by CUDA events (no warm-up: for
+    the plain loops that take seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def dither_threshold_vs_plain(device, image, card) -> dict:
+    """C.3: the threshold kernel against its twin at every k of
+    `THRESHOLD_KS`, both metrics, one palette and B = 3 palettes with
+    per-frame `k_active` (B = 3 up to k = 1024): equal bits. The plain
+    loop's time is that of its checked run (one call); the kernel's the
+    mean of 20 warm launches. Then `reduce(2048)` dither against replace
+    end to end, in turns. Returns the k=2048 CIE94 times for the kernels
+    line."""
+    import torch
+
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.ops.quantize import (
+        dither_threshold,
+        dither_threshold_reference,
+        dither_thresholds,
+        dither_thresholds_reference,
+    )
+
+    failures, times = [], {}
+    for metric in ("cie94", "cie2000"):
+        for k in THRESHOLD_KS:
+            cents = random_palette_lab(k, SEED + 50 + k, device)
+            got = dither_threshold(cents, metric=metric)
+            plain_ms = _events_ms(lambda: dither_threshold_reference(cents, metric=metric))
+            want = dither_threshold_reference(cents, metric=metric)
+            equal = bool(got.view(torch.int32) == want.view(torch.int32))
+            line = {"phase": "dither_threshold_vs_plain", "k": k, "metric": metric,
+                    "frames": 1, "equal_bits": equal, "threshold": float(got)}
+            if k >= 1024:
+                kernel_ms = cuda_ms(lambda: dither_threshold(cents, metric=metric), 20)
+                times[metric, k] = (kernel_ms, plain_ms)
+                line.update({"card": card, "kernel_ms": kernel_ms, "plain_ms": plain_ms})
+            if k <= 1024:
+                pals = torch.stack([random_palette_lab(k, SEED + 60 + k + f, device)
+                                    for f in range(3)])
+                k_actives = [k, max(1, k // 2), max(1, k - 1)]
+                g = dither_thresholds(pals, k_actives, metric)
+                w = dither_thresholds_reference(pals, k_actives, metric)
+                line["frames_equal_bits"] = bool(torch.equal(g.view(torch.int32),
+                                                             w.view(torch.int32)))
+                line["k_actives"] = k_actives
+                equal = equal and line["frames_equal_bits"]
+            emit(line)
+            if not equal:
+                failures.append(f"dither_threshold k={k} {metric}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    proc = ImageProcessor(device="cuda")
+    for line in timed_reduces({
+        "reduce 3840x2160 k=2048 replace, median of 2 warm": (proc, ReduceMode.REPLACE),
+        "reduce 3840x2160 k=2048 dither, median of 2 warm": (proc, ReduceMode.DITHER),
+    }, image, card, k=2048, rounds=3):
+        emit(line)
+    kernel_ms, plain_ms = times["cie94", 2048]
+    # One thread reads the palette once and writes one float; the walk is
+    # two distances and a square root per centroid.
+    bound = _bound(2048 * 12 + 4, 2 * 2046 * (METRIC_OPS["cie94"] + 1) + 2)
+    return {"times": (kernel_ms, plain_ms, *bound), "err": 0}
+
+
+def exp_mxu_vs_plain(device, card) -> dict:
+    """B9 through its entry point, the tool `kmeans_tpu_torch.tools.exp_mxu`:
+    its evaluation pass (one launch of each kernel at k = 64 and 256 on the
+    seeded 3840x2160 image) with the counts set to 0 just before it; then,
+    on the same data and on a ragged 61x97 k=100 case, factor-vpu against
+    its twin (0 differing indices) and `assign_u8(fast=True)`, factor-mxu
+    against its TF32 twin (each flip a near-tie); the kernels' and the
+    twins' times beside `argmin(feats @ G)` with TF32 off and on; then the
+    tool's own timing lines. Returns the k=64 figures for the kernels
+    line."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.tools import exp_mxu
+
+    reset_launch_counts()
+    tool_lines = exp_mxu.measure(device, smoke=False, reps=0)
+    torch.cuda.synchronize()
+    counts = mode_counts()
+    ks = exp_mxu.KS
+    want = {"exp_factor_vpu cie94 factor": len(ks), "exp_factor_mxu cie94 tf32": len(ks),
+            "assign_u8 cie94 exact": len(ks), "assign_u8 cie94 factor": len(ks)}
+    emit({"phase": "exp_mxu_vs_plain", "tool_launches": counts,
+          "mismatch_frac_vs_exact": {f"{line['variant']} k={line['k']}":
+                                     line["mismatch_frac_vs_exact"] for line in tool_lines}})
+    if counts != want:
+        raise AssertionError(f"exp_mxu launches {counts}, want {want}")
+
+    rng = np.random.default_rng(0)  # the tool's data, drawn in its order
+    img = torch.from_numpy(exp_mxu.random_image(HEIGHT, WIDTH, rng)).to(device)
+    cases = [(img, torch.from_numpy(exp_mxu.random_centroids(kp, rng)).to(device))
+             for kp in ks]
+    rng = np.random.default_rng(SEED + 70)
+    h, w, kp = MXU_RAGGED
+    cases.append((torch.from_numpy(exp_mxu.random_image(h, w, rng)).to(device),
+                  torch.from_numpy(exp_mxu.random_centroids(kp, rng)).to(device)))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    out, failures = {}, []
+    for img_c, cents in cases:
+        h, w, kp = img_c.shape[0], img_c.shape[1], cents.shape[0]
+        vpu = exp_mxu.factor_vpu(img_c, cents)
+        vpu_plain = exp_mxu.factor_vpu_reference(img_c, cents)
+        fast = kernels.assign_u8(img_c[..., :3].contiguous(), cents, 0.0, fast=True)
+        mxu = exp_mxu.factor_mxu(img_c, cents)
+        mxu_plain = exp_mxu.factor_mxu_reference(img_c, cents, tf32=True)
+        flips, near = exp_mxu.near_ties(img_c, cents, mxu, mxu_plain, tf32=True)
+        line = {"phase": "exp_mxu_vs_plain", "h": h, "w": w, "k": kp,
+                "vpu_differing_vs_twin": int((vpu != vpu_plain).sum()),
+                "vpu_differing_vs_assign_u8_fast": int((vpu != fast).sum()),
+                "mxu_flips_vs_tf32_twin": flips, "mxu_flips_are_near_ties": near,
+                "vpu_max_abs_index_diff": int((vpu.int() - vpu_plain.int()).abs().max()),
+                "mxu_max_abs_index_diff": int((mxu.int() - mxu_plain.int()).abs().max())}
+        if (h, w) == (HEIGHT, WIDTH):
+            n = h * w
+            feats, gmat = exp_mxu.mxu_operands(img_c, cents, tf32=False)
+            library = {"off": cuda_ms(lambda: torch.argmin(feats @ gmat, dim=1), 10, flush)}
+            restore = set_tf32("allow_tf32")
+            try:
+                library["on"] = cuda_ms(lambda: torch.argmin(feats @ gmat, dim=1), 10, flush)
+            finally:
+                restore()
+            del feats, gmat
+            vpu_bound = _bound(5 * n, n * (FEATURE_OPS + SCREEN_OPS * kp))
+            t_bytes = 5 * n / HBM_BYTES_PER_S * 1e3
+            t_tensor = n * kp * 16 / TF32_OPS_PER_S * 1e3
+            t_cuda = n * (FEATURE_OPS + 2 * kp) / F32_OPS_PER_S * 1e3
+            # The larger of the bytes' time and the two units' times; the
+            # tensor cores and the CUDA cores run side by side.
+            mxu_bound = (max(t_bytes, t_tensor, t_cuda),
+                         "bytes" if t_bytes >= max(t_tensor, t_cuda) else "operations")
+            timing = {
+                "vpu": (cuda_ms(lambda: exp_mxu.factor_vpu(img_c, cents), 10, flush),
+                        cuda_ms(lambda: exp_mxu.factor_vpu_reference(img_c, cents), 2, flush),
+                        *vpu_bound),
+                "mxu": (cuda_ms(lambda: exp_mxu.factor_mxu(img_c, cents), 10, flush),
+                        cuda_ms(lambda: exp_mxu.factor_mxu_reference(img_c, cents), 2, flush),
+                        *mxu_bound),
+            }
+            line.update({"card": card, "vpu_ms": timing["vpu"][0], "vpu_plain_ms": timing["vpu"][1],
+                         "vpu_bound_ms": timing["vpu"][2], "mxu_ms": timing["mxu"][0],
+                         "mxu_plain_ms": timing["mxu"][1], "mxu_bound_ms": timing["mxu"][2],
+                         "mxu_bound_by": timing["mxu"][3], "mxu_bound_parts_ms": {
+                             "bytes": t_bytes, "tensor_tf32": t_tensor,
+                             "cuda_core_features_compare_select": t_cuda},
+                         "library_argmin_matmul_ms_tf32_off": library["off"],
+                         "library_argmin_matmul_ms_tf32_on": library["on"]})
+            out[kp] = {"timing": timing, "library": library,
+                       "err": (line["vpu_max_abs_index_diff"], line["mxu_max_abs_index_diff"])}
+        emit(line)
+        if line["vpu_differing_vs_twin"] or line["vpu_differing_vs_assign_u8_fast"] or not near:
+            failures.append(f"exp_mxu {h}x{w} k={kp}: {line}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    del flush
+    for line in exp_mxu.measure(device, smoke=False, reps=10):
+        emit({"phase": "timing", "what": "exp_mxu tool", "card": card, **line})
+    return {"counts": counts, **out}
+
+
+def exp_gather_vs_plain(device, card) -> dict:
+    """B10 through its entry point, the tool
+    `kmeans_tpu_torch.tools.exp_gather`: its evaluation pass (each table
+    placement once for the gather and once for the sum of 8 reads, the pow
+    sum once) with the counts set to 0 just before it; every placement
+    must return the table's bits; the lut sums against their twin (equal
+    bits), the pow sum against its twin (bits, or ulps counted), `powf`'s
+    table against numpy's; the kernels' and twins' times beside
+    `torch.take` for the gather; then the tool's own timing lines."""
+    import torch
+
+    from kmeans_tpu_torch.tools import exp_gather as eg
+
+    reset_launch_counts()
+    tool_lines = eg.measure(device, reps=0)
+    torch.cuda.synchronize()
+    counts = mode_counts()
+    want = {f"exp_gather {p} table": 1 for p in eg.PLACEMENTS}
+    want.update({f"exp_lut {p} table": 1 for p in eg.PLACEMENTS})
+    want.update({"exp_pow - powf": 1, "exp_pow_table - powf": 1})
+    correct = {line["form"]: line["correct"] for line in tool_lines if "form" in line}
+    pow_table = next(line for line in tool_lines if "pow_table_vs_numpy" in line)
+    table = eg.gamma_table(device)
+    idx = torch.from_numpy(eg.gather_indices()).to(device)
+    grid = torch.from_numpy(eg.grid_indices(np.random.default_rng(3))).to(device)
+    lut_plain = eg.lut_sum_reference(table, grid)
+    lut_equal = {p: bool(torch.equal(eg.lut_sum(table, grid, p).view(torch.int32),
+                                     lut_plain.view(torch.int32))) for p in eg.PLACEMENTS}
+    pow_k, pow_plain = eg.pow_sum(grid), eg.pow_sum_reference(grid)
+    ulps = eg.ulps(pow_k, pow_plain)
+    table_ulps = eg.ulps(eg.pow_table(device), eg.pow_table_reference(device))
+    line = {"phase": "exp_gather_vs_plain", "tool_launches": counts, "correct": correct,
+            "lut_equal_bits": lut_equal, "pow_sums_differing": int((ulps > 0).sum()),
+            "pow_max_ulps": int(ulps.max()),
+            "pow_max_abs_err": float((pow_k - pow_plain).abs().max()),
+            "pow_table_vs_twin_max_ulps": int(table_ulps.max()), **pow_table}
+    emit(line)
+    if counts != want or not all(correct.values()) or not all(lut_equal.values()) \
+            or int(ulps.max()) > 8 or int(table_ulps.max()) > 8:
+        raise AssertionError(f"exp_gather: {line} (launches wanted {want})")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    n_small, n_grid = idx.numel(), grid.numel()
+    timing = {}
+    for p in eg.PLACEMENTS:
+        timing["gather", p] = (cuda_ms(lambda p=p: eg.gather(table, idx, p), 50, flush),
+                               cuda_ms(lambda: eg.gather_reference(table, idx), 20, flush),
+                               *_bound(8 * n_small + 1024, n_small))
+        timing["lut", p] = (cuda_ms(lambda p=p: eg.lut_sum(table, grid, p), 20, flush),
+                            cuda_ms(lambda: eg.lut_sum_reference(table, grid), 5, flush),
+                            *_bound(8 * n_grid + 1024, 8 * n_grid))
+    timing["pow"] = (cuda_ms(lambda: eg.pow_sum(grid), 20, flush),
+                     cuda_ms(lambda: eg.pow_sum_reference(grid), 5, flush),
+                     *_bound(8 * n_grid, 8 * 8 * n_grid))
+    timing["pow_table"] = (cuda_ms(lambda: eg.pow_table(device), 50, flush),
+                           cuda_ms(lambda: eg.pow_table_reference(device), 50, flush),
+                           *_bound(4 * 256, 2 * 256))
+    idx_long = idx.long()  # torch.take indexes by int64
+    take_ms = cuda_ms(lambda: torch.take(table, idx_long), 50, flush)
+    del flush
+    emit({"phase": "timing", "what": "exp_gather kernels (cold L2, mean)", "card": card,
+          "take_ms": take_ms,
+          **{" ".join(key) if isinstance(key, tuple) else key: {
+              "kernel_ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+             for key, t in timing.items()}})
+    for tline in eg.measure(device, reps=20):
+        emit({"phase": "timing", "what": "exp_gather tool", "card": card, **tline})
+    return {"counts": counts, "timing": timing, "take_ms": take_ms,
+            "pow_err": line["pow_max_abs_err"], "pow_table_ulps": line["pow_table_vs_twin_max_ulps"]}
+
+
+def update_cost(image, device, card) -> None:
+    """C.1's cost: the shrunk training (256x144 of the 4K image) at k = 8
+    and k = 2048 with the float64 one-hot product against the float32 one
+    it replaced (full float32, TF32 off), in turns (f64, f32, f32, f64,
+    three times over)."""
+    import torch
+
+    from kmeans_tpu_torch.models import kmeans as km
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.ops.resize import resize_uint8
+
+    def update_f32(pixels, assign, k):
+        onehot = torch.zeros((pixels.shape[0], k), dtype=torch.float32,
+                             device=pixels.device).scatter_(1, assign[:, None], 1.0)
+        return onehot.T @ pixels, onehot.sum(dim=0)
+
+    dev = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to(device)
+    work = srgb8_to_lab(resize_uint8(dev, 144, 256).reshape(-1, 3))
+    first = km.reference_seed_index(256, 144)
+    update_f64 = km._update_centroids
+    for k in (K, 2048):
+        runs = {"float64": [], "float32": []}
+        for form in ("float64", "float32", "float32", "float64") * 3:
+            km._update_centroids = update_f64 if form == "float64" else update_f32
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, iters = km.fit_restarts(work, k, first)
+                torch.cuda.synchronize()
+                runs[form].append(((time.perf_counter() - t0) * 1e3, iters))
+            finally:
+                km._update_centroids = update_f64
+        emit({"phase": "timing", "what": f"shrunk training 256x144 k={k}: one-hot product "
+              "in float64 against float32, in turns", "card": card,
+              **{f"{form}_ms_iterations": r for form, r in runs.items()}})
+
+
 def main() -> int:
     import torch
 
@@ -1474,6 +1920,7 @@ def main() -> int:
     from kmeans_tpu_torch.ops import _build, kernels
     from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
     from kmeans_tpu_torch.ops.quantize import dither_threshold
+    from kmeans_tpu_torch.tools import _exp
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -1485,13 +1932,18 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     })
 
-    # 2. Build.
+    # 2. Build: the main library and the experiment tools' library, each
+    # source in its own nvcc process, all started together.
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        main_lib = pool.submit(_build.build)
+        exp_lib = pool.submit(_exp.build_exp_library)
+        lib_path, exp_path = main_lib.result(), exp_lib.result()
     _build.load_library()
+    _exp.load_exp_library()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
-        "compile_seconds": _build.last_build_seconds, "library": lib_path.name,
+        "library": lib_path.name, "exp_library": exp_path.name,
     })
 
     # 3. Kernel vs plain on the card: under CIE94 the words must be equal,
@@ -1598,10 +2050,14 @@ def main() -> int:
     counts.append(kernels.launches("assign_packed"))
     torch.cuda.synchronize()
     launches = kernels.launches("assign_packed")
+    threshold_launches = kernels.launches("dither_threshold")
     # One launch per reduce and per find; palette trains only, and the
-    # 256x144 shrink trains on the one-hot trainer.
+    # 256x144 shrink trains on the one-hot trainer. Each dither call takes
+    # its threshold from one launch of the threshold kernel.
     if counts != [1, 2, 2, 3]:
         raise AssertionError(f"assign kernel launch counts {counts}, expected [1, 2, 2, 3]")
+    if threshold_launches != 2:
+        raise AssertionError(f"threshold kernel launches {threshold_launches}, expected 2")
     if kernels.launches("lloyd_accumulate") != 0:
         raise AssertionError("the shrunk training launched the accumulator")
 
@@ -1629,7 +2085,7 @@ def main() -> int:
     emit({
         "phase": "slice", "iterations": iters_replace,
         "palette": ["#%02X%02X%02X" % tuple(c[:3]) for c in pal],
-        "assign_launches": launches,
+        "assign_launches": launches, "dither_threshold_launches": threshold_launches,
     })
 
     # The card against the CPU on a small input.
@@ -1784,6 +2240,16 @@ def main() -> int:
     frames_plain = frames_slice_vs_plain(image, frames, device, drive)
     frames_card_vs_cpu()
 
+    # 4g. This slice: training under TF32 settings (C.1), frames past the
+    # grid limit (C.2), the threshold kernel against its twin and its times
+    # (C.3), and the experiment tools through their entry points, their
+    # kernels against their twins (B9, B10).
+    tf32_training(image)
+    frames_past_grid_limit(device)
+    threshold = dither_threshold_vs_plain(device, image, card)
+    mxu = exp_mxu_vs_plain(device, card)
+    gather = exp_gather_vs_plain(device, card)
+
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
     shrunk_timing, full_timing, meld_timing, timing_2000 = timed_reduces({
@@ -1927,6 +2393,7 @@ def main() -> int:
     fast_times = time_fast(dev, lab_4k, trained, flush, card)
     del flush
     frames_times = time_frames(image, frames, device, card, drive, frames_plain)
+    update_cost(image, device, card)
 
     def entry(name, source, replaces, launches_, err, times, launched_by="ImageProcessor"):
         return {"name": name, "route": "cuda", "source": f"kmeans_tpu_torch/csrc/{source}",
@@ -1934,6 +2401,10 @@ def main() -> int:
                 "launched_by": launched_by,
                 "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                 "bound_ms": times[2], "bound_by": times[3], "library_ms": None}
+
+    def exp_entry(name, source, replaces, launches_, err, times, launched_by):
+        return {**entry(name, source, 0, launches_, err, times, launched_by),
+                "source": f"kmeans_tpu_torch/tools/csrc/{source}", "replaces": replaces}
 
     def fast_launches(mode):
         total = sum(path.get(mode, 0) for path in fast["paths"].values())
@@ -2029,6 +2500,37 @@ def main() -> int:
         entry("quantize_frames", "quantize_assign.cu", 2057,
               frames_launches("quantize_frames cie94 exact"),
               frames_err["rgba", "cie94", "exact"], frames_times["quantize_frames"]),
+        # Port-only: the threshold the reference computes in a fori_loop
+        # (no Pallas kernel), timed at k = 2048.
+        {**entry("dither_threshold", "dither_threshold.cu", 0, threshold_launches,
+                 threshold["err"], threshold["times"]),
+         "replaces": "kmeans_tpu/ops/quantize.py:112 (a lax.fori_loop, no Pallas kernel)"},
+        # B9 at 4K k=64 (the tool also times k=256), launched by the tool.
+        exp_entry("exp_factor_vpu", "exp_mxu.cu", "tools/exp_mxu.py:94",
+                  mxu["counts"]["exp_factor_vpu cie94 factor"], mxu[64]["err"][0],
+                  mxu[64]["timing"]["vpu"], "kmeans_tpu_torch.tools.exp_mxu"),
+        {**exp_entry("exp_factor_mxu", "exp_mxu.cu", "tools/exp_mxu.py:118",
+                     mxu["counts"]["exp_factor_mxu cie94 tf32"], mxu[64]["err"][1],
+                     mxu[64]["timing"]["mxu"], "kmeans_tpu_torch.tools.exp_mxu"),
+         "library_ms": mxu[64]["library"]["off"],
+         "library_ms_tf32": mxu[64]["library"]["on"]},
+        # B10: the single read of try_form at [128, 128] and the sums of 8
+        # over the 4K grid, per table placement, launched by the tool.
+        *[{**exp_entry(f"exp_gather[{p}]", "exp_gather.cu", "tools/exp_gather.py:52",
+                       gather["counts"][f"exp_gather {p} table"], 0, gather["timing"]["gather", p],
+                       "kmeans_tpu_torch.tools.exp_gather"),
+           "library_ms": gather["take_ms"]} for p in ("shared", "constant", "global")],
+        *[exp_entry(f"exp_lut[{p}]", "exp_gather.cu", "tools/exp_gather.py:152",
+                    gather["counts"][f"exp_lut {p} table"], 0, gather["timing"]["lut", p],
+                    "kmeans_tpu_torch.tools.exp_gather") for p in ("shared", "constant", "global")],
+        exp_entry("exp_pow", "exp_gather.cu", "tools/exp_gather.py:160",
+                  gather["counts"]["exp_pow - powf"], gather["pow_err"], gather["timing"]["pow"],
+                  "kmeans_tpu_torch.tools.exp_gather"),
+        # The tool's helper for powf's ulps against the table: no TPU kernel
+        # (the reference makes the table with numpy); err in ulps.
+        exp_entry("exp_pow_table", "exp_gather.cu", "tools/exp_gather.py:47 (numpy, no kernel)",
+                  gather["counts"]["exp_pow_table - powf"], gather["pow_table_ulps"],
+                  gather["timing"]["pow_table"], "kmeans_tpu_torch.tools.exp_gather"),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

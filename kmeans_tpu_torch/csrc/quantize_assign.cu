@@ -28,14 +28,17 @@
 //   their own argmin and dither coordinates like any pixel.
 // - Input is the [H, W, 3] u8 RGB image as uploaded (3 B/px); alpha is
 //   ignored everywhere in the pipeline.
-// - Frames: blockIdx.y is the frame f. Its blocks read the image at pixel
+// - Frames: frame f = frame_base + blockIdx.y. Its blocks read the image at pixel
 //   offset f * frame_stride (a stride of 0 puts one image through every
 //   frame's palette), stage frame f's palette, k_active and threshold
 //   (and, under the fast tiers, its feature-table rows) and write frame f's
 //   n_words outputs. Each frame pads to whole tiles and its dither phase
 //   starts at its own row 0, so frame f's slice of the output has exactly
 //   the single-image layout (kmeans_tpu/ops/kernels.py:1940-1946). A single
-//   image is one frame.
+//   image is one frame. The grid's y extent stops at 65,535, so the
+//   launcher issues the frames in groups of at most that many, each group
+//   with its first frame as `frame_base`: every offset is taken from the
+//   frame's own number, so a group's frame sees its own layout and phase.
 // - The 256-entry gamma table, the centroids, each centroid's chroma and,
 //   for the RGBA output, the packed palette words live in shared memory;
 //   the centroid loop is a runtime loop over k < k_active with strict `<`,
@@ -88,6 +91,8 @@ constexpr int kLanes = 128;
 constexpr int kOutPacked = 0;  // bit-packed indices, ppw per int32 word
 constexpr int kOutRgba = 1;    // the palette's RGBA word, one int32 a pixel
 constexpr int kOutU8 = 2;      // the palette index, one byte a pixel
+// The largest grid y extent: frames beyond it go in another launch.
+constexpr int64_t kMaxGridY = 65535;
 
 // (M4[y % 4][x % 4] / 16) - 0.5 in closed form
 // (kmeans_tpu/ops/kernels.py::_bayer_value).
@@ -155,7 +160,7 @@ __global__ void assign_kernel(
     const float* __restrict__ gtab_in, const int32_t* __restrict__ palette_in,
     const float* __restrict__ gamma_lut, const float* __restrict__ thresholds,
     int dither, int64_t row_offset, int out_mode, int bits, int tile_rows,
-    void* __restrict__ out, int64_t n_words) {
+    void* __restrict__ out, int64_t n_words, int64_t frame_base) {
   extern __shared__ float smem[];
   const int len = Chunked ? chunk : kp;  // centroids staged at a time
   float* lut = smem;                // [256]
@@ -167,7 +172,7 @@ __global__ void assign_kernel(
                      : nullptr;     // [len], RGBA output only
 
   // The frame's operands.
-  const int64_t f = blockIdx.y;
+  const int64_t f = frame_base + blockIdx.y;
   rgb += f * frame_stride * 3;
   centroids += f * kp * 3;
   if (gtab_in != nullptr) gtab_in += f * kp * kGCols;
@@ -255,8 +260,9 @@ extern "C" {
 // index), 1 (RGBA words) or 2 (u8 indices), the last two with bits = 32;
 // out [frames * n_words] i32 (u8 for out_mode 2) with n_words = n_pad / ppw,
 // n_pad a multiple of tile_rows * 128. A palette of more than `chunk`
-// centroids is staged in chunks: exact tier, out_mode 1 or 2 only. It
-// allocates nothing and does not synchronise.
+// centroids is staged in chunks: exact tier, out_mode 1 or 2 only. Any
+// number of frames: one launch per kMaxGridY of them. It allocates nothing
+// and does not synchronise.
 int kmeans_assign(const void* rgb, int64_t n, int64_t width, int64_t frame_stride,
                   int frames, const void* centroids, int kp, int k_active,
                   const void* k_actives, int chunk, int metric, int tier,
@@ -297,14 +303,20 @@ int kmeans_assign(const void* rgb, int64_t n, int64_t width, int64_t frame_strid
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(frames)),
-           threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(rgb), n, width, frame_stride,
-      static_cast<const float*>(centroids), kp, chunk, k_active,
-      static_cast<const int32_t*>(k_actives), static_cast<const float*>(gtab),
-      static_cast<const int32_t*>(palette), static_cast<const float*>(gamma_lut),
-      static_cast<const float*>(thresholds), dither, row_offset, out_mode, bits,
-      tile_rows, out, n_words);
+  for (int64_t base = 0; base < frames; base += kMaxGridY) {
+    const int64_t left = static_cast<int64_t>(frames) - base;
+    const int64_t group = left < kMaxGridY ? left : kMaxGridY;
+    kernel<<<dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(group)),
+             threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(rgb), n, width, frame_stride,
+        static_cast<const float*>(centroids), kp, chunk, k_active,
+        static_cast<const int32_t*>(k_actives), static_cast<const float*>(gtab),
+        static_cast<const int32_t*>(palette), static_cast<const float*>(gamma_lut),
+        static_cast<const float*>(thresholds), dither, row_offset, out_mode, bits,
+        tile_rows, out, n_words, base);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

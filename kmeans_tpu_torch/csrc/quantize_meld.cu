@@ -35,9 +35,11 @@
 // the thread writes its 3 output words itself and no packing crosses
 // threads. Word row j (< 3) of the group holds, low byte first:
 // j = 0: R0 G0 B0 R1; j = 1: G1 B1 R2 G2; j = 2: B2 R3 G3 B3 (`:1055-1077`).
-// Frames: blockIdx.y is the frame f; its blocks read the image at pixel
-// offset f * frame_stride (0: one image for every frame), stage frame f's
-// palette and k_active and write frame f's words, the single-image layout.
+// Frames: frame f = frame_base + blockIdx.y; its blocks read the image at
+// pixel offset f * frame_stride (0: one image for every frame), stage frame
+// f's palette and k_active and write frame f's words, the single-image
+// layout. The launcher issues at most 65,535 frames (the grid's y limit) a
+// launch, each group with its first frame as `frame_base`.
 // The gamma table, the centroids and their chroma live in shared memory;
 // the centroid loop is a runtime loop. A palette larger than `chunk`
 // centroids (the `Chunked` instances, exact tier only) is staged `chunk`
@@ -66,6 +68,8 @@ namespace {
 using namespace kmeans;
 
 constexpr int kLanes = 128;
+// The largest grid y extent: frames beyond it go in another launch.
+constexpr int64_t kMaxGridY = 65535;
 
 // The two closest so far, carried with strict `<`.
 struct TwoClosest {
@@ -144,7 +148,7 @@ __global__ void meld_kernel(
     const int32_t* __restrict__ k_actives,
     const float* __restrict__ gtab_in, const float* __restrict__ gamma_lut,
     int tile_rows,
-    int32_t* __restrict__ out, int64_t n_groups) {
+    int32_t* __restrict__ out, int64_t n_groups, int64_t frame_base) {
   extern __shared__ float smem[];
   const int len = Chunked ? chunk : kp;  // centroids staged at a time
   float* lut = smem;               // [256]
@@ -153,7 +157,7 @@ __global__ void meld_kernel(
   float* gtab = chroma + len;      // [len * 7], fast tiers only
 
   // The frame's operands.
-  const int64_t f = blockIdx.y;
+  const int64_t f = frame_base + blockIdx.y;
   rgb += f * frame_stride * 3;
   centroids += f * kp * 3;
   if (gtab_in != nullptr) gtab_in += f * kp * kGCols;
@@ -261,8 +265,8 @@ extern "C" {
 // for the fast tiers (else ignored); gamma_lut [256] f32; out
 // [frames * 3 * n_groups] i32 with n_groups = n_pad / 4, n_pad a multiple
 // of tile_rows * 128. A palette of more than `chunk` centroids is staged
-// in chunks (exact tier only). It allocates nothing and does not
-// synchronise.
+// in chunks (exact tier only). Any number of frames: one launch per
+// kMaxGridY of them. It allocates nothing and does not synchronise.
 int kmeans_meld(const void* rgb, int64_t n, int64_t frame_stride, int frames,
                 const void* centroids, int kp, int k_active, const void* k_actives,
                 int chunk, int metric, int tier, const void* gtab, int prune_m,
@@ -301,13 +305,19 @@ int kmeans_meld(const void* rgb, int64_t n, int64_t frame_stride, int frames,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(frames)),
-           threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(rgb), n, frame_stride,
-      static_cast<const float*>(centroids), kp, chunk, k_active,
-      static_cast<const int32_t*>(k_actives), static_cast<const float*>(gtab),
-      static_cast<const float*>(gamma_lut), tile_rows, static_cast<int32_t*>(out),
-      n_groups);
+  for (int64_t base = 0; base < frames; base += kMaxGridY) {
+    const int64_t left = static_cast<int64_t>(frames) - base;
+    const int64_t group = left < kMaxGridY ? left : kMaxGridY;
+    kernel<<<dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(group)),
+             threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(rgb), n, frame_stride,
+        static_cast<const float*>(centroids), kp, chunk, k_active,
+        static_cast<const int32_t*>(k_actives), static_cast<const float*>(gtab),
+        static_cast<const float*>(gamma_lut), tile_rows, static_cast<int32_t*>(out),
+        n_groups, base);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@ Port of the trainers of `kmeans_tpu/models/kmeans.py`:
 
 - `plusplus_init`: farthest-point seeding from the deterministic
   `reference_seed_index`, with the min-distance map kept incrementally;
-- `lloyd`: per-cluster (sum, count) by a one-hot float32 matrix product,
+- `lloyd`: per-cluster (sum, count) by a one-hot matrix product (float64,
+  rounded to float32, so TF32 never touches it),
   new centroid = sum / count (empty clusters keep their value and vote
   "not converged"), the CIE94 convergence vote, then re-assignment;
 - `lloyd_accumulated` (the reference's `lloyd_pallas`): the same loop with
@@ -115,21 +116,20 @@ def plusplus_init(
 def _update_centroids(
     pixels: torch.Tensor, assign: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-cluster `(sums [K, 3], counts [K])` through a one-hot float32
-    matrix product, as the reference does on its matrix unit. The product
-    must run in full float32: on CUDA, TF32 would perturb the sums enough
-    to flip convergence votes, so this raises if TF32 matmuls are enabled
-    (PyTorch's default leaves them off)."""
-    if pixels.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "the k-means update needs full float32 matmuls; set "
-            "torch.backends.cuda.matmul.allow_tf32 = False"
-        )
+    """Per-cluster `(sums [K, 3], counts [K])` through a one-hot matrix
+    product, as the reference does on its matrix unit with the product
+    pinned to full float32 (kmeans_tpu/models/kmeans.py:172-177). Here the
+    product runs in float64 and is rounded back to float32: TF32 applies
+    only to float32 products, so the sums are the same whatever the
+    caller's matmul-precision setting, and no process-wide flag is read or
+    set (a serving thread may be training beside the caller). Each float32
+    pixel is exact in float64, so the sums are float32 roundings of
+    near-exact totals."""
     onehot = torch.zeros(
-        (pixels.shape[0], k), dtype=torch.float32, device=pixels.device
+        (pixels.shape[0], k), dtype=torch.float64, device=pixels.device
     ).scatter_(1, assign[:, None], 1.0)
-    sums = onehot.T @ pixels
-    counts = onehot.sum(dim=0)
+    sums = (onehot.T @ pixels.to(torch.float64)).to(torch.float32)
+    counts = onehot.sum(dim=0).to(torch.float32)
     return sums, counts
 
 

@@ -4,9 +4,14 @@
 process for each source, all started together) and links them into one
 shared library with a plain C interface, caches it under
 `build/kmeans_tpu_torch/` at the root of the checkout, and loads it with
-`ctypes`. The file name carries a hash of the sources and the headers they
-include (`csrc/*.cuh`), the flags and the compiler path, so an unchanged
-tree builds once and an edited header builds anew. `nvcc` is taken from
+`ctypes`. `load(src_dir, name, declare)` does the same for another source
+directory: the experiment tools build `kmeans_tpu_torch/tools/csrc/*.cu`
+into a second library, `kmeans_tpu_torch_exp_<hash>.so`, on their first
+use, so the main library's build does not grow. Every compile sees
+`csrc/` on its include path. The file name carries a hash of the sources,
+the headers they may include (the source directory's `*.cuh` and
+`csrc/*.cuh`), the flags and the compiler path, so an unchanged tree
+builds once and an edited header builds anew. `nvcc` is taken from
 `CUDA_HOME` (or `CUDA_PATH`), else from `PATH`, else from the toolkit's
 default `/usr/local/cuda`. A failed build raises with the compiler's
 output. Nothing here runs at import time.
@@ -21,11 +26,12 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+EXP_CSRC = _PKG / "tools" / "csrc"
+MAIN_NAME = "kmeans_tpu_torch"
 BUILD_DIR = _PKG.parent / "build" / "kmeans_tpu_torch"
 
 # --fmad=false: no FMA contraction anywhere in the library, so the kernel's
@@ -38,9 +44,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-# Seconds the last compile in this process took (None: nothing compiled).
-last_build_seconds: float | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -60,43 +64,45 @@ def find_nvcc() -> str:
     )
 
 
-def _sources() -> list[Path]:
-    """The files compiled, one `nvcc` process each."""
-    return sorted(CSRC.glob("*.cu"))
+def _sources(src_dir: Path | None = None) -> list[Path]:
+    """The files compiled, one `nvcc` process each (default: `CSRC`)."""
+    return sorted((CSRC if src_dir is None else src_dir).glob("*.cu"))
 
 
-def _hashed_files() -> list[Path]:
-    """The sources and the headers they include."""
-    return _sources() + sorted(CSRC.glob("*.cuh"))
+def _hashed_files(src_dir: Path | None = None) -> list[Path]:
+    """The sources and the headers they may include."""
+    src_dir = CSRC if src_dir is None else src_dir
+    headers = set(src_dir.glob("*.cuh")) | set(CSRC.glob("*.cuh"))
+    return _sources(src_dir) + sorted(headers)
 
 
-def library_path(nvcc: str) -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(nvcc: str, src_dir: Path | None = None, name: str = MAIN_NAME) -> Path:
+    """Where the library `name` for the current sources and flags lives."""
     h = hashlib.sha256()
-    for src in _hashed_files():
+    for src in _hashed_files(src_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc.encode())
-    return BUILD_DIR / f"kmeans_tpu_torch_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources if no library for them exists yet; return its
-    path. Concurrent builds each work in a private directory and rename
-    the library into place, so a reader never sees a partial one."""
-    global last_build_seconds
+def build(src_dir: Path | None = None, name: str = MAIN_NAME) -> Path:
+    """Compile the sources of `src_dir` (default: `CSRC`) if no library
+    for them exists yet; return its path. Concurrent builds each work in a
+    private directory and rename the library into place, so a reader never
+    sees a partial one."""
     nvcc = find_nvcc()
-    target = library_path(nvcc)
+    target = library_path(nvcc, src_dir, name)
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
+    sources = _sources(src_dir)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        objs = [str(Path(work) / f"{src.stem}.o") for src in _sources()]
+        objs = [str(Path(work) / f"{src.stem}.o") for src in sources]
         compiles = [
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-            for src, obj in zip(_sources(), objs)
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            for src, obj in zip(sources, objs)
         ]
         procs = [
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -110,7 +116,6 @@ def build() -> Path:
         done = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         _check(link, done.returncode, done.stdout)
         os.replace(tmp, target)
-    last_build_seconds = time.perf_counter() - t0
     return target
 
 
@@ -119,49 +124,63 @@ def _check(cmd: list[str], returncode: int, output: str) -> None:
         raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{output}")
 
 
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare the C entry
-    points' argument types."""
-    global _lib
+def load(src_dir: Path, name: str, declare) -> ctypes.CDLL:
+    """Build the library `name` from `src_dir` if needed, load it once per
+    process, and let `declare(lib)` set its C entry points' argument
+    types."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.kmeans_assign.argtypes = [
-            p, i64, i64, i64,  # rgb, n, width, frame_stride
-            i32, p, i32,       # frames, centroids, kp
-            i32, p, i32,       # k_active, k_actives (or null), chunk
-            i32, i32, p, i32,  # metric, tier, gtab (or null), prune_m
-            p, p, p,           # palette (or null), gamma_lut, thresholds
-            i32, i64,          # dither, row_offset
-            i32, i32, i32,     # out_mode, bits, tile_rows
-            p, i64,            # out, n_words
-            p,                 # stream
-        ]
-        lib.kmeans_assign.restype = i32
-        lib.kmeans_meld.argtypes = [
-            p, i64, i64, i32,  # rgb, n, frame_stride, frames
-            p, i32,            # centroids, kp
-            i32, p, i32,       # k_active, k_actives (or null), chunk
-            i32, i32, p, i32,  # metric, tier, gtab (or null), prune_m
-            p, i32,            # gamma_lut, tile_rows
-            p, i64,            # out, n_groups
-            p,                 # stream
-        ]
-        lib.kmeans_meld.restype = i32
-        lib.kmeans_lloyd_grid_blocks.argtypes = [i64]
-        lib.kmeans_lloyd_grid_blocks.restype = i32
-        lib.kmeans_lloyd_accumulate.argtypes = [
-            p, i32, i64, i64,  # planes, bf16, n_pix, n_valid
-            p, i32, i32, i32,  # centroids, kp, k_active, metric
-            i32, p, i32,       # tier, gtab (or null), prune_m
-            p, i32,            # weight (or null), stats
-            p, i32, p,         # partials, n_blocks, out
-            p,                 # stream
-        ]
-        lib.kmeans_lloyd_accumulate.restype = i32
-        lib.kmeans_error_string.argtypes = [i32]
-        lib.kmeans_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(src_dir, name)))
+            declare(lib)
+            _libs[name] = lib
+        return _libs[name]
+
+
+def load_library() -> ctypes.CDLL:
+    """The main library (`csrc/`), built if needed and loaded once."""
+    return load(CSRC, MAIN_NAME, _declare_main)
+
+
+def _declare_main(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.kmeans_assign.argtypes = [
+        p, i64, i64, i64,  # rgb, n, width, frame_stride
+        i32, p, i32,       # frames, centroids, kp
+        i32, p, i32,       # k_active, k_actives (or null), chunk
+        i32, i32, p, i32,  # metric, tier, gtab (or null), prune_m
+        p, p, p,           # palette (or null), gamma_lut, thresholds
+        i32, i64,          # dither, row_offset
+        i32, i32, i32,     # out_mode, bits, tile_rows
+        p, i64,            # out, n_words
+        p,                 # stream
+    ]
+    lib.kmeans_assign.restype = i32
+    lib.kmeans_meld.argtypes = [
+        p, i64, i64, i32,  # rgb, n, frame_stride, frames
+        p, i32,            # centroids, kp
+        i32, p, i32,       # k_active, k_actives (or null), chunk
+        i32, i32, p, i32,  # metric, tier, gtab (or null), prune_m
+        p, i32,            # gamma_lut, tile_rows
+        p, i64,            # out, n_groups
+        p,                 # stream
+    ]
+    lib.kmeans_meld.restype = i32
+    lib.kmeans_lloyd_grid_blocks.argtypes = [i64]
+    lib.kmeans_lloyd_grid_blocks.restype = i32
+    lib.kmeans_lloyd_accumulate.argtypes = [
+        p, i32, i64, i64,  # planes, bf16, n_pix, n_valid
+        p, i32, i32, i32,  # centroids, kp, k_active, metric
+        i32, p, i32,       # tier, gtab (or null), prune_m
+        p, i32,            # weight (or null), stats
+        p, i32, p,         # partials, n_blocks, out
+        p,                 # stream
+    ]
+    lib.kmeans_lloyd_accumulate.restype = i32
+    lib.kmeans_dither_threshold.argtypes = [
+        p, i32, i32,       # palettes, frames, kp
+        i32, p, i32,       # k_active, k_actives (or null), metric
+        p, p,              # out, stream
+    ]
+    lib.kmeans_dither_threshold.restype = i32
+    lib.kmeans_error_string.argtypes = [i32]
+    lib.kmeans_error_string.restype = ctypes.c_char_p

@@ -146,8 +146,9 @@ LAUNCHES_BY_MODE: collections.Counter = collections.Counter()
 
 
 def launches(wrapper: str) -> int:
-    """Kernel launches by `wrapper` ("assign_packed", "meld_packed" or
-    "lloyd_accumulate") since `LAUNCHES_BY_MODE` was last cleared."""
+    """Kernel launches by `wrapper` (a key's first field: "assign_packed",
+    "meld_packed", "lloyd_accumulate", "dither_threshold", ...) since
+    `LAUNCHES_BY_MODE` was last cleared."""
     return sum(n for key, n in LAUNCHES_BY_MODE.items() if key[0] == wrapper)
 
 
@@ -806,7 +807,9 @@ def assign_frames_packed(frames_u8, centroids_lab, thresholds, k_actives=None,
     floats, or `[B]` float32 on the frames' device. A CPU tensor runs the
     plain twin; a CUDA tensor launches the assign kernel's frames mode or
     raises. The reference's `FRAMES_MAX_BK` (a TPU scalar-memory limit) has
-    no counterpart: a block stages one frame's palette only."""
+    no counterpart: a block stages one frame's palette only, and past
+    65,535 frames (the grid's y limit) the launcher issues the frames in
+    groups, so any B takes one call."""
     if frames_u8.device.type == "cpu":
         return assign_frames_packed_reference(frames_u8, centroids_lab, thresholds,
                                               k_actives, mode, metric, fast)

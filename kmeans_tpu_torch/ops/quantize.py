@@ -17,7 +17,11 @@ Port of `kmeans_tpu/ops/quantize.py`. Distances are CIE94 or CIEDE2000
 - k == 1 short-circuits dither and meld to the single palette colour.
 
 These are the port's plain versions: `ops/kernels.py` holds the CUDA
-kernels that do the same per pixel in one pass.
+kernels that do the same per pixel in one pass. The dither threshold is
+the exception that lives here: `dither_threshold` / `dither_thresholds`
+run their plain twins (`*_reference`) on a CPU tensor and launch
+`csrc/dither_threshold.cu` on a CUDA tensor, one thread per palette, or
+raise.
 """
 
 from __future__ import annotations
@@ -68,13 +72,14 @@ def nearest_color(
     return palette[nearest_index(lab, palette, k_active, metric)]
 
 
-def dither_threshold(
+def dither_threshold_reference(
     palette: torch.Tensor, k_active=None, metric: str = "cie94"
 ) -> torch.Tensor:
     """Greedy approximate largest pairwise centroid distance / sqrt(k), as a
     0-dim float32 tensor on the palette's device
-    (kmeans_tpu/ops/quantize.py:112). Keeps the reference's asymmetric
-    orientation (the candidate centroid first) and its update order."""
+    (kmeans_tpu/ops/quantize.py:112): the plain twin of the kernel. Keeps
+    the reference's asymmetric orientation (the candidate centroid first)
+    and its update order."""
     dist, _ = metric_fns(metric)
     k = palette.shape[0]
     k_active = k if k_active is None else k_active
@@ -93,10 +98,10 @@ def dither_threshold(
     return dab / torch.sqrt(torch.full((), float(k_active), device=palette.device))
 
 
-def dither_thresholds(
+def dither_thresholds_reference(
     palettes: torch.Tensor, k_actives=None, metric: str = "cie94"
 ) -> torch.Tensor:
-    """`dither_threshold` of each of B palettes `[B, K, 3]` at once, with
+    """`dither_threshold_reference` of each of B palettes `[B, K, 3]` at once, with
     `k_actives` None or B ints: `[B]` float32 on the palettes' device. The
     same elementwise float32 operations in the same order per palette, one
     loop over the palette axis for all of them (the reference vmaps its
@@ -119,6 +124,62 @@ def dither_thresholds(
         a = torch.where(second[:, None], ci, a)
         dac = torch.where(first, da, torch.where(second, dc, dac))
     return dac / torch.sqrt(ka.to(torch.float32))
+
+
+def dither_threshold(
+    palette: torch.Tensor, k_active=None, metric: str = "cie94"
+) -> torch.Tensor:
+    """The dither threshold of one `[K, 3]` palette as a 0-dim float32
+    tensor on its device; see `dither_threshold_reference` for the
+    contract. A CPU tensor runs the twin; a CUDA tensor launches
+    `csrc/dither_threshold.cu` (the same bits) or raises."""
+    if palette.device.type == "cpu":
+        return dither_threshold_reference(palette, k_active, metric)
+    k = palette.shape[0]
+    return _launch_threshold(palette[None], [k if k_active is None else int(k_active)],
+                             metric).reshape(())
+
+
+def dither_thresholds(
+    palettes: torch.Tensor, k_actives=None, metric: str = "cie94"
+) -> torch.Tensor:
+    """The dither thresholds of B palettes `[B, K, 3]` as `[B]` float32;
+    see `dither_thresholds_reference` for the contract. A CPU tensor runs
+    the twin; a CUDA tensor launches the kernel once for all B (the same
+    bits) or raises."""
+    if palettes.device.type == "cpu":
+        return dither_thresholds_reference(palettes, k_actives, metric)
+    b, k = palettes.shape[0], palettes.shape[1]
+    return _launch_threshold(palettes, [k] * b if k_actives is None else
+                             [int(x) for x in k_actives], metric)
+
+
+def _launch_threshold(palettes: torch.Tensor, k_actives: list, metric: str) -> torch.Tensor:
+    """One launch of the threshold kernel over `[B, K, 3]` CUDA palettes."""
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops._build import load_library
+
+    metric_fns(metric)  # raises on an unknown metric
+    if palettes.device.type != "cuda":
+        raise ValueError(f"dither_threshold runs on cpu or cuda, not {palettes.device}")
+    if palettes.dim() != 3 or palettes.shape[2] != 3 or len(k_actives) != palettes.shape[0]:
+        raise ValueError(f"expected [B, K, 3] palettes and B k_actives, got "
+                         f"{tuple(palettes.shape)} and {len(k_actives)}")
+    lib = load_library()
+    device = palettes.device
+    pal = palettes.to(torch.float32).contiguous()
+    b, k = pal.shape[0], pal.shape[1]
+    out = torch.empty(b, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        k_active, k_dev = kernels._k_actives_operands(k_actives, device)
+        err = lib.kmeans_dither_threshold(
+            pal.data_ptr(), b, k, k_active, kernels._ptr(k_dev),
+            kernels.KERNEL_METRICS[metric], out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels._raise_on_error(lib, err, "dither_threshold")
+    kernels.LAUNCHES_BY_MODE["dither_threshold", metric, "exact"] += 1
+    return out
 
 
 def bayer_values(height: int, width: int, row_offset: int = 0, device=None):
@@ -153,7 +214,7 @@ def assign_index(
         return nearest_index(lab, palette, k_active, metric)
     if mode == "dither":
         h, w = lab.shape[0], lab.shape[1]
-        threshold = dither_threshold(palette, k_active, metric)
+        threshold = dither_threshold_reference(palette, k_active, metric)
         bayer = bayer_values(h, w, row_offset, lab.device)
         adjusted = lab + (threshold * bayer)[..., None]
         return nearest_index(adjusted, palette, k_active, metric)

@@ -187,16 +187,28 @@ def _imported_modules(path: Path):
 
 def test_port_and_chip_smoke_never_import_jax():
     """Static check (JAX may already be imported in this process): no
-    module of the port, and not chip_smoke.py, imports jax or kmeans_tpu."""
+    module of the port, and not chip_smoke.py, imports jax, kmeans_tpu or
+    the reference's experiment tools (`tools/`)."""
     files = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {"delta_e.py", "kernels.py", "quantize.py", "packing.py"} <= {f.name for f in files}
+    assert {"delta_e.py", "kernels.py", "quantize.py", "packing.py", "exp_mxu.py",
+            "exp_gather.py", "_exp.py"} <= {f.name for f in files}
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "kmeans_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "kmeans_tpu", "tools"), (path, name)
         text = path.read_text()
         assert "__import__" not in text and "import_module" not in text, path
+
+
+def test_port_never_touches_matmul_precision_flags():
+    """Static check: no module of the port reads or sets a process-wide
+    matmul-precision setting (a serving thread could race it); the
+    training product is pinned by its float64 form instead."""
+    names = ("allow_tf32", "fp32_precision", "float32_matmul_precision")
+    for path in sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")):
+        text = path.read_text()
+        assert not any(name in text for name in names), path
 
 
 def test_phases_cover_the_reduce_path(processors):

@@ -423,3 +423,181 @@ def test_batch_entry_points_on_card_match_cpu(cuda, mode):
             step = np.abs(a.pixels.astype(int) - b.pixels.astype(int)).max(-1)
             assert step.max() <= (1 if mode is ReduceMode.MELD else 255)
             assert (step > 0).sum() <= bar * 45 * 70
+
+
+# --- TF32 settings, frames past the grid limit, the threshold kernel, the
+# experiment kernels --------------------------------------------------------
+
+
+def _set_tf32(how):
+    """Turn TF32 matmuls on through one of torch's two APIs; return a
+    callable that restores the caller's setting exactly: the legacy flag
+    by the legacy API, then the new API's value (each API reads the other's
+    writes, and a mix makes some reads raise)."""
+    m = torch.backends.cuda.matmul
+    new_api = hasattr(m, "fp32_precision")
+    if how == "fp32_precision" and not new_api:
+        pytest.skip("this torch has no fp32_precision API")
+    saved_new = m.fp32_precision if new_api else None
+    saved_legacy = m.allow_tf32 if how == "allow_tf32" else None
+
+    def restore():
+        if how == "allow_tf32":
+            m.allow_tf32 = saved_legacy
+        if new_api:
+            m.fp32_precision = saved_new
+
+    if how == "allow_tf32":
+        m.allow_tf32 = True
+    else:
+        m.fp32_precision = "tf32"
+    return restore
+
+
+def _matmul_flags():
+    """Every matmul-precision read torch offers; a read that raises (mixed
+    APIs) is recorded as such."""
+    m = torch.backends.cuda.matmul
+    reads = {"precision": torch.get_float32_matmul_precision,
+             "allow_tf32": lambda: m.allow_tf32}
+    if hasattr(m, "fp32_precision"):
+        reads["fp32_precision"] = lambda: m.fp32_precision
+    flags = {}
+    for name, read in reads.items():
+        try:
+            flags[name] = read()
+        except RuntimeError:
+            flags[name] = "raises"
+    return flags
+
+
+def _gradient_frames(n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    out = []
+    for f in range(n):
+        rgb = np.stack([x * 255 // w, y * 255 // h, (x + y + 20 * f) * 255 // (h + w)], -1)
+        rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
+        out.append(np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["allow_tf32", "fp32_precision"])
+def test_training_under_tf32_equals_without(cuda, how, monkeypatch):
+    """The shrunk, batched and row-chunked trainers give the same outputs
+    with TF32 matmuls on as off, and the caller's flags read back
+    unchanged."""
+    from kmeans_tpu_torch import api
+
+    monkeypatch.setattr(api, "_CHUNKED_TRAIN_ELEMS", 1000)
+    frames = _gradient_frames(3, 45, 70, 21)
+    proc, full = ImageProcessor(), ImageProcessor(train_max_size=None)
+
+    def run():
+        return ([proc.reduce(8, frames[0]).pixels]
+                + [r.pixels for r in proc.reduce_images(frames, 8)]
+                + [full.palette(600, frames[1])])
+
+    before = _matmul_flags()
+    want = run()
+    restore = _set_tf32(how)
+    try:
+        assert _matmul_flags() != before
+        got = run()
+    finally:
+        restore()
+    assert _matmul_flags() == before
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["packed", "meld"])
+def test_frames_past_the_grid_limit(cuda, form):
+    """65,537 frames of 4x4 in one wrapper call: the words equal launches
+    over [0, 65535) and [65535, 65537) apart, and the twins on frames 0,
+    65534, 65535 and 65536."""
+    b, k = 65_537, 8
+    rng = np.random.default_rng(31)
+    frames = torch.from_numpy(rng.integers(0, 256, (b, 4, 4, 3), dtype=np.uint8)).to(cuda)
+    pal = torch.from_numpy(rng.integers(0, 256, (b, k, 3), dtype=np.uint8)).to(cuda)
+    cents = srgb8_to_lab(pal).contiguous()
+    k_actives = [1 + f % k for f in range(b)]
+    thr = dither_thresholds(cents, k_actives)
+
+    def run(sl):
+        if form == "meld":
+            return kernels.meld_frames_packed(frames[sl], cents[sl], k_actives[sl])
+        return kernels.assign_frames_packed(frames[sl], cents[sl], thr[sl], k_actives[sl],
+                                            mode="dither")
+
+    whole = run(slice(None))  # each frame pads to a 32,768-pixel tile: GBs of words
+    assert torch.equal(whole[:65_535], run(slice(0, 65_535)))
+    assert torch.equal(whole[65_535:], run(slice(65_535, None)))
+    for f in (0, 65_534, 65_535, 65_536):
+        if form == "meld":
+            want = kernels.meld_packed_reference(frames[f], cents[f], k_actives[f])
+        else:
+            want = kernels.assign_packed_reference(frames[f], cents[f], thr[f], k_actives[f],
+                                                   mode="dither")
+        assert torch.equal(whole[f], want.reshape(whole[f].shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 257])
+def test_dither_threshold_kernel_matches_twin(cuda, k, metric):
+    from kmeans_tpu_torch.ops.quantize import (
+        dither_threshold_reference,
+        dither_thresholds_reference,
+    )
+
+    _, cents = _case(1, 1, k, 900 + k, cuda)
+    before = kernels.launches("dither_threshold")
+    got = dither_threshold(cents, metric=metric)
+    assert kernels.launches("dither_threshold") == before + 1
+    assert got.view(torch.int32) == dither_threshold_reference(cents, metric=metric).view(
+        torch.int32)
+    palettes = torch.stack([_case(1, 1, k, 950 + f, cuda)[1] for f in range(3)])
+    k_actives = [k, max(1, k // 2), 1]
+    got = dither_thresholds(palettes, k_actives, metric)
+    want = dither_thresholds_reference(palettes, k_actives, metric)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,k", [(8, 16, 64), (40, 100, 256), (37, 53, 100)])
+def test_exp_mxu_kernels_match_twins(cuda, h, w, k):
+    """factor-vpu equals its twin and, at 16 < k <= 256, the fast u8
+    assign; factor-mxu flips against its TF32 twin only on near-ties."""
+    from kmeans_tpu_torch.tools import exp_mxu
+
+    rng = np.random.default_rng(40 + k)
+    img = torch.from_numpy(exp_mxu.random_image(h, w, rng)).to(cuda)
+    cents = torch.from_numpy(exp_mxu.random_centroids(k, rng)).to(cuda)
+    vpu = exp_mxu.factor_vpu(img, cents)
+    assert torch.equal(vpu, exp_mxu.factor_vpu_reference(img, cents))
+    assert torch.equal(vpu, kernels.assign_u8(img[..., :3].contiguous(), cents, 0.0, fast=True))
+    mxu = exp_mxu.factor_mxu(img, cents)
+    want = exp_mxu.factor_mxu_reference(img, cents, tf32=True)
+    flips, near = exp_mxu.near_ties(img, cents, mxu, want, tf32=True)
+    assert near and flips <= h * w // 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "constant", "global"])
+def test_exp_gather_kernels_match_twins(cuda, placement):
+    from kmeans_tpu_torch.tools import exp_gather
+
+    table = exp_gather.gamma_table(cuda)
+    idx = torch.from_numpy(exp_gather.gather_indices()).to(cuda)
+    want = torch.from_numpy(exp_gather.gamma_table_np()[exp_gather.gather_indices()]).to(cuda)
+    assert torch.equal(exp_gather.gather(table, idx, placement).view(torch.int32),
+                       want.view(torch.int32))
+    grid = torch.from_numpy(exp_gather.grid_indices(np.random.default_rng(5), 64)).to(cuda)
+    got = exp_gather.lut_sum(table, grid, placement)
+    assert torch.equal(got.view(torch.int32),
+                       exp_gather.lut_sum_reference(table, grid).view(torch.int32))
+    ulps = exp_gather.ulps(exp_gather.pow_sum(grid), exp_gather.pow_sum_reference(grid))
+    assert int(ulps.max()) <= 8

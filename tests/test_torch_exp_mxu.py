@@ -1,0 +1,152 @@
+"""The port of `tools/exp_mxu.py` against the reference on the CPU.
+
+- `factor_vpu_reference` (the twin of the CUDA-core kernel) against the
+  reference's own `_factor_vpu_kernel`, built by
+  `tools/exp_mxu.py::_build_kernels()` (the file is imported by path and
+  run with `interpret=True`): 0 differing indices.
+- `factor_mxu_reference(tf32=False)` against the reference's
+  `_factor_mxu_kernel` in interpret mode: flips counted, each a near-tie
+  (the twin's scores of the two picks within 2^-10 of the best's scale).
+- the vpu twin against the port's `assign_u8_reference(fast=True)`.
+- `tf32_round` against hand-computed bit patterns.
+The kernels themselves run only on a card: `tests/test_torch_cuda.py`.
+"""
+
+import importlib.util
+import json
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kmeans_tpu_torch.ops import kernels
+from kmeans_tpu_torch.tools import exp_mxu
+
+_REF_PATH = Path(__file__).resolve().parent.parent / "tools" / "exp_mxu.py"
+_REF_RUN = []
+
+
+def _reference_run():
+    """`tools/exp_mxu.py::_build_kernels()`, imported by path once."""
+    if not _REF_RUN:
+        spec = importlib.util.spec_from_file_location("reference_exp_mxu", _REF_PATH)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _REF_RUN.append(module._build_kernels())
+    return _REF_RUN[0]
+
+
+def _inputs(h, w, kp, seed):
+    rng = np.random.default_rng(seed)
+    return exp_mxu.random_image(h, w, rng), exp_mxu.random_centroids(kp, rng)
+
+
+def _reference(name, rgba, cents):
+    tile_rows = 128 if name == "factor-vpu" else 32
+    return np.array(_reference_run()(name, jnp.asarray(rgba), jnp.asarray(cents), tile_rows,
+                                     interpret=True))
+
+
+CASES = [(8, 16, 64), (8, 16, 256), (40, 100, 64), (40, 100, 256)]
+
+
+@pytest.mark.parametrize("h,w,kp", CASES)
+def test_vpu_twin_matches_reference_kernel(h, w, kp):
+    rgba, cents = _inputs(h, w, kp, seed=h + kp)
+    want = _reference("factor-vpu", rgba, cents)
+    got = exp_mxu.factor_vpu_reference(torch.from_numpy(rgba), torch.from_numpy(cents))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (h, w)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h,w,kp", CASES)
+def test_mxu_twin_matches_reference_kernel(h, w, kp):
+    """The reference's product sums in XLA's order, the twin left to
+    right: only near-ties may flip."""
+    rgba, cents = _inputs(h, w, kp, seed=h + kp)
+    want = _reference("factor-mxu", rgba, cents)
+    img, c = torch.from_numpy(rgba), torch.from_numpy(cents)
+    got = exp_mxu.factor_mxu_reference(img, c, tf32=False)
+    flips, near = exp_mxu.near_ties(img, c, torch.from_numpy(want), got, tf32=False)
+    assert near, f"{flips} flips, not all near-ties"
+    assert flips <= h * w // 1000
+
+
+@pytest.mark.parametrize("h,w", [(8, 16), (40, 100)])
+def test_vpu_twin_equals_fast_assign(h, w):
+    rgba, cents = _inputs(h, w, 64, seed=7)
+    img, c = torch.from_numpy(rgba), torch.from_numpy(cents)
+    want = kernels.assign_u8_reference(img[..., :3].contiguous(), c, 0.0, fast=True)
+    assert torch.equal(exp_mxu.factor_vpu_reference(img, c), want)
+    # The CPU wrappers run the twins: factor-mxu's with TF32 rounding.
+    assert torch.equal(exp_mxu.factor_vpu(img, c), want)
+    assert torch.equal(exp_mxu.factor_mxu(img, c), exp_mxu.factor_mxu_reference(img, c, True))
+
+
+def test_mxu_twin_in_float32_is_the_vpu_order():
+    """With float32 operands the product sums the seven terms in the
+    score's own order (plus 0 * 0), and the chunk merge keeps the first
+    minimum: the vpu twin's indices at every pixel."""
+    rgba, cents = _inputs(37, 53, 100, seed=9)
+    img, c = torch.from_numpy(rgba), torch.from_numpy(cents)
+    assert torch.equal(exp_mxu.factor_mxu_reference(img, c, tf32=False),
+                       exp_mxu.factor_vpu_reference(img, c))
+
+
+def _bits(values):
+    return torch.tensor(values, dtype=torch.int64).to(torch.int32).view(torch.float32)
+
+
+@pytest.mark.parametrize("x,want", [
+    (0x3F800000, 0x3F800000),  # 1.0 is exact
+    (0x3F800FFF, 0x3F800000),  # below half of the dropped bits: down
+    (0x3F801000, 0x3F802000),  # a tie: away from zero (even would go down)
+    (0x3F803000, 0x3F804000),  # a tie from an odd last kept bit: away
+    (0xBF801000, 0xBF802000),  # a negative tie: away from zero
+    (0x3FFFF000, 0x40000000),  # the carry moves into the exponent
+    (0x00000000, 0x00000000),  # +0
+    (0x80000000, 0x80000000),  # -0 keeps its sign
+    (0x7F7FF000, 0x7F800000),  # past the largest TF32: infinity
+    (0xFF800000, 0xFF800000),  # -inf passes
+    (0x7FC00001, 0x7FC00001),  # NaN passes, payload and all
+])
+def test_tf32_round_bits(x, want):
+    got = exp_mxu.tf32_round(_bits([x])).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    assert int(got[0]) == want
+
+
+def test_near_ties_counts_only_flips():
+    rgba, cents = _inputs(8, 16, 64, seed=3)
+    img, c = torch.from_numpy(rgba), torch.from_numpy(cents)
+    idx = exp_mxu.factor_mxu_reference(img, c, tf32=True)
+    assert exp_mxu.near_ties(img, c, idx, idx, tf32=True) == (0, True)
+    scores = exp_mxu.factor_scores(img, c, tf32=True)
+    worst = torch.argmax(scores, dim=1).to(torch.uint8).reshape(8, 16)
+    flips, near = exp_mxu.near_ties(img, c, worst, idx, tf32=True)
+    assert flips == 128 and not near
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    rgba, cents = _inputs(4, 4, 8, seed=1)
+    img, c = torch.from_numpy(rgba), torch.from_numpy(cents)
+    with pytest.raises(ValueError, match="RGBA"):
+        exp_mxu.factor_vpu(img[..., :3], c)
+    with pytest.raises(ValueError, match="k must be"):
+        exp_mxu.factor_mxu(img, torch.zeros((257, 3)))
+
+
+def test_tool_smoke_on_cpu(capsys):
+    assert exp_mxu.main(["--smoke", "--cpu"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    by_name = {line["variant"]: line for line in lines[-1]["all"]}
+    assert set(by_name) == {"rolled-fast", "factor-vpu", "factor-mxu"}
+    assert by_name["factor-vpu"]["mismatch_frac_vs_exact"] < exp_mxu.MISMATCH_BAR
+    assert all(line["ms"] == "not measured" for line in by_name.values())
+
+
+def test_tool_refuses_to_time_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--cpu"):
+        exp_mxu.main([])
