@@ -9,7 +9,13 @@ then:
 
 1. device: prints the card (`nvidia-smi` name and power limit), torch and
    CUDA versions;
-2. build: compiles both libraries and prints the seconds it took;
+2. build: compiles both libraries and prints the seconds it took; beside
+   them compiles the assign and accumulator sources with `-Xptxas -v` and
+   prints a `ptxas` line for each kernel instance (registers, stack and
+   spill bytes: a spill in an exact assign or an accumulator instance
+   fails) and a `sass` line for
+   each exact instance's centroid loop in the built library (its
+   instructions, per pixel-centroid pair, by opcode);
 3. kernel vs plain: holds `assign_packed` (the CUDA kernel) against
    `assign_packed_reference` (plain PyTorch) on the same CUDA tensors,
    over palette sizes, both modes, ragged shapes, `k_active < kp`,
@@ -24,7 +30,11 @@ then:
    pixel counts, `k_active < kp`, a weight plane, the inertia column,
    bfloat16 planes and one 3840x2160 image: counts equal, the other
    columns within `1e-5 * (|plain| + 128 * count)`, and two launches give
-   equal totals;
+   equal totals. Then `exact_tile_vs_plain`: the register-tiled exact
+   kernels (every assign output mode, and the accumulator) on adversarial
+   palettes (duplicate centroids, grey pixels, centroids equal to pixels,
+   a centroid at +-inf, a chroma of 1e-25, `k_active < kp`) at k = 1..512,
+   both metrics: equal words, equal counts;
 4. the slice: drives `ImageProcessor(device="cuda")` through `reduce`
    (replace and dither), `palette` and `find` on a seeded synthetic
    3840x2160 image, checks the outputs, checks that each reduce equals
@@ -1907,6 +1917,140 @@ def update_cost(image, device, card) -> None:
               **{f"{form}_ms_iterations": r for form, r in runs.items()}})
 
 
+# The exact tiers' register tiles, pixels a thread scans together
+# (`exact_tile_pixels` in csrc/quantize_assign.cu, `kTilePixels` in
+# csrc/lloyd_accumulate.cu; CIEDE2000 one at a time), to turn a centroid
+# loop's length into instructions a pixel-centroid pair.
+TILE_PIXELS = {"assign_exact_kernel<0": 2, "assign_exact_kernel<1": 1, "lloyd_tile_kernel<0,0": 8,
+               "lloyd_tile_kernel<1,0": 1}
+ADVERSARIAL = ("duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_active")
+
+
+# The design each kernel line runs. The exact tiers of the assign kernel
+# (every output mode) and of the accumulator scan a register tile of
+# pixels against 16-byte centroid loads, CIE94 dividing through hoisted
+# reciprocals (CIEDE2000 one pixel at a time); the accumulator's tiers
+# all sum by warp groups. The other kernels keep one thread a word.
+TILED = {"assign_packed", "quantize_rgba", "quantize_rgba[chunked]", "assign_u8",
+         "assign_frames_packed", "quantize_frames"}
+
+
+def design_of(name: str) -> str:
+    if name in TILED:
+        return "register tile, hoisted reciprocals"
+    if name == "assign_packed[cie2000]":
+        return "one pixel a thread, 16-byte centroid loads"
+    if name == "lloyd_accumulate":
+        return "register tile, hoisted reciprocals, warp-group sums"
+    if name.startswith("lloyd_accumulate"):
+        return "one pixel at a time, warp-group sums"
+    if name.startswith("exp_"):
+        return "experiment tool"
+    if name == "dither_threshold":
+        return "one thread a palette"
+    return "one thread a word"
+
+
+def compiler_report(lib_path, ptxas) -> None:
+    """`ptxas` lines (registers, stack and spill bytes of every instance of
+    the assign and accumulator kernels, from `-Xptxas -v`) and `sass`
+    lines (the exact instances' centroid loops in the built library: its
+    instructions, per pixel-centroid pair, and by opcode). Fails on a
+    spill in an exact assign instance or any accumulator instance (the
+    kernels this design changed)."""
+    from kmeans_tpu_torch.tools import sass
+
+    spills = []
+    for source, rows in ptxas.items():
+        for row in rows:
+            emit({"phase": "ptxas", "source": source, **row})
+            if "exact" in row["kernel"] or row["kernel"].startswith("lloyd_tile_kernel<"):
+                if row["spill_store_bytes"] or row["spill_load_bytes"]:
+                    spills.append(row)
+    for name, loop in sass.centroid_loops(lib_path).items():
+        p = next((v for k, v in TILE_PIXELS.items() if name.startswith(k)), None)
+        if loop is None or p is None:
+            continue
+        emit({"phase": "sass", "kernel": name, "loop_start": loop["start"],
+              "instructions": loop["instructions"], "pixels_per_thread": p,
+              "instructions_per_pair": loop["instructions"] / p, "opcodes": loop["opcodes"]})
+    if spills:
+        raise AssertionError(f"spills: {spills}")
+
+
+def adversarial_case(case, k, seed, device, h=37, w=53):
+    """(rgb, centroids, k_active) of one adversarial palette for the exact
+    tiles (as `tests/test_torch_cuda.py::_adversarial`)."""
+    import torch
+
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if case in ("grey", "tiny"):
+        rgb[..., 1] = rgb[..., 2] = rgb[..., 0]
+    pal = rng.integers(0, 256, (k, 3), dtype=np.uint8)
+    if case == "pixel_is_centroid":
+        pal = rgb.reshape(-1, 3)[rng.choice(h * w, k, replace=False)]
+    cents = srgb8_to_lab(torch.from_numpy(pal).to(device)).contiguous()
+    if case == "duplicates" and k > 1:
+        cents[k // 2:] = cents[: k - k // 2].clone()
+    if case == "inf":
+        cents[k // 2] = torch.tensor([np.inf, -np.inf, np.inf], device=device)
+    if case == "tiny":
+        cents[0] = torch.tensor([50.0, 1e-25, 0.0], device=device)
+    return torch.from_numpy(rgb).to(device), cents, max(1, k - k // 3) if case == "k_active" else k
+
+
+def exact_tile_checks(device) -> None:
+    """`exact_tile_vs_plain`: the register-tiled exact kernels on
+    adversarial palettes (duplicate centroids, grey pixels, centroids equal
+    to pixels, a centroid at +-inf, a chroma of 1e-25 on grey pixels,
+    `k_active < kp`) at k = 1, 8, 64, 512, both metrics: packed replace and
+    dither, RGBA and u8 words equal to the twins'; the accumulator's counts
+    equal and sums within 1e-5 of scale."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.ops.quantize import dither_threshold
+
+    failures = []
+    for metric in ("cie94", "cie2000"):
+        for k in (1, 8, 64, 512):
+            for case in ADVERSARIAL:
+                rgb, cents, k_active = adversarial_case(case, k, 4000 + k, device)
+                finite = cents[torch.isfinite(cents).all(-1)]
+                thr = dither_threshold(finite, metric=metric) if len(finite) else 0.0
+                words = 0
+                for mode in ("replace", "dither"):
+                    args = (rgb, cents, thr, k_active, mode, 1, metric)
+                    pairs = [(kernels.assign_packed, kernels.assign_packed_reference),
+                             (kernels.quantize_rgba, kernels.quantize_rgba_reference)]
+                    if k <= 256:
+                        pairs.append((kernels.assign_u8, kernels.assign_u8_reference))
+                    for call, twin in pairs:
+                        words += int((call(*args) != twin(*args)).sum().item())
+                planes, n = kernels.pack_lab_planes(srgb8_to_lab(rgb.reshape(-1, 3)))
+                acc = (planes, cents, n, k_active, None, metric, True)
+                got, want = kernels.lloyd_accumulate(*acc), kernels.lloyd_accumulate_reference(*acc)
+                torch.cuda.synchronize()
+                # A centroid at +-inf takes no pixel but, with none nearer,
+                # every pixel's kBig inertia: its row is held to counts only.
+                rows = torch.isfinite(cents).all(-1) | (want[:, 3] == 0)
+                bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+                sums_ok = bool(((got.double() - want.double()).abs() <= bound)[rows].all())
+                line = {"phase": "exact_tile_vs_plain", "metric": metric, "k": k, "case": case,
+                        "mismatched_words": words,
+                        "counts_equal": bool(torch.equal(got[:, 3], want[:, 3])),
+                        "sums_within_bar": sums_ok}
+                emit(line)
+                if words or not line["counts_equal"] or not sums_ok:
+                    failures.append(f"exact_tile_vs_plain: {line}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -1920,7 +2064,7 @@ def main() -> int:
     from kmeans_tpu_torch.ops import _build, kernels
     from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
     from kmeans_tpu_torch.ops.quantize import dither_threshold
-    from kmeans_tpu_torch.tools import _exp
+    from kmeans_tpu_torch.tools import _exp, sass
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -1934,17 +2078,22 @@ def main() -> int:
 
     # 2. Build: the main library and the experiment tools' library, each
     # source in its own nvcc process, all started together.
+    # Beside them, the assign and accumulator sources with `-Xptxas -v`.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(4) as pool:
         main_lib = pool.submit(_build.build)
         exp_lib = pool.submit(_exp.build_exp_library)
+        reports = {src: pool.submit(sass.ptxas_report, _build.CSRC / src)
+                   for src in ("quantize_assign.cu", "lloyd_accumulate.cu")}
         lib_path, exp_path = main_lib.result(), exp_lib.result()
+        ptxas = {src: report.result() for src, report in reports.items()}
     _build.load_library()
     _exp.load_exp_library()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
         "library": lib_path.name, "exp_library": exp_path.name,
     })
+    compiler_report(lib_path, ptxas)
 
     # 3. Kernel vs plain on the card: under CIE94 the words must be equal,
     # under CIEDE2000 every flip a near-tie.
@@ -2030,6 +2179,7 @@ def main() -> int:
             failures.append(f"lloyd_kernel_vs_plain k={k} {opts}: {line}")
     if failures:
         raise AssertionError("; ".join(failures))
+    exact_tile_checks(device)
 
     # 4. The slice, through the entry points a user calls.
     proc = ImageProcessor(device="cuda")
@@ -2420,7 +2570,7 @@ def main() -> int:
 
     counts_2000, counts_full_2000 = meld_slice["counts_2000"], meld_slice["counts_full_2000"]
     assign_times = (*timings["replace"], assign_bound_ms, assign_bound_by)
-    emit({"kernels": [
+    kernel_lines = [
         entry("assign_packed", "quantize_assign.cu", 669, launches, max_abs_err["cie94"],
               assign_times),
         entry("assign_packed[cie2000]", "quantize_assign.cu", 860,
@@ -2531,7 +2681,10 @@ def main() -> int:
         exp_entry("exp_pow_table", "exp_gather.cu", "tools/exp_gather.py:47 (numpy, no kernel)",
                   gather["counts"]["exp_pow_table - powf"], gather["pow_table_ulps"],
                   gather["timing"]["pow_table"], "kmeans_tpu_torch.tools.exp_gather"),
-    ]})
+    ]
+    for line in kernel_lines:
+        line["design"] = design_of(line["name"])
+    emit({"kernels": kernel_lines})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,16 @@
 // reference's `kmeans_tpu/ops/kernels.py::_lab_from_linear_planes` and
 // `_lab_to_srgb_planes`), written with the _rn intrinsics so that none is
 // fused into an FMA. `powf` is the CUDA math library's, the function
-// PyTorch's CUDA `pow` calls for a float exponent.
+// PyTorch's CUDA `pow` calls for a float exponent. The divides by the white
+// point go through its reciprocals (recip.cuh), the IEEE quotient in the
+// range their dividends take.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "recip.cuh"
 
 // The reference's constants are Python floats (doubles) rounded to
 // float32, so they are written as double literals cast to float here.
@@ -21,31 +25,43 @@
 
 namespace kmeans {
 
+// The white point's reciprocals, RN(1 / F32(wp)) (checked by
+// `tests/test_torch_divide.py`).
+constexpr float kRcpWpX = 0x1.58bfb6p-7f;  // 1 / 95.0489
+constexpr float kRcpWpY = 0x1.47ae14p-7f;  // 1 / 100.0
+constexpr float kRcpWpZ = 0x1.2cf1b2p-7f;  // 1 / 108.8840
+
+// The cube root is taken whatever the branch and then selected, so that a
+// pixel's three channels, and the pixels a thread holds, carry no branch
+// between them; the bits are those of the branch.
 __device__ __forceinline__ float lab_f(float t) {
-  if (t > F32(0.008856)) {
-    return powf(fmaxf(t, 0.0f), F32(1.0 / 3.0));
-  }
-  return __fadd_rn(__fmul_rn(F32(7.787), t), F32(16.0 / 116.0));
+  const float root = powf(fmaxf(t, 0.0f), F32(1.0 / 3.0));
+  const float lin = __fadd_rn(__fmul_rn(F32(7.787), t), F32(16.0 / 116.0));
+  return t > F32(0.008856) ? root : lin;
 }
 
-// (row0 * r + row1 * g + row2 * b) / wp, summed left to right.
+// (row0 * r + row1 * g + row2 * b) / wp, summed left to right, divided
+// through the white point's reciprocal `rwp` (recip.cuh::div_by_recip):
+// the gamma table's entries are 0 or at least 0.03 and the rows'
+// coefficients positive and at least 0.019, so s is 0 or in
+// [5.8e-4, 96], where that quotient is the IEEE one.
 __device__ __forceinline__ float xyz_over_wp(float m0, float m1, float m2,
                                              float r, float g, float b,
-                                             float wp) {
+                                             float wp, float rwp) {
   float s = __fadd_rn(__fmul_rn(m0, r), __fmul_rn(m1, g));
   s = __fadd_rn(s, __fmul_rn(m2, b));
-  return __fdiv_rn(s, wp);
+  return div_by_recip(s, wp, rwp);
 }
 
 // Lab of one pixel from its linear R, G, B (x100, from the gamma table).
 __device__ __forceinline__ void linear_to_lab(float lr, float lg, float lb,
                                               float* l, float* a, float* b) {
-  const float fx = lab_f(xyz_over_wp(F32(0.4124564), F32(0.3575761),
-                                     F32(0.1804375), lr, lg, lb, F32(95.0489)));
-  const float fy = lab_f(xyz_over_wp(F32(0.2126729), F32(0.7151522),
-                                     F32(0.0721750), lr, lg, lb, F32(100.0)));
-  const float fz = lab_f(xyz_over_wp(F32(0.0193339), F32(0.1191920),
-                                     F32(0.9503041), lr, lg, lb, F32(108.8840)));
+  const float fx = lab_f(xyz_over_wp(F32(0.4124564), F32(0.3575761), F32(0.1804375), lr, lg,
+                                     lb, F32(95.0489), kRcpWpX));
+  const float fy = lab_f(xyz_over_wp(F32(0.2126729), F32(0.7151522), F32(0.0721750), lr, lg,
+                                     lb, F32(100.0), kRcpWpY));
+  const float fz = lab_f(xyz_over_wp(F32(0.0193339), F32(0.1191920), F32(0.9503041), lr, lg,
+                                     lb, F32(108.8840), kRcpWpZ));
   *l = __fsub_rn(__fmul_rn(116.0f, fy), 16.0f);
   *a = __fmul_rn(500.0f, __fsub_rn(fx, fy));
   *b = __fmul_rn(200.0f, __fsub_rn(fy, fz));
@@ -57,12 +73,11 @@ __device__ __forceinline__ void pixel_lab(const uint8_t* __restrict__ rgb,
                                           int64_t n, int64_t p,
                                           const float* lut, float* l,
                                           float* a, float* b) {
-  float lr = lut[0], lg = lut[0], lb = lut[0];
-  if (p < n) {
-    lr = lut[rgb[3 * p + 0]];
-    lg = lut[rgb[3 * p + 1]];
-    lb = lut[rgb[3 * p + 2]];
-  }
+  const bool pad = p >= n;
+  const int64_t q = pad ? 0 : p;  // a valid address either way: the loads need no branch
+  const float lr = lut[pad ? 0 : rgb[3 * q + 0]];
+  const float lg = lut[pad ? 0 : rgb[3 * q + 1]];
+  const float lb = lut[pad ? 0 : rgb[3 * q + 2]];
   linear_to_lab(lr, lg, lb, l, a, b);
 }
 

@@ -24,6 +24,8 @@
 
 #include <cuda_runtime.h>
 
+#include "recip.cuh"
+
 #ifndef F32
 #define F32(x) static_cast<float>(x)
 #endif
@@ -69,6 +71,57 @@ __device__ __forceinline__ float cie94_sq(float l1, float a1, float b1, float c1
   const float t = __fdiv_rn(dcab, sc);
   return __fadd_rn(__fadd_rn(__fmul_rn(dl, dl), __fmul_rn(t, t)),
                    __fdiv_rn(dhab_sq, sh2));
+}
+
+// One pixel's side of CIE94 with the reciprocals of its weights hoisted,
+// so that `cie94_sq_recip` spends three FMA-unit operations on a divide
+// instead of an IEEE division subroutine. `ok` says whether the pixel is
+// in the range where the tiled loop's quotients need only the small-
+// dividend check: S_C and S_H^2 in [1, 2^32] (so c1 < 2^23) and
+// |a|, |b| <= 2^30. With a centroid of |a|, |b| <= 2^30 (`cie94_centroid_ok`)
+// that bounds every dividend: |dcab| < 2^31 and dhab_sq <= 2^63.
+struct Cie94Pixel {
+  float l, a, b, c1, sc, rsc, sh2, rsh2;
+  bool ok;
+};
+
+__device__ __forceinline__ Cie94Pixel cie94_pixel(float l, float a, float b, float c1) {
+  Cie94Pixel p;
+  p.l = l;
+  p.a = a;
+  p.b = b;
+  p.c1 = c1;
+  cie94_weights(c1, &p.sc, &p.sh2);
+  p.rsc = __frcp_rn(p.sc);
+  p.rsh2 = __frcp_rn(p.sh2);
+  p.ok = p.sc >= 1.0f && p.sc <= 0x1p32f && p.sh2 >= 1.0f && p.sh2 <= 0x1p32f &&
+         fabsf(a) <= 0x1p30f && fabsf(b) <= 0x1p30f;
+  return p;
+}
+
+// The centroid's side of the same range (NaN is out of it).
+__device__ __forceinline__ bool cie94_centroid_ok(float a, float b) {
+  return fabsf(a) <= 0x1p30f && fabsf(b) <= 0x1p30f;
+}
+
+// `cie94_sq` to a centroid (L, a, b, chroma) in the same order, each divide
+// by `div_by_recip`. `*tiny` keeps the least bits(|x|) - 1 over the
+// dividends: the result equals `cie94_sq`'s bits whenever the pixel and the
+// centroid are in range and `*tiny` stays at or above `kTinyDividend`
+// (dhab_sq >= +0, so its bits need no mask).
+__device__ __forceinline__ float cie94_sq_recip(const Cie94Pixel& p, float4 c,
+                                                unsigned* tiny) {
+  const float dl = __fsub_rn(p.l, c.x);
+  const float da = __fsub_rn(p.a, c.y);
+  const float db = __fsub_rn(p.b, c.z);
+  const float dcab = __fsub_rn(p.c1, c.w);
+  const float hsq = __fsub_rn(__fadd_rn(__fmul_rn(da, da), __fmul_rn(db, db)),
+                              __fmul_rn(dcab, dcab));
+  const float dhab_sq = fmaxf(hsq, 0.0f);
+  *tiny = min(*tiny, min(__float_as_uint(fabsf(dcab)) - 1u, __float_as_uint(dhab_sq) - 1u));
+  const float t = div_by_recip(dcab, p.sc, p.rsc);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dl, dl), __fmul_rn(t, t)),
+                   div_by_recip(dhab_sq, p.sh2, p.rsh2));
 }
 
 __device__ __forceinline__ float pow7(float x) {
@@ -145,7 +198,9 @@ __device__ __forceinline__ float cie2000_sq(float l1, float a1, float b1,
   const float s = __fadd_rn(
       __fadd_rn(__fadd_rn(__fmul_rn(tl, tl), __fmul_rn(tc, tc)), __fmul_rn(th, th)),
       __fmul_rn(__fmul_rn(r_t, tc), th));
-  return fmaxf(s, 0.0f);
+  // max(s, 0) that keeps a NaN, as `torch.clamp` and `jnp.maximum` do
+  // (fmaxf would make it 0, the nearest distance there is).
+  return s < 0.0f ? 0.0f : s;
 }
 
 // Squared distance from a pixel to one centroid under `Metric`, with the

@@ -232,6 +232,94 @@ __device__ __forceinline__ void nearest_centroid(float l, float a, float b,
   *best_d_out = best.d;
 }
 
+// Under exact CIE94, a pixel of a tile whose quotients `div_by_recip` might
+// not give exactly is scanned again here, by `cie94_sq` and its IEEE
+// divides: the loop the kernels ran before the tiled form. It is rare (a
+// centroid or pixel out of `Cie94Pixel`'s range, or a dividend below
+// 2^-64 and not zero), so it is kept out of line.
+static __device__ __noinline__ void rescan_cie94(Cie94Pixel p, const float4* cent, int count,
+                                                 int base, float* best_d, int* best_k) {
+  for (int k = 0; k < count; ++k) {
+    const float4 c = cent[k];
+    const float d = cie94_sq(p.l, p.a, p.b, p.c1, p.sc, p.sh2, c.x, c.y, c.z, c.w);
+    if (d < *best_d) {
+      *best_d = d;
+      *best_k = base + k;
+    }
+  }
+}
+
+// The exact tiers' register tile: P pixels of one thread against `count`
+// staged centroids `cent` [count] (L, a, b, chroma), numbered from `base`.
+// The centroid loop is outermost: one 16-byte shared load a centroid
+// serves all P pixels, whose P independent distances hide each other's
+// latency. Each pixel still visits the centroids in index order with
+// strict `<`, so the first minimum wins and `best_k` is the one loop's.
+// `best_d` / `best_k` carry in and out (a chunked palette calls this once
+// a chunk). Under CIE94 the divides take the pixel's hoisted reciprocals;
+// `cents_ok` says whether every staged centroid is in range
+// (`cie94_centroid_ok`). A pixel out of range, or every pixel of the tile
+// when the centroids are not or a dividend fell below 2^-64, is rescanned
+// from its state at entry by `rescan_cie94`.
+template <int Metric, int P>
+__device__ __forceinline__ void scan_exact_tile(const Cie94Pixel (&px)[P], float (&best_d)[P],
+                                                int (&best_k)[P],
+                                                const float4* __restrict__ cent, int count,
+                                                int base, bool cents_ok) {
+  float d0[P];
+  int k0[P];
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    d0[s] = best_d[s];
+    k0[s] = best_k[s];
+  }
+  unsigned tiny = ~0u;
+#pragma unroll 1
+  for (int k = 0; k < count; ++k) {
+    const float4 c = cent[k];
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      float d;
+      if constexpr (Metric == kMetricCie2000) {
+        d = cie2000_sq(px[s].l, px[s].a, px[s].b, px[s].c1, c.x, c.y, c.z, c.w);
+      } else {
+        d = cie94_sq_recip(px[s], c, &tiny);
+      }
+      if (d < best_d[s]) {
+        best_d[s] = d;
+        best_k[s] = base + k;
+      }
+    }
+  }
+  if constexpr (Metric == kMetricCie94) {
+    const bool all = !cents_ok || tiny < kTinyDividend;
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      if (all || !px[s].ok) {
+        best_d[s] = d0[s];
+        best_k[s] = k0[s];
+        rescan_cie94(px[s], cent, count, base, &best_d[s], &best_k[s]);
+      }
+    }
+  }
+}
+
+// Copies centroids [start, start + len) of `centroids` [kp * 3] into
+// shared memory as (L, a, b, chroma), the exact tiers' table, and returns
+// whether the ones this thread copied are in `cie94_centroid_ok`'s range.
+__device__ __forceinline__ bool stage_cent4(const float* __restrict__ centroids, int start,
+                                            int len, float4* cent4) {
+  bool ok = true;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const int k = start + i;
+    const float ca = centroids[3 * k + 1];
+    const float cb = centroids[3 * k + 2];
+    cent4[i] = make_float4(centroids[3 * k + 0], ca, cb, kmeans::chroma(ca, cb));
+    ok = ok && cie94_centroid_ok(ca, cb);
+  }
+  return ok;
+}
+
 // Copies the `[kp, 7]` table into shared memory (no-op for a null table).
 __device__ __forceinline__ void stage_g_table(const float* __restrict__ gtab_in,
                                               float* gtab, int kp) {

@@ -6,7 +6,9 @@ imports `kmeans_tpu_torch` from CHECKOUT (default: this file's checkout),
 builds its kernels into CHECKOUT/build, and prints one JSON line: the
 card's name and power limit, and the mean milliseconds of the exact CIE94
 `assign_packed` (k = 8, 64), `meld_packed` (k = 8, 1025) and
-`lloyd_accumulate` (k = 8, 64, 256) on a
+`lloyd_accumulate` (k = 8, 64, 256, 512), the exact CIEDE2000
+`assign_packed` and `lloyd_accumulate` (k = 8) and the colour-out
+`quantize_rgba` (k = 2048) on a
 seeded random 3840x2160 image, by CUDA events, each launch after a
 256 MB write that evicts the L2 cache. With `--fast` it also times the
 fast tiers at k = 64 and 256: the factorized CIE94 and the pruned
@@ -77,9 +79,16 @@ def main() -> int:
     for k in (8, 1025):
         cents = palette(k)
         out[f"meld_k{k}_ms"] = ms(lambda: kernels.meld_packed(rgb, cents), 20 if k == 8 else 3)
-    for k in (8, 64, 256):
+    for k in (8, 64, 256, 512):
         cents = palette(k)
         out[f"lloyd_k{k}_ms"] = ms(lambda: kernels.lloyd_accumulate(planes, cents, n_valid), 10)
+    cents = palette(8)
+    out["assign_cie2000_k8_ms"] = ms(
+        lambda: kernels.assign_packed(rgb, cents, 0.0, metric="cie2000"), 10)
+    out["lloyd_cie2000_k8_ms"] = ms(
+        lambda: kernels.lloyd_accumulate(planes, cents, n_valid, metric="cie2000"), 10)
+    cents = palette(2048)
+    out["rgba_k2048_ms"] = ms(lambda: kernels.quantize_rgba(rgb, cents, 0.0), 3)
     if args.fast:
         for k in (64, 256):
             cents = palette(k)

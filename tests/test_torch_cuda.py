@@ -601,3 +601,128 @@ def test_exp_gather_kernels_match_twins(cuda, placement):
                        exp_gather.lut_sum_reference(table, grid).view(torch.int32))
     ulps = exp_gather.ulps(exp_gather.pow_sum(grid), exp_gather.pow_sum_reference(grid))
     assert int(ulps.max()) <= 8
+
+
+ADVERSARIAL = ["random", "duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_active"]
+
+
+def _adversarial(case, k, seed, device, h=37, w=53):
+    """(rgb [h, w, 3] u8, centroids [k, 3] Lab, k_active) for the exact
+    kernels' tiled loops: duplicate centroids (exact ties: the lowest index
+    wins), grey pixels (chroma 0), centroids equal to pixels (zero
+    dividends), a centroid at +-inf, one of chroma 1e-25 on grey pixels
+    (dividends below 2^-64: the rescan), or `k_active < kp`."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if case in ("grey", "tiny"):
+        rgb[..., 1] = rgb[..., 2] = rgb[..., 0]
+    pal = rng.integers(0, 256, (k, 3), dtype=np.uint8)
+    if case == "pixel_is_centroid":
+        pal = rgb.reshape(-1, 3)[rng.choice(h * w, k, replace=False)]
+    rgb = torch.from_numpy(rgb).to(device)
+    cents = srgb8_to_lab(torch.from_numpy(pal).to(device)).contiguous()
+    if case == "duplicates" and k > 1:
+        cents[k // 2:] = cents[: k - k // 2].clone()
+    if case == "inf":
+        cents[k // 2] = torch.tensor([np.inf, -np.inf, np.inf], device=device)
+    if case == "tiny":
+        cents[0] = torch.tensor([50.0, 1e-25, 0.0], device=device)
+    k_active = max(1, k - k // 3) if case == "k_active" else k
+    return rgb, cents, k_active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("case", ADVERSARIAL)
+@pytest.mark.parametrize("k", [1, 2, 8, 17, 64, 256, 512])
+def test_exact_assign_adversarial_palettes(cuda, k, case, metric):
+    """The exact assign kernel's tiled loop in every output mode (packed
+    replace and dither, RGBA, u8) equals its twin word for word on
+    adversarial palettes and odd image sizes."""
+    rgb, cents, k_active = _adversarial(case, k, 3000 + k, cuda)
+    finite = cents[torch.isfinite(cents).all(-1)]
+    thr = dither_threshold(finite, metric=metric) if len(finite) else 0.0
+    for mode in ("replace", "dither"):
+        args = (rgb, cents, thr, k_active, mode, 1, metric)
+        assert torch.equal(kernels.assign_packed(*args), kernels.assign_packed_reference(*args))
+        assert torch.equal(kernels.quantize_rgba(*args), kernels.quantize_rgba_reference(*args))
+        if k <= 256:
+            assert torch.equal(kernels.assign_u8(*args), kernels.assign_u8_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("case", ["random", "duplicates", "inf", "k_active"])
+@pytest.mark.parametrize("k", [2048, 4097])
+def test_exact_colour_out_past_the_staged_chunk(cuda, k, case, metric):
+    """Colour out at 2048 colours (one staged table) and 4097 (the chunked
+    instance: 4096 centroids, then 1): equal RGBA words."""
+    rgb, cents, k_active = _adversarial(case, k, 3100 + k, cuda, 29, 41)
+    tier = "exact-chunked" if k > kernels.STAGE_CHUNK else "exact"
+    before = kernels.LAUNCHES_BY_MODE["quantize_rgba", metric, tier]
+    for mode in ("replace", "dither"):
+        args = (rgb, cents, 2.5 if mode == "dither" else 0.0, k_active, mode, 0, metric)
+        assert torch.equal(kernels.quantize_rgba(*args), kernels.quantize_rgba_reference(*args))
+    assert kernels.LAUNCHES_BY_MODE["quantize_rgba", metric, tier] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_exact_frames_adversarial(cuda, k, metric):
+    """The frames mode of the tiled loop: three frames with duplicate, inf
+    and grey-pixel palettes and per-frame `k_active`, packed and RGBA."""
+    parts = [_adversarial(case, k, 3200 + k, cuda, 30, 41)
+             for case in ("duplicates", "inf", "tiny")]
+    frames = torch.stack([p[0] for p in parts])
+    cents = torch.stack([p[1] for p in parts]).contiguous()
+    k_actives = [k, max(1, k // 2), max(1, k - 3)]
+    thr = [1.5, 0.0, 3.25]
+    for call, twin in ((kernels.assign_frames_packed, kernels.assign_frames_packed_reference),
+                       (kernels.quantize_frames, kernels.quantize_frames_reference)):
+        got = call(frames, cents, thr, k_actives, "dither", metric)
+        assert torch.equal(got, twin(frames, cents, thr, k_actives, "dither", metric))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("case", ADVERSARIAL)
+@pytest.mark.parametrize("k", [1, 2, 8, 17, 64, 256, 512])
+def test_exact_accumulator_adversarial(cuda, k, case, metric):
+    """The accumulator's tiled loop and warp reduction on the same
+    adversarial palettes: equal counts, the other columns within
+    1e-5 * (|twin| + 128 * count)."""
+    rgb, cents, k_active = _adversarial(case, k, 3300 + k, cuda, 61, 97)
+    planes, n = kernels.pack_lab_planes(srgb8_to_lab(rgb.reshape(-1, 3)))
+    args = (planes, cents, n, k_active, None, metric, True)
+    got = kernels.lloyd_accumulate(*args)
+    want = kernels.lloyd_accumulate_reference(*args)
+    assert torch.equal(got[:, 3], want[:, 3])
+    finite = torch.isfinite(cents).all(-1) | (want[:, 3] == 0)
+    bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+    err = (got.double() - want.double()).abs()
+    assert (err[finite] <= bound[finite]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+def test_accumulator_same_bits_on_two_streams(cuda, metric):
+    """kp = 512 with a weight plane, the inertia column and bfloat16 planes:
+    two launches on two streams give equal bits, equal counts to the twin,
+    sums within the bar."""
+    rng = np.random.default_rng(77)
+    rgb = torch.from_numpy(rng.integers(0, 256, (300_001, 3), dtype=np.uint8)).to(cuda)
+    planes, n = kernels.pack_lab_planes(srgb8_to_lab(rgb), torch.bfloat16)
+    w = kernels.pack_plane(torch.from_numpy(rng.integers(0, 4, n).astype(np.float32)).to(cuda))
+    _, cents = _case(1, 1, 512, 78, cuda)
+    args = (planes, cents, n, None, w, metric, True)
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            outs.append(kernels.lloyd_accumulate(*args))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    want = kernels.lloyd_accumulate_reference(*args)
+    assert torch.equal(outs[0][:, 3], want[:, 3])
+    bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+    assert ((outs[0].double() - want.double()).abs() <= bound).all()
