@@ -10,12 +10,13 @@ then:
 1. device: prints the card (`nvidia-smi` name and power limit), torch and
    CUDA versions;
 2. build: compiles both libraries and prints the seconds it took; beside
-   them compiles the assign and accumulator sources with `-Xptxas -v` and
-   prints a `ptxas` line for each kernel instance (registers, stack and
-   spill bytes: a spill in an exact assign or an accumulator instance
-   fails) and a `sass` line for
-   each exact instance's centroid loop in the built library (its
-   instructions, per pixel-centroid pair, by opcode);
+   them compiles the assign, meld and accumulator sources with `-Xptxas
+   -v` and prints a `ptxas` line for each kernel instance (registers,
+   stack and spill bytes: a spill in any of their instances fails) and a
+   `sass` line for each tiled or screening instance's centroid loop in
+   the built library (its instructions, per pixel-centroid pair, by
+   opcode); then `srgb_steps`: the meld kernel's sRGB encode by step
+   points against `powf` on all 2^32 float32 inputs;
 3. kernel vs plain: holds `assign_packed` (the CUDA kernel) against
    `assign_packed_reference` (plain PyTorch) on the same CUDA tensors,
    over palette sizes, both modes, ragged shapes, `k_active < kp`,
@@ -34,7 +35,11 @@ then:
    kernels (every assign output mode, and the accumulator) on adversarial
    palettes (duplicate centroids, grey pixels, centroids equal to pixels,
    a centroid at +-inf, a chroma of 1e-25, `k_active < kp`) at k = 1..512,
-   both metrics: equal words, equal counts;
+   both metrics: equal words, equal counts. `meld_tile_vs_plain` puts the
+   same palettes through every meld mode (exact at k = 1..512, chunked
+   with 64-centroid chunks, frames with per-frame `k_active`) and
+   `fast_screen_vs_plain` through the factorized and pruned tiers of the
+   assign, meld and accumulator kernels at k = 17..300;
 4. the slice: drives `ImageProcessor(device="cuda")` through `reduce`
    (replace and dither), `palette` and `find` on a seeded synthetic
    3840x2160 image, checks the outputs, checks that each reduce equals
@@ -279,9 +284,9 @@ def meld_case(h, w, k, metric, device, repeat=False, seed=5, k_active=None, fast
 
 
 def meld_ok(line) -> bool:
-    """CIE94: equal words. CIEDE2000: within 1 u8 step on at most 1e-4 of
-    the pixels."""
-    if line["metric"] == "cie94":
+    """CIE94 and the fast tiers: equal words. Exact CIEDE2000: within 1 u8
+    step on at most 1e-4 of the pixels."""
+    if line["metric"] == "cie94" or line.get("tier", "exact") != "exact":
         return line["mismatched_words"] == 0
     return line["max_channel_step"] <= 1 and line["differing_pixels"] <= 1e-4 * line["pixels"]
 
@@ -1917,33 +1922,50 @@ def update_cost(image, device, card) -> None:
               **{f"{form}_ms_iterations": r for form, r in runs.items()}})
 
 
-# The exact tiers' register tiles, pixels a thread scans together
-# (`exact_tile_pixels` in csrc/quantize_assign.cu, `kTilePixels` in
-# csrc/lloyd_accumulate.cu; CIEDE2000 one at a time), to turn a centroid
-# loop's length into instructions a pixel-centroid pair.
-TILE_PIXELS = {"assign_exact_kernel<0": 2, "assign_exact_kernel<1": 1, "lloyd_tile_kernel<0,0": 8,
-               "lloyd_tile_kernel<1,0": 1}
+# The pixel-centroid pairs an iteration of a kernel's centroid loop
+# visits, to turn the loop's length into instructions a pair: the pixels
+# of the register tiles of the exact and factorized tiers (`tile_pixels`
+# in csrc/quantize_assign.cu and csrc/quantize_meld.cu, `kTilePixels` in
+# csrc/lloyd_accumulate.cu; CIEDE2000 one pixel at a time), and the two
+# centroids an iteration of the pruned screen takes past its first m (one
+# pixel; its loop found by its warp vote, `SCREEN_LOOPS`; the count holds
+# the insertions a warp skips unless a lane needs one).
+LOOP_PAIRS = {"assign_kernel<0,0,0,": 2, "assign_kernel<1,0,0,": 1, "assign_kernel<0,1,0,": 2,
+              "assign_kernel<1,3,": 2, "meld_kernel<0,0,0,0": 1, "meld_kernel<0,0,0,1": 4,
+              "meld_kernel<1,0,0,": 1, "meld_kernel<0,1,0,": 4, "meld_kernel<1,3,": 2,
+              "lloyd_tile_kernel<0,0": 8, "lloyd_tile_kernel<1,0": 1, "lloyd_tile_kernel<1,3,": 2}
+SCREEN_LOOPS = {"assign_kernel<1,3,": "VOTE", "meld_kernel<1,3,": "VOTE",
+                "lloyd_tile_kernel<1,3,": "VOTE"}
 ADVERSARIAL = ("duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_active")
 
 
-# The design each kernel line runs. The exact tiers of the assign kernel
-# (every output mode) and of the accumulator scan a register tile of
-# pixels against 16-byte centroid loads, CIE94 dividing through hoisted
-# reciprocals (CIEDE2000 one pixel at a time); the accumulator's tiers
-# all sum by warp groups. The other kernels keep one thread a word.
-TILED = {"assign_packed", "quantize_rgba", "quantize_rgba[chunked]", "assign_u8",
-         "assign_frames_packed", "quantize_frames"}
-
-
+# The design each kernel line runs. The assign kernel (every tier and
+# output mode) and the meld kernel scan a register tile of pixels against
+# 16-byte centroid loads, CIE94 dividing through hoisted reciprocals
+# (CIEDE2000 one pixel at a time), the pruned tier screening by packed
+# keys; the accumulator's tiers all sum by warp groups.
 def design_of(name: str) -> str:
-    if name in TILED:
+    if name.startswith("meld"):
+        if "chunked" in name:
+            return "register tile across chunks, hoisted reciprocals, sRGB by table"
+        if "pruned" in name:
+            return "keyed screen, 16-byte loads, d(closest, second) and sRGB by table"
+        if "cie2000" in name:
+            return "one pixel a thread, 16-byte loads, d(closest, second) and sRGB by table"
+        return "register tile, hoisted reciprocals, d(closest, second) and sRGB by table"
+    if name.startswith(("assign", "quantize")):
+        if "pruned" in name:
+            return "keyed screen (network, then gated insertion), one pixel a thread"
+        if "factorized" in name:
+            return "register tile, padded feature rows"
+        if "cie2000" in name:
+            return "one pixel a thread, 16-byte centroid loads"
         return "register tile, hoisted reciprocals"
-    if name == "assign_packed[cie2000]":
-        return "one pixel a thread, 16-byte centroid loads"
     if name == "lloyd_accumulate":
         return "register tile, hoisted reciprocals, warp-group sums"
     if name.startswith("lloyd_accumulate"):
-        return "one pixel at a time, warp-group sums"
+        return "one pixel at a time, warp-group sums" + (
+            ", keyed screen" if "pruned" in name else "")
     if name.startswith("exp_"):
         return "experiment tool"
     if name == "dither_threshold":
@@ -1953,27 +1975,26 @@ def design_of(name: str) -> str:
 
 def compiler_report(lib_path, ptxas) -> None:
     """`ptxas` lines (registers, stack and spill bytes of every instance of
-    the assign and accumulator kernels, from `-Xptxas -v`) and `sass`
-    lines (the exact instances' centroid loops in the built library: its
-    instructions, per pixel-centroid pair, and by opcode). Fails on a
-    spill in an exact assign instance or any accumulator instance (the
-    kernels this design changed)."""
+    the assign, meld and accumulator kernels, from `-Xptxas -v`) and
+    `sass` lines (the tiled and screening instances' centroid loops in the
+    built library: its instructions, per pixel-centroid pair, and by
+    opcode). Fails on a spill in any of their instances."""
     from kmeans_tpu_torch.tools import sass
 
     spills = []
     for source, rows in ptxas.items():
         for row in rows:
             emit({"phase": "ptxas", "source": source, **row})
-            if "exact" in row["kernel"] or row["kernel"].startswith("lloyd_tile_kernel<"):
+            if row["kernel"].startswith(("assign_kernel<", "meld_kernel<", "lloyd_tile_kernel<")):
                 if row["spill_store_bytes"] or row["spill_load_bytes"]:
                     spills.append(row)
-    for name, loop in sass.centroid_loops(lib_path).items():
-        p = next((v for k, v in TILE_PIXELS.items() if name.startswith(k)), None)
-        if loop is None or p is None:
+    for name, loop in sass.centroid_loops(lib_path, require=SCREEN_LOOPS).items():
+        pairs = next((v for k, v in LOOP_PAIRS.items() if name.startswith(k)), None)
+        if loop is None or pairs is None:
             continue
         emit({"phase": "sass", "kernel": name, "loop_start": loop["start"],
-              "instructions": loop["instructions"], "pixels_per_thread": p,
-              "instructions_per_pair": loop["instructions"] / p, "opcodes": loop["opcodes"]})
+              "instructions": loop["instructions"], "pairs_per_iteration": pairs,
+              "instructions_per_pair": loop["instructions"] / pairs, "opcodes": loop["opcodes"]})
     if spills:
         raise AssertionError(f"spills: {spills}")
 
@@ -2051,6 +2072,130 @@ def exact_tile_checks(device) -> None:
         raise AssertionError("; ".join(failures))
 
 
+def meld_tile_checks(device) -> None:
+    """`meld_tile_vs_plain`: the meld kernel's tiles on the adversarial
+    palettes: exact CIE94 and CIEDE2000 at k = 1..512 (the `d(closest,
+    second)` table up to 16 colours), the chunked instance with
+    64-centroid chunks at k = 300, and the frames mode with per-frame
+    `k_active` (exact k = 8, factorized and pruned k = 64). CIE94 and the
+    fast tiers: equal words; exact CIEDE2000: within 1 u8 step on at most
+    1e-4 of the pixels, the bar the kernel has always had against this
+    twin (`meld_ok`)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.utils.packing import unpack_rgb24_tile_words
+
+    def line_of(got, want, h, w, k, metric, **what):
+        rows = kernels.quant_tile_rows(k)
+        a = unpack_rgb24_tile_words(got.cpu().numpy(), h, w, rows).astype(np.int64)
+        b = unpack_rgb24_tile_words(want.cpu().numpy(), h, w, rows).astype(np.int64)
+        step = np.abs(a - b).max(-1)
+        return {"phase": "meld_tile_vs_plain", "metric": metric, "k": k, **what,
+                "mismatched_words": int((got != want).sum().item()),
+                "differing_pixels": int((step > 0).sum()), "max_channel_step": int(step.max()),
+                "pixels": h * w}
+
+    failures = []
+    lines = []
+    for metric in ("cie94", "cie2000"):
+        for k in (1, 8, 16, 17, 64, 512):
+            for case in ADVERSARIAL:
+                rgb, cents, k_active = adversarial_case(case, k, 5000 + k, device)
+                lines.append(line_of(kernels.meld_packed(rgb, cents, k_active, metric),
+                                     kernels.meld_packed_reference(rgb, cents, k_active, metric),
+                                     37, 53, k, metric, case=case))
+        chunk = kernels.STAGE_CHUNK
+        kernels.STAGE_CHUNK = 64
+        try:
+            for case in ("duplicates", "inf", "tiny", "k_active"):
+                rgb, cents, k_active = adversarial_case(case, 300, 5300, device, 29, 41)
+                lines.append(line_of(kernels.meld_packed(rgb, cents, k_active, metric),
+                                     kernels.meld_packed_reference(rgb, cents, k_active, metric),
+                                     29, 41, 300, metric, case=case, chunk=64))
+        finally:
+            kernels.STAGE_CHUNK = chunk
+        for k, fast in ((8, False), (64, True)):
+            parts = [adversarial_case(case, k, 5400 + k, device, 30, 41)
+                     for case in ("duplicates", "inf", "tiny")]
+            frames = torch.stack([q[0] for q in parts])
+            cents = torch.stack([q[1] for q in parts]).contiguous()
+            k_actives = [k, max(1, k // 2), max(1, k - 3)]
+            got = kernels.meld_frames_packed(frames, cents, k_actives, metric, fast)
+            want = kernels.meld_frames_packed_reference(frames, cents, k_actives, metric, fast)
+            for f in range(3):
+                lines.append(line_of(got[f], want[f], 30, 41, k, metric, frames=3, frame=f,
+                                     tier=kernels.assign_tier(fast, metric, k)))
+    for line in lines:
+        emit(line)
+        if not meld_ok(line):
+            failures.append(f"meld_tile_vs_plain: {line}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def fast_screen_checks(device) -> None:
+    """`fast_screen_vs_plain`: the factorized CIE94 tile and the pruned
+    CIEDE2000 keyed screen on the adversarial palettes at k = 17, 129,
+    300: packed dither, RGBA and (k <= 256) u8 assign words and meld words
+    equal to the twins'; the fast accumulators' counts equal and sums
+    within 1e-5 of scale."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+
+    failures = []
+    for metric in ("cie94", "cie2000"):
+        for k in (17, 129, 300):
+            for case in ADVERSARIAL:
+                rgb, cents, k_active = adversarial_case(case, k, 5600 + k, device)
+                args = (rgb, cents, 1.5, k_active, "dither", 1, metric, True)
+                pairs = [(kernels.assign_packed, kernels.assign_packed_reference),
+                         (kernels.quantize_rgba, kernels.quantize_rgba_reference)]
+                if k <= 256:
+                    pairs.append((kernels.assign_u8, kernels.assign_u8_reference))
+                words = sum(int((call(*args) != twin(*args)).sum().item()) for call, twin in pairs)
+                melds = int((kernels.meld_packed(rgb, cents, k_active, metric, True)
+                             != kernels.meld_packed_reference(rgb, cents, k_active, metric,
+                                                              True)).sum().item())
+                line = {"phase": "fast_screen_vs_plain", "metric": metric, "k": k,
+                        "case": case, "tier": kernels.assign_tier(True, metric, k),
+                        "mismatched_words": words, "mismatched_meld_words": melds}
+                if k != 300:
+                    planes, n = kernels.pack_lab_planes(srgb8_to_lab(rgb.reshape(-1, 3)))
+                    acc = (planes, cents, n, k_active, None, metric, True)
+                    got = kernels.lloyd_accumulate(*acc, fast=True)
+                    want = kernels.lloyd_accumulate_reference(*acc, fast=True)
+                    rows = torch.isfinite(cents).all(-1) | (want[:, 3] == 0)
+                    bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+                    line["counts_equal"] = bool(torch.equal(got[:, 3], want[:, 3]))
+                    line["sums_within_bar"] = bool(
+                        ((got.double() - want.double()).abs() <= bound)[rows].all())
+                emit(line)
+                if words or melds or not line.get("counts_equal", True) \
+                        or not line.get("sums_within_bar", True):
+                    failures.append(f"fast_screen_vs_plain: {line}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def srgb_step_check(device) -> None:
+    """`srgb_steps`: the meld kernel's sRGB encode by step points against
+    `powf` on all 2^32 float32 inputs (`tools/srgb_steps.py`): the
+    encode never decreases and maps NaN and negatives to 0, the committed
+    points give its byte on every input, and the points found anew equal
+    the committed ones."""
+    from kmeans_tpu_torch.tools import srgb_steps
+
+    out = srgb_steps.check_on_card(device)
+    same = out["steps"][1:] == srgb_steps.committed_steps()[1:]
+    emit({"phase": "srgb_steps", "inputs": 1 << 32, "broken": out["broken"],
+          "differ": out["differ"], "steps_equal_committed": same, "seconds": out["seconds"]})
+    if out["broken"] or out["differ"] or not same:
+        raise AssertionError("the sRGB step points do not give powf's bytes")
+
+
 def main() -> int:
     import torch
 
@@ -2084,7 +2229,7 @@ def main() -> int:
         main_lib = pool.submit(_build.build)
         exp_lib = pool.submit(_exp.build_exp_library)
         reports = {src: pool.submit(sass.ptxas_report, _build.CSRC / src)
-                   for src in ("quantize_assign.cu", "lloyd_accumulate.cu")}
+                   for src in ("quantize_assign.cu", "quantize_meld.cu", "lloyd_accumulate.cu")}
         lib_path, exp_path = main_lib.result(), exp_lib.result()
         ptxas = {src: report.result() for src, report in reports.items()}
     _build.load_library()
@@ -2094,6 +2239,7 @@ def main() -> int:
         "library": lib_path.name, "exp_library": exp_path.name,
     })
     compiler_report(lib_path, ptxas)
+    srgb_step_check(device)
 
     # 3. Kernel vs plain on the card: under CIE94 the words must be equal,
     # under CIEDE2000 every flip a near-tie.
@@ -2180,6 +2326,8 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
     exact_tile_checks(device)
+    meld_tile_checks(device)
+    fast_screen_checks(device)
 
     # 4. The slice, through the entry points a user calls.
     proc = ImageProcessor(device="cuda")

@@ -31,8 +31,10 @@
 //   pixel's hoisted reciprocals (delta_e.cuh::div_by_recip; a tile out of
 //   its range is rescanned with IEEE divides), so every assignment is the
 //   twin's. Exact CIEDE2000 takes the same loop one pixel at a time (its
-//   library calls leave no registers for a tile); the fast tiers keep
-//   screen.cuh::nearest_centroid, one instance per (metric, tier, m).
+//   library calls leave no registers for a tile); the fast tiers take
+//   screen.cuh::scan_centroids one pixel at a time, one instance per
+//   (metric, tier, m), the pruned one with the keyed screen
+//   (screen.cuh::prune_screen).
 // - The reduction is deterministic, uses no atomics and costs O(1) a
 //   pixel (`warp_group_add`): each warp owns an accumulator [kp, stats] in
 //   shared memory; for each pixel slot the lanes with the same cluster
@@ -49,8 +51,8 @@
 // - The centroids live in shared memory (16 B each, 8 KB at kp = 512);
 //   every pixel visits them in index order with strict `<`, so the first
 //   minimum wins. Shared memory at kp = 512 with the inertia column is
-//   88 KB a block (the eight warp accumulators), and 102 KB with the fast
-//   tiers' `[kp, 7]` table.
+//   88 KB a block (the eight warp accumulators), and 104 KB with the fast
+//   tiers' feature table (padded to 8 columns).
 //
 // Float rounding: each float operation is one IEEE float32 operation in the
 // twin's order, written with the _rn intrinsics so that none is fused into
@@ -186,29 +188,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lloyd_tile_kernel(
     float* __restrict__ partials) {
   constexpr bool kExact = Tier == kTierExact;
   extern __shared__ float4 smem4[];
-  // Exact tiers: cent4 [kp] (L, a, b, chroma). Fast tiers: cent [kp * 3],
-  // chroma [kp], gtab [kp * 7]. Then each warp's accumulator [kp * stats].
+  // cent4 [kp] (L, a, b, chroma); the factorized and pruned tiers' padded
+  // feature table g [2 kp]; then each warp's accumulator [kp * stats].
   float4* cent4 = smem4;
-  float* cent = reinterpret_cast<float*>(smem4);
-  float* chroma = cent + 3 * kp;
-  float* gtab = chroma + kp;
-  float* acc = kExact ? reinterpret_cast<float*>(cent4 + kp)
-                      : gtab + (gtab_in != nullptr ? kGCols * kp : 0);
+  float4* g = cent4 + kp;
+  float* acc = reinterpret_cast<float*>(g + (gtab_in != nullptr ? 2 * kp : 0));
 
-  bool staged_ok = true;
-  if constexpr (kExact) {
-    staged_ok = stage_cent4(centroids, 0, kp, cent4);
-  } else {
-    stage_g_table(gtab_in, gtab, kp);
-    for (int i = threadIdx.x; i < kp; i += kThreads) {
-      const float ca = centroids[3 * i + 1];
-      const float cb = centroids[3 * i + 2];
-      cent[3 * i + 0] = centroids[3 * i + 0];
-      cent[3 * i + 1] = ca;
-      cent[3 * i + 2] = cb;
-      chroma[i] = kmeans::chroma(ca, cb);
-    }
-  }
+  const bool staged_ok = stage_cent4(centroids, 0, kp, cent4);
+  stage_feature_rows(gtab_in, g, kp);
   for (int i = threadIdx.x; i < kWarps * kp * stats; i += kThreads) acc[i] = 0.0f;
   const bool cents_ok = __syncthreads_and(staged_ok);
 
@@ -232,27 +219,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lloyd_tile_kernel(
                        : make_float4(1.0f, 1.0f, 1.0f, 1.0f);
       }
       Cie94Pixel px[kTilePixels];
-      float best_d[kTilePixels];
-      int best_k[kTilePixels];
+      Closest best[kTilePixels];
 #pragma unroll
       for (int s = 0; s < kTilePixels; ++s) {
         const float a = lane_of(a4[s / 4], s % 4), b = lane_of(b4[s / 4], s % 4);
         px[s] = cie94_pixel(lane_of(l4[s / 4], s % 4), a, b, kmeans::chroma(a, b));
-        best_d[s] = kBig;
-        best_k[s] = 0;
       }
-      scan_exact_tile<Metric, kTilePixels>(px, best_d, best_k, cent4, k_active, 0, cents_ok);
+      scan_exact_tile<Metric, kTilePixels>(px, best, cent4, k_active, 0, cents_ok);
+      int best_k[kTilePixels];
       float v[kTilePixels][5];
 #pragma unroll
       for (int s = 0; s < kTilePixels; ++s) {
         const float w = lane_of(w4[s / 4], s % 4);
         const int64_t p = p0 + (s / 4) * 4 * kThreads + s % 4;
-        if (p >= n_valid) best_k[s] = -1;
+        best_k[s] = p >= n_valid ? -1 : best[s].k;
         v[s][0] = __fmul_rn(px[s].l, w);
         v[s][1] = __fmul_rn(px[s].a, w);
         v[s][2] = __fmul_rn(px[s].b, w);
         v[s][3] = w;
-        v[s][4] = __fmul_rn(best_d[s], w);
+        v[s][4] = __fmul_rn(best[s].d, w);
       }
       warp_group_add<kTilePixels>(warp_acc, stats, best_k, v);
     }
@@ -269,18 +254,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lloyd_tile_kernel(
         const float a = load_plane(planes, bf16, n_pix + p);
         const float b = load_plane(planes, bf16, 2 * n_pix + p);
         const float w = weight ? weight[p] : 1.0f;
-        float best_d[1] = {kBig};
-        int best_k[1] = {0};
+        Closest best[1];
         if constexpr (kExact) {
           const Cie94Pixel px[1] = {cie94_pixel(l, a, b, kmeans::chroma(a, b))};
-          scan_exact_tile<Metric, 1>(px, best_d, best_k, cent4, k_active, 0, cents_ok);
+          scan_exact_tile<Metric, 1>(px, best, cent4, k_active, 0, cents_ok);
         } else {
-          nearest_centroid<Metric, Tier, M>(l, a, b, cent, chroma, gtab, k_active, &best_k[0],
-                                            &best_d[0]);
+          scan_centroids<Metric, Tier, M>(l, a, b, kmeans::chroma(a, b), cent4, g, k_active,
+                                          &best[0]);
         }
-        if (p >= n_valid) best_k[0] = -1;
+        int best_k[1] = {p >= n_valid ? -1 : best[0].k};
         float v[1][5] = {{__fmul_rn(l, w), __fmul_rn(a, w), __fmul_rn(b, w), w,
-                          __fmul_rn(best_d[0], w)}};
+                          __fmul_rn(best[0].d, w)}};
         warp_group_add<1>(warp_acc, stats, best_k, v);
       }
     }
@@ -347,7 +331,7 @@ int kmeans_lloyd_accumulate(const void* planes, int bf16, int64_t n_pix,
   if (tier != kTierFactor && tier != kTierPrune) gtab = nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(kp) * (4 + kWarps * stats + (gtab ? kGCols : 0));
+      sizeof(float) * static_cast<size_t>(kp) * (4 + kWarps * stats + (gtab ? 8 : 0));
   auto kernel = lloyd_tile_kernel<kMetricCie94, kTierExact, 0>;
   if (tier == kTierFactor) {
     kernel = lloyd_tile_kernel<kMetricCie94, kTierFactor, 0>;

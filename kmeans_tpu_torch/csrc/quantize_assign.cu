@@ -23,22 +23,24 @@
 //   p_j = ((t * tile_rows) + j * blk + r) * 128 + l for j < ppw, index j at
 //   bit bits * j. A word is written by one thread, so no packing crosses
 //   threads. The RGBA and u8 outputs take bits = 32: word g is pixel g.
-// - The exact tier (`assign_exact_kernel`, both metrics, every output
-//   mode) keeps P pixels of a thread in registers (`exact_tile_pixels`:
-//   2 under CIE94, 1 under CIEDE2000, the fastest the card measured) and
-//   runs the centroid loop outermost (screen.cuh::scan_exact_tile): one
-//   16-byte shared load of a centroid's (L, a, b, chroma) serves the P
-//   pixels, and their independent distances fill the pipeline. A word of
-//   ppw > P pixels is computed P at a time; with ppw < P a thread owns
-//   P / ppw words, strided by the block's width so that stores stay
-//   coalesced. Under CIE94 the two divides of a distance take the pixel's
-//   hoisted reciprocals (recip.cuh::div_by_recip, exact by Markstein's
-//   theorem in the range `Cie94Pixel` and `cie94_centroid_ok` hold the
-//   operands to); a tile whose small dividends leave that range is
-//   rescanned with IEEE divides (screen.cuh::rescan_cie94), so every word
-//   is the twin's.
-// - The fast tiers (`assign_kernel`) keep one thread a word, each pixel
-//   through screen.cuh::nearest_centroid in turn.
+// - Every tier and output mode is one kernel (`assign_kernel`) that keeps P
+//   pixels of a thread in registers (`tile_pixels`: 2 under CIE94, exact
+//   or factorized, 1 under CIEDE2000, exact or pruned: the fastest the
+//   card measured) and runs the centroid loop
+//   outermost (screen.cuh::scan_tile): one 16-byte shared load of a
+//   centroid's (L, a, b, chroma), or two of its padded feature row, serve
+//   the P pixels, and their independent distances fill the pipeline. A
+//   word of ppw > P pixels is computed P at a time; with ppw < P a thread
+//   owns P / ppw words, strided by the block's width so that stores stay
+//   coalesced. Under exact CIE94 the two divides of a distance take the
+//   pixel's hoisted reciprocals (recip.cuh::div_by_recip, exact by
+//   Markstein's theorem in the range `Cie94Pixel` and `cie94_centroid_ok`
+//   hold the operands to); a tile whose small dividends leave that range
+//   is rescanned with IEEE divides (screen.cuh::rescan_cie94), so every
+//   word is the twin's. The pruned tier builds each pixel's candidate list
+//   from packed 32-bit keys, a sorting network and then a gated insertion
+//   (screen.cuh::prune_screen): the list `TopM::insert` builds, without
+//   its walk of floats and indices.
 // - Pixels p >= n are the reference's zero padding: RGB (0, 0, 0), with
 //   their own argmin and dither coordinates like any pixel.
 // - Input is the [H, W, 3] u8 RGB image as uploaded (3 B/px); alpha is
@@ -65,11 +67,13 @@
 //   that holds it. Any k is one launch.
 // - The metric, the tier and the pruned tier's candidate count m are
 //   template parameters; the launcher picks the instance from its runtime
-//   arguments. The fast tiers stage the `[kp, 7]` feature table (28 B a
-//   centroid, 14 KB at kp = 512) in shared memory next to the centroids.
-// - Under the pruned tier a thread keeps one pixel's candidate list live at
-//   a time: 2 m registers (m = 8 or 16), filled by the screening loop and
-//   emptied by the exact pass before the thread's next pixel.
+//   arguments. The fast tiers stage the `[kp, 7]` feature table padded to
+//   8 columns (32 B a centroid, 16 KB at kp = 512) in shared memory next
+//   to the centroids.
+// - Under the pruned tier a thread keeps one pixel's candidate keys live
+//   at a time: 2 m registers (m = 8 or 16, the list and a batch), filled
+//   by the screening loop and emptied by the exact pass before the
+//   thread's next pixel.
 //
 // Float rounding: every operation is one IEEE float32 operation in the
 // reference's order, written with the _rn intrinsics so that none is fused
@@ -91,8 +95,10 @@
 // weighs as much as the loop. Under CIEDE2000 the per-centroid atan2f,
 // sinf, cosf and expf calls set the pace and leave no registers for a
 // tile. The fast tiers take the divides out of the centroid loop: 12
-// operations and a compare per centroid (plus the list insertion under
-// prune, plus m exact distances).
+// operations and a compare per centroid, 18 instructions a pair in the
+// factorized tile (the score's order leaves no fusing); under prune, a
+// vote and a branch, the list's insertion where a lane needs it, plus m
+// exact distances.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,124 +154,48 @@ __device__ __forceinline__ void pixel_lab_dithered(const uint8_t* __restrict__ r
   }
 }
 
-// Copies the frame's palette into shared memory with each centroid's
-// chroma, its feature-table row and, for the RGBA output, its RGBA word:
-// the tables the fast tiers' loops read.
-__device__ __forceinline__ void stage_centroids(const float* __restrict__ centroids,
-                                                const float* __restrict__ gtab_in,
-                                                const int32_t* __restrict__ palette_in,
-                                                int kp, float* cent, float* chroma,
-                                                float* gtab, int32_t* pal) {
-  for (int k = threadIdx.x; k < kp; k += blockDim.x) {
-    const float ca = centroids[3 * k + 1];
-    const float cb = centroids[3 * k + 2];
-    cent[3 * k + 0] = centroids[3 * k + 0];
-    cent[3 * k + 1] = ca;
-    cent[3 * k + 2] = cb;
-    chroma[k] = kmeans::chroma(ca, cb);
-    if (pal != nullptr) pal[k] = palette_in[k];
-  }
-  stage_g_table(gtab_in, gtab, kp);
-}
-
-// The fast tiers' kernel: one thread per output word, each pixel of the
-// word through `nearest_centroid` in turn (centroids, chroma and feature
-// table in shared memory).
-template <int Metric, int Tier, int M>
-__global__ void assign_kernel(
-    const uint8_t* __restrict__ rgb, int64_t n, int64_t width, int64_t frame_stride,
-    const float* __restrict__ centroids, int kp, int k_active,
-    const int32_t* __restrict__ k_actives,
-    const float* __restrict__ gtab_in, const int32_t* __restrict__ palette_in,
-    const float* __restrict__ gamma_lut, const float* __restrict__ thresholds,
-    int dither, int64_t row_offset, int out_mode, int bits, int tile_rows,
-    void* __restrict__ out, int64_t n_words, int64_t frame_base) {
-  extern __shared__ float smem[];
-  float* lut = smem;                // [256]
-  float* cent = smem + 256;         // [kp * 3]
-  float* chroma = cent + 3 * kp;    // [kp]
-  float* gtab = chroma + kp;        // [kp * 7]
-  int32_t* pal = out_mode == kOutRgba ? reinterpret_cast<int32_t*>(gtab + kGCols * kp)
-                                      : nullptr;  // [kp], RGBA output only
-
-  // The frame's operands.
-  const int64_t f = frame_base + blockIdx.y;
-  rgb += f * frame_stride * 3;
-  centroids += f * kp * 3;
-  gtab_in += f * kp * kGCols;
-  if (palette_in != nullptr) palette_in += f * kp;
-  if (k_actives != nullptr) k_active = k_actives[f];
-  const float thr = dither ? thresholds[f] : 0.0f;
-
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = gamma_lut[i];
-  stage_centroids(centroids, gtab_in, palette_in, kp, cent, chroma, gtab, pal);
-  __syncthreads();
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= n_words) return;
-
-  const int ppw = 32 / bits;
-  const int blk = tile_rows / ppw;
-  const int64_t row = g / kLanes;
-  const int lane = static_cast<int>(g % kLanes);
-  const int64_t tile = row / blk;
-  const int64_t r = row % blk;
-
-  uint32_t word = 0;
-  int best_k = 0;
-  for (int j = 0; j < ppw; ++j) {
-    const int64_t p = ((tile * tile_rows) + j * blk + r) * kLanes + lane;
-    float l, a, b;
-    pixel_lab_dithered(rgb, n, p, lut, dither, thr, width, row_offset, &l, &a, &b);
-    float best_d;
-    nearest_centroid<Metric, Tier, M>(l, a, b, cent, chroma, gtab, k_active, &best_k,
-                                      &best_d);
-    word |= static_cast<uint32_t>(best_k) << (bits * j);
-  }
-  if (out_mode == kOutU8) {
-    static_cast<uint8_t*>(out)[f * n_words + g] = static_cast<uint8_t>(best_k);
-  } else {
-    static_cast<int32_t*>(out)[f * n_words + g] =
-        out_mode == kOutRgba ? pal[best_k] : static_cast<int32_t>(word);
-  }
-}
-
-// Pixels a thread of the exact kernel keeps in registers, and the blocks
-// of kThreads an SM must hold (`__launch_bounds__`): the pair measured
+// Pixels a thread keeps in registers under (metric, tier), and the blocks
+// of kThreads an SM must hold (`__launch_bounds__`): the pairs measured
 // fastest without spills.
-__host__ __device__ constexpr int exact_tile_pixels(int metric) {
-  return metric == kMetricCie94 ? 2 : 1;
+__host__ __device__ constexpr int tile_pixels(int metric, int tier) {
+  return metric == kMetricCie94 ? 2 : 1;  // exact or factorized CIE94; CIEDE2000
 }
-constexpr int kExactMinBlocks = 4;
+__host__ __device__ constexpr int min_blocks(int tier, int m) {
+  return tier == kTierPrune ? (m == 8 ? 4 : 3) : 4;
+}
 
-// The exact tier's kernel. A thread owns P pixels (`exact_tile_pixels`):
-// words of ppw >= P pixels are computed P at a time, and with ppw < P a
-// thread owns P / ppw words, strided by the block's width so that the
-// stores stay coalesced. The P pixels go through `scan_exact_tile`
-// together. A palette larger than `chunk` centroids (`Chunked`, RGBA and
-// u8 output only) is staged `chunk` centroids at a time: each pixel's
-// closest carries across chunks with the same strict `<`, so the result
-// is the one loop's, and the RGBA word of a new winner is taken from the
-// chunk that holds it.
-template <int Metric, bool Chunked>
-__global__ void __launch_bounds__(kThreads, kExactMinBlocks) assign_exact_kernel(
+// The assign kernel, every tier and output mode. A thread owns P pixels
+// (`tile_pixels`): words of ppw >= P pixels are computed P at a time, and
+// with ppw < P a thread owns P / ppw words, strided by the block's width
+// so that the stores stay coalesced. The P pixels go through
+// `screen.cuh::scan_tile` together. A palette larger than `chunk`
+// centroids (`Chunked`, exact tier, RGBA and u8 output only) is staged
+// `chunk` centroids at a time: each pixel's closest carries across chunks
+// with the same strict `<`, so the result is the one loop's, and the RGBA
+// word of a new winner is taken from the chunk that holds it.
+template <int Metric, int Tier, int M, bool Chunked>
+__global__ void __launch_bounds__(kThreads, min_blocks(Tier, M)) assign_kernel(
     const uint8_t* __restrict__ rgb, int64_t n, int64_t width, int64_t frame_stride,
     const float* __restrict__ centroids, int kp, int chunk, int k_active,
-    const int32_t* __restrict__ k_actives, const int32_t* __restrict__ palette_in,
-    const float* __restrict__ gamma_lut, const float* __restrict__ thresholds,
-    int dither, int64_t row_offset, int out_mode, int bits, int tile_rows,
-    void* __restrict__ out, int64_t n_words, int64_t frame_base) {
-  constexpr int P = exact_tile_pixels(Metric);
+    const int32_t* __restrict__ k_actives, const float* __restrict__ gtab_in,
+    const int32_t* __restrict__ palette_in, const float* __restrict__ gamma_lut,
+    const float* __restrict__ thresholds, int dither, int64_t row_offset, int out_mode,
+    int bits, int tile_rows, void* __restrict__ out, int64_t n_words, int64_t frame_base) {
+  constexpr int P = tile_pixels(Metric, Tier);
+  constexpr bool kFast = Tier != kTierExact;
   extern __shared__ float4 smem4[];
   const int len = Chunked ? chunk : kp;  // centroids staged at a time
   float* lut = reinterpret_cast<float*>(smem4);  // [256]
   float4* cent = smem4 + 64;                     // [len] (L, a, b, chroma)
-  int32_t* pal = out_mode == kOutRgba ? reinterpret_cast<int32_t*>(cent + len)
+  float4* g = cent + len;                        // [2 len], fast tiers only
+  int32_t* pal = out_mode == kOutRgba ? reinterpret_cast<int32_t*>(g + (kFast ? 2 * len : 0))
                                       : nullptr;  // [len], RGBA output only
 
   // The frame's operands.
   const int64_t f = frame_base + blockIdx.y;
   rgb += f * frame_stride * 3;
   centroids += f * kp * 3;
+  if (kFast) gtab_in += f * kp * kGCols;
   if (palette_in != nullptr) palette_in += f * kp;
   if (k_actives != nullptr) k_active = k_actives[f];
   const float thr = dither ? thresholds[f] : 0.0f;
@@ -274,6 +204,7 @@ __global__ void __launch_bounds__(kThreads, kExactMinBlocks) assign_exact_kernel
   bool staged_ok = true;
   if (!Chunked) {
     staged_ok = stage_cent4(centroids, 0, kp, cent);
+    if (kFast) stage_feature_rows(gtab_in, g, kp);
     if (pal != nullptr) {
       for (int i = threadIdx.x; i < kp; i += kThreads) pal[i] = palette_in[i];
     }
@@ -292,22 +223,26 @@ __global__ void __launch_bounds__(kThreads, kExactMinBlocks) assign_exact_kernel
   const int64_t g0 =
       static_cast<int64_t>(blockIdx.x) * (kThreads * (P >> log_spw)) + threadIdx.x;
 
-  Cie94Pixel px[P];
-  float best_d[P];
-  int best_k[P];
+  // Under the factorized tier a pixel is its screening factors alone.
+  using Pixel = std::conditional_t<Tier == kTierFactor, ScreenFactors, Cie94Pixel>;
+  Pixel px[P];
+  Closest best[P];
   auto load_tile = [&](int pass) {
 #pragma unroll
     for (int s = 0; s < P; ++s) {
-      const int64_t g = g0 + static_cast<int64_t>(s >> log_spw) * kThreads;
+      const int64_t gw = g0 + static_cast<int64_t>(s >> log_spw) * kThreads;
       const int j = pass * spw + (s & (spw - 1));
-      const int64_t row = g / kLanes;
+      const int64_t row = gw / kLanes;
       const int64_t p = (((row >> log_blk) * tile_rows + j * blk + (row & (blk - 1))) * kLanes) +
-                        g % kLanes;
+                        gw % kLanes;
       float l, a, b;
       pixel_lab_dithered(rgb, n, p, lut, dither, thr, width, row_offset, &l, &a, &b);
-      px[s] = cie94_pixel(l, a, b, kmeans::chroma(a, b));
-      best_d[s] = kBig;
-      best_k[s] = 0;
+      if constexpr (Tier == kTierFactor) {
+        px[s] = screen_factors(l, a, b, kmeans::chroma(a, b));
+      } else {
+        px[s] = cie94_pixel(l, a, b, kmeans::chroma(a, b));
+      }
+      best[s] = Closest{};
     }
   };
 
@@ -323,42 +258,43 @@ __global__ void __launch_bounds__(kThreads, kExactMinBlocks) assign_exact_kernel
         for (int i = threadIdx.x; i < staged; i += kThreads) pal[i] = palette_in[start + i];
       }
       const bool chunk_ok = __syncthreads_and(ok);
-      scan_exact_tile<Metric, P>(px, best_d, best_k, cent, min(staged, k_active - start),
-                                 start, chunk_ok);
+      scan_exact_tile<Metric, P>(px, best, cent, min(staged, k_active - start), start,
+                                 chunk_ok);
       if (pal != nullptr) {
 #pragma unroll
         for (int s = 0; s < P; ++s) {
-          if (best_k[s] >= start) rgba[s] = pal[best_k[s] - start];
+          if (best[s].k >= start) rgba[s] = pal[best[s].k - start];
         }
       }
     }
 #pragma unroll
     for (int s = 0; s < P; ++s) {
-      const int64_t g = g0 + static_cast<int64_t>(s) * kThreads;
-      if (g >= n_words) continue;
+      const int64_t gw = g0 + static_cast<int64_t>(s) * kThreads;
+      if (gw >= n_words) continue;
       if (out_mode == kOutU8) {
-        static_cast<uint8_t*>(out)[f * n_words + g] = static_cast<uint8_t>(best_k[s]);
+        static_cast<uint8_t*>(out)[f * n_words + gw] = static_cast<uint8_t>(best[s].k);
       } else {
-        static_cast<int32_t*>(out)[f * n_words + g] = rgba[s];
+        static_cast<int32_t*>(out)[f * n_words + gw] = rgba[s];
       }
     }
   } else {
     uint32_t word = 0;
+#pragma unroll 1
     for (int pass = 0; pass < passes; ++pass) {
       load_tile(pass);
-      scan_exact_tile<Metric, P>(px, best_d, best_k, cent, k_active, 0, cents_ok);
+      scan_tile<Metric, Tier, M, P>(px, best, cent, g, k_active, 0, cents_ok);
 #pragma unroll
       for (int s = 0; s < P; ++s) {
         const int j = pass * spw + (s & (spw - 1));
-        word |= static_cast<uint32_t>(best_k[s]) << (bits * j);
+        word |= static_cast<uint32_t>(best[s].k) << (bits * j);
         if (j != ppw - 1) continue;  // the word's last pixel writes it
-        const int64_t g = g0 + static_cast<int64_t>(s >> log_spw) * kThreads;
-        if (g < n_words) {
+        const int64_t gw = g0 + static_cast<int64_t>(s >> log_spw) * kThreads;
+        if (gw < n_words) {
           if (out_mode == kOutU8) {
-            static_cast<uint8_t*>(out)[f * n_words + g] = static_cast<uint8_t>(best_k[s]);
+            static_cast<uint8_t*>(out)[f * n_words + gw] = static_cast<uint8_t>(best[s].k);
           } else {
-            static_cast<int32_t*>(out)[f * n_words + g] =
-                out_mode == kOutRgba ? pal[best_k[s]] : static_cast<int32_t>(word);
+            static_cast<int32_t*>(out)[f * n_words + gw] =
+                out_mode == kOutRgba ? pal[best[s].k] : static_cast<int32_t>(word);
           }
         }
         word = 0;
@@ -435,39 +371,28 @@ int kmeans_assign(const void* rgb, int64_t n, int64_t width, int64_t frame_strid
   const size_t len = static_cast<size_t>(chunked ? chunk : kp);
   const size_t pal_bytes = out_mode == kOutRgba ? sizeof(int32_t) * len : 0;
   const int64_t n_groups = static_cast<int64_t>(frames);
-  if (tier == kTierExact) {
-    auto kernel = assign_exact_kernel<kMetricCie94, false>;
-    if (metric == kMetricCie2000) {
-      kernel = chunked ? assign_exact_kernel<kMetricCie2000, true>
-                       : assign_exact_kernel<kMetricCie2000, false>;
-    } else if (chunked) {
-      kernel = assign_exact_kernel<kMetricCie94, true>;
-    }
-    // Words a thread owns: P / ppw when a word holds fewer than P pixels.
-    const int p = exact_tile_pixels(metric);
-    const int64_t per_block = static_cast<int64_t>(kThreads) * (ppw < p ? p / ppw : 1);
-    const int64_t blocks = (n_words + per_block - 1) / per_block;
-    const size_t smem = sizeof(float) * 256 + sizeof(float4) * len + pal_bytes;
-    return launch_frames(kernel, blocks, n_groups, smem, stream,
-                         static_cast<const uint8_t*>(rgb), n, width, frame_stride,
-                         static_cast<const float*>(centroids), kp, chunk, k_active,
-                         static_cast<const int32_t*>(k_actives),
-                         static_cast<const int32_t*>(out_mode == kOutRgba ? palette : nullptr),
-                         static_cast<const float*>(gamma_lut),
-                         static_cast<const float*>(thresholds), dither, row_offset, out_mode,
-                         bits, tile_rows, out, n_words);
+  auto kernel = assign_kernel<kMetricCie94, kTierExact, 0, false>;
+  if (tier == kTierFactor) {
+    kernel = assign_kernel<kMetricCie94, kTierFactor, 0, false>;
+  } else if (tier == kTierPrune) {
+    kernel = prune_m == 8 ? assign_kernel<kMetricCie2000, kTierPrune, 8, false>
+                          : assign_kernel<kMetricCie2000, kTierPrune, 16, false>;
+  } else if (metric == kMetricCie2000) {
+    kernel = chunked ? assign_kernel<kMetricCie2000, kTierExact, 0, true>
+                     : assign_kernel<kMetricCie2000, kTierExact, 0, false>;
+  } else if (chunked) {
+    kernel = assign_kernel<kMetricCie94, kTierExact, 0, true>;
   }
-  auto kernel = assign_kernel<kMetricCie94, kTierFactor, 0>;
-  if (tier == kTierPrune) {
-    kernel = prune_m == 8 ? assign_kernel<kMetricCie2000, kTierPrune, 8>
-                          : assign_kernel<kMetricCie2000, kTierPrune, 16>;
-  }
-  const int64_t blocks = (n_words + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * (256 + (4 + kGCols) * len) + pal_bytes;
-  return launch_frames(kernel, blocks, n_groups, smem, stream,
-                       static_cast<const uint8_t*>(rgb), n, width, frame_stride,
-                       static_cast<const float*>(centroids), kp, k_active,
-                       static_cast<const int32_t*>(k_actives),
+  if (tier == kTierExact) gtab = nullptr;
+  // Words a thread owns: P / ppw when a word holds fewer than P pixels.
+  const int p = tile_pixels(metric, tier);
+  const int64_t per_block = static_cast<int64_t>(kThreads) * (ppw < p ? p / ppw : 1);
+  const int64_t blocks = (n_words + per_block - 1) / per_block;
+  const size_t smem =
+      sizeof(float) * 256 + sizeof(float4) * len * (tier == kTierExact ? 1 : 3) + pal_bytes;
+  return launch_frames(kernel, blocks, n_groups, smem, stream, static_cast<const uint8_t*>(rgb),
+                       n, width, frame_stride, static_cast<const float*>(centroids), kp, chunk,
+                       k_active, static_cast<const int32_t*>(k_actives),
                        static_cast<const float*>(gtab),
                        static_cast<const int32_t*>(out_mode == kOutRgba ? palette : nullptr),
                        static_cast<const float*>(gamma_lut),

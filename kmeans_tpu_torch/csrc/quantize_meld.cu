@@ -22,39 +22,56 @@
 //   output is centroid 0 (`:1043-1049`). Two centroids of one colour make
 //   den == 0 and the blend NaN; it is written as 0, as the reference's
 //   float-to-integer conversion writes it (colorspace.cuh).
-// - Lab -> sRGB -> u8 with rintf, round half to even like torch.round.
+// - Lab -> sRGB -> u8 with rintf, round half to even like torch.round;
+//   the sRGB encode's byte is found by an 8-step search of its 255 step
+//   points (colorspace.cuh::linear_to_srgb8), which equals the `powf`
+//   form on every float32 input (checked on the card by
+//   `kmeans_tpu_torch/tools/srgb_steps.py`).
 // - Factorized CIE94 tier: the loop carries the factorized score, which
 //   ranks the centroids but is no distance, so the numerator is recomputed
 //   as the exact CIE94 distance from the pixel to the second (`:1033-1034`).
-// - Pruned CIEDE2000 tier: the screening loop keeps the m best by the
-//   factorized score; the same carry then runs over those survivors in
-//   rank order on their exact distances (`:1010-1018`), so d2 is exact.
+// - Pruned CIEDE2000 tier: the screen keeps the m best by the factorized
+//   score (screen.cuh::prune_screen); the same carry then runs over those
+//   survivors in rank order on their exact distances (`:1010-1018`), so d2
+//   is exact.
 //
-// Design: one thread per group of 4 pixels, the pixels at rows r, blk + r,
+// Design: a thread owns a group of 4 pixels, the pixels at rows r, blk + r,
 // 2 blk + r and 3 blk + r of a tile (blk = tile_rows / 4) in one lane, so
 // the thread writes its 3 output words itself and no packing crosses
 // threads. Word row j (< 3) of the group holds, low byte first:
 // j = 0: R0 G0 B0 R1; j = 1: G1 B1 R2 G2; j = 2: B2 R3 G3 B3 (`:1055-1077`).
+// It scans them P at a time (`tile_pixels`: 1 under exact CIE94 and
+// CIEDE2000, 4 under the factorized score) through screen.cuh::scan_tile
+// with the `TwoClosest` carry: the centroid loop outermost, one 16-byte
+// shared load of (L, a, b, chroma) or two of the padded feature row a
+// centroid, CIE94's divides through the pixel's hoisted reciprocals (a
+// pixel out of their range is rescanned with IEEE divides). d(closest,
+// second), a function of the two centroids alone, comes from a [kp, kp]
+// table each block fills once when kp <= kDenTableMaxK (16: the card
+// measured it slower at 32), else it is computed per pixel as before.
 // Frames: frame f = frame_base + blockIdx.y; its blocks read the image at
 // pixel offset f * frame_stride (0: one image for every frame), stage frame
 // f's palette and k_active and write frame f's words, the single-image
 // layout. The launcher issues at most 65,535 frames (the grid's y limit) a
 // launch, each group with its first frame as `frame_base`.
-// The gamma table, the centroids and their chroma live in shared memory;
-// the centroid loop is a runtime loop. A palette larger than `chunk`
-// centroids (the `Chunked` instances, exact tier only) is staged `chunk`
-// centroids at a time, the four pixels' two closest carried across chunks
-// with the same strict `<`, so the result is the one loop's; the blend then
-// reads its two centroids from global memory. Any k is one launch (the
-// reference has no meld kernel above k = 1024).
+// The gamma table, the sRGB step points and the centroids (with their
+// chroma) live in shared memory; the centroid loop is a runtime loop. A
+// palette larger than `chunk` centroids (the `Chunked` instances, exact
+// tier only) is staged `chunk` centroids at a time, the four pixels held
+// in registers with their two closest across chunks (the 4-pixel tile
+// under CIE94), so the result is the one loop's; the blend then reads its
+// two centroids from global memory. Any k is one launch (the reference has
+// no meld kernel above k = 1024).
 //
 // Float rounding as in quantize_assign.cu: one IEEE float32 operation per
 // step in the twin's order, _rn intrinsics, no fast math.
 //
 // What bounds it on this card: it reads 3 B/px and writes 3 B/px, so at
-// k = 8 the per-pixel powf calls (6: three into Lab, three out of it), the
-// per-centroid divides and, under CIEDE2000, the per-centroid atan2f, sinf,
-// cosf and expf calls set the pace, not memory bandwidth.
+// k = 8 the per-pixel conversions (three `powf` into Lab, the divides of
+// Lab -> sRGB, the step searches), the per-centroid distances and, under
+// CIEDE2000, their atan2f, sinf, cosf and expf calls set the pace, not
+// memory bandwidth. The tiled CIE94 loop costs about 35 instructions a
+// pixel-centroid pair (SASS), against about 50 before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,64 +85,67 @@ namespace {
 using namespace kmeans;
 
 constexpr int kLanes = 128;
+constexpr int kThreads = 256;
 // The largest grid y extent: frames beyond it go in another launch.
 constexpr int64_t kMaxGridY = 65535;
+// Palettes of at most this many centroids take d(closest, second) from a
+// [kp, kp] table each block fills once (`den_table`).
+constexpr int kDenTableMaxK = 16;
 
-// The two closest so far, carried with strict `<`.
-struct TwoClosest {
-  float d1 = kBig, d2 = kBig;
-  int k1 = 0, k2 = 0;
-
-  __device__ __forceinline__ void update(float d, int k) {
-    if (d < d1) {
-      d2 = d1;
-      k2 = k1;
-      d1 = d;
-      k1 = k;
-    } else if (d < d2) {
-      d2 = d;
-      k2 = k;
-    }
-  }
-};
-
-// Adds `base` to every index the carry sees (a staged chunk numbers its
-// centroids from 0).
-struct OffsetTwoClosest {
-  TwoClosest* two;
-  int base;
-  __device__ __forceinline__ void update(float d, int k) { two->update(d, base + k); }
-};
-
-// The blend of one pixel (l, a, b; chroma c1) between its closest centroid
-// (l1, a1, b1; chroma ch1) and its second (l2, a2, b2; chroma ch2), with
-// d2 the carried distance to the second.
-template <int Metric, int Tier>
-__device__ __forceinline__ void blend(float l, float a, float b, float c1, float d2,
-                                      float l1, float a1, float b1, float ch1,
-                                      float l2, float a2, float b2, float ch2,
-                                      float* ol, float* oa, float* ob) {
-  if constexpr (Tier == kTierFactor) {
-    float sc, sh2;
-    cie94_weights(c1, &sc, &sh2);
-    d2 = pixel_distance<Metric>(l, a, b, c1, sc, sh2, l2, a2, b2, ch2);
-  }
-  // d(closest, second), the closest first: its own hoisted terms.
-  float sc1, sh21;
-  cie94_weights(ch1, &sc1, &sh21);
-  const float den_sq = pixel_distance<Metric>(l1, a1, b1, ch1, sc1, sh21, l2, a2, b2, ch2);
-  const float factor = __fdiv_rn(__fsqrt_rn(d2), __fsqrt_rn(den_sq));
-  const float rest = __fsub_rn(1.0f, factor);
-  *ol = __fadd_rn(__fmul_rn(factor, l1), __fmul_rn(rest, l2));
-  *oa = __fadd_rn(__fmul_rn(factor, a1), __fmul_rn(rest, a2));
-  *ob = __fadd_rn(__fmul_rn(factor, b1), __fmul_rn(rest, b2));
+// Pixels a thread scans together (a divisor of its 4) under (metric,
+// tier), and the blocks of kThreads an SM must hold (`__launch_bounds__`):
+// the pairs measured fastest without spills. The chunked instances hold
+// all 4 pixels across the chunks.
+__host__ __device__ constexpr int tile_pixels(int metric, int tier, bool chunked) {
+  if (chunked) return metric == kMetricCie94 ? 4 : 1;
+  return tier == kTierFactor ? 4 : 1;
+}
+__host__ __device__ constexpr int min_blocks(int tier, bool chunked) {
+  if (chunked || tier == kTierPrune) return 2;
+  return tier == kTierFactor ? 3 : 4;
 }
 
-// Writes the 4 pixels' u8 RGB (bytes[12]) as the group's 3 words.
-__device__ __forceinline__ void store_group(const uint32_t* bytes, int32_t* __restrict__ out,
-                                            int64_t tile, int64_t r, int lane, int blk) {
-  // Word row j of the group's 3: bytes 4j .. 4j + 3 of R0 G0 B0 R1 G1 ...
+// d(closest, second) under Metric, the closest first with its own hoisted
+// weights (kmeans_tpu/ops/kernels.py:1038-1041).
+template <int Metric>
+__device__ __forceinline__ float centroid_distance(float4 c1, float4 c2) {
+  float sc1, sh21;
+  cie94_weights(c1.w, &sc1, &sh21);
+  return pixel_distance<Metric>(c1.x, c1.y, c1.z, c1.w, sc1, sh21, c2.x, c2.y, c2.z, c2.w);
+}
+
+// The blend of one pixel `px` between its closest centroid c1 and its
+// second c2, with d2 the squared distance to the second and den_sq
+// d(c1, c2), as u8 RGB (kmeans_tpu/ops/kernels.py:1028-1054).
+__device__ __forceinline__ void blend_rgb(float d2, float den_sq, float4 c1, float4 c2,
+                                          const int* steps, uint32_t* rgb) {
+  const float factor = __fdiv_rn(__fsqrt_rn(d2), __fsqrt_rn(den_sq));
+  const float rest = __fsub_rn(1.0f, factor);
+  int r8, g8, b8;
+  lab_to_srgb8(__fadd_rn(__fmul_rn(factor, c1.x), __fmul_rn(rest, c2.x)),
+               __fadd_rn(__fmul_rn(factor, c1.y), __fmul_rn(rest, c2.y)),
+               __fadd_rn(__fmul_rn(factor, c1.z), __fmul_rn(rest, c2.z)), steps, &r8, &g8, &b8);
+  rgb[0] = static_cast<uint32_t>(r8);
+  rgb[1] = static_cast<uint32_t>(g8);
+  rgb[2] = static_cast<uint32_t>(b8);
+}
+
+// The u8 RGB of one pixel alone: its one centroid `c`.
+__device__ __forceinline__ void centroid_rgb(float4 c, const int* steps, uint32_t* rgb) {
+  int r8, g8, b8;
+  lab_to_srgb8(c.x, c.y, c.z, steps, &r8, &g8, &b8);
+  rgb[0] = static_cast<uint32_t>(r8);
+  rgb[1] = static_cast<uint32_t>(g8);
+  rgb[2] = static_cast<uint32_t>(b8);
+}
+
+// Writes the 4 pixels' u8 RGB (bytes[12]) as the group's 3 words: word
+// row j of the group holds bytes 4j .. 4j + 3 of R0 G0 B0 R1 G1 ...
+__device__ __forceinline__ void store_group(const uint32_t (&bytes)[12],
+                                            int32_t* __restrict__ out, int64_t tile, int64_t r,
+                                            int lane, int blk) {
   const int64_t base = (tile * 3 * blk + r) * kLanes + lane;
+#pragma unroll
   for (int j = 0; j < 3; ++j) {
     const uint32_t word = bytes[4 * j] | (bytes[4 * j + 1] << 8) |
                           (bytes[4 * j + 2] << 16) | (bytes[4 * j + 3] << 24);
@@ -133,119 +153,130 @@ __device__ __forceinline__ void store_group(const uint32_t* bytes, int32_t* __re
   }
 }
 
-__device__ __forceinline__ void put_rgb(float l, float a, float b, uint32_t* bytes) {
-  int r8, g8, b8;
-  lab_to_srgb8(l, a, b, &r8, &g8, &b8);
-  bytes[0] = static_cast<uint32_t>(r8);
-  bytes[1] = static_cast<uint32_t>(g8);
-  bytes[2] = static_cast<uint32_t>(b8);
-}
-
 template <int Metric, int Tier, int M, bool Chunked>
-__global__ void meld_kernel(
+__global__ void __launch_bounds__(kThreads, min_blocks(Tier, Chunked)) meld_kernel(
     const uint8_t* __restrict__ rgb, int64_t n, int64_t frame_stride,
     const float* __restrict__ centroids, int kp, int chunk, int k_active,
     const int32_t* __restrict__ k_actives,
     const float* __restrict__ gtab_in, const float* __restrict__ gamma_lut,
     int tile_rows,
     int32_t* __restrict__ out, int64_t n_groups, int64_t frame_base) {
-  extern __shared__ float smem[];
+  constexpr int SP = tile_pixels(Metric, Tier, Chunked);  // pixels a scan takes
+  constexpr int P = Chunked ? 4 : SP;                      // pixels held at a time
+  constexpr bool kFast = Tier != kTierExact;
+  extern __shared__ float4 smem4[];
   const int len = Chunked ? chunk : kp;  // centroids staged at a time
-  float* lut = smem;               // [256]
-  float* cent = smem + 256;        // [len * 3]
-  float* chroma = cent + 3 * len;  // [len]
-  float* gtab = chroma + len;      // [len * 7], fast tiers only
+  float* lut = reinterpret_cast<float*>(smem4);       // [256]
+  int* steps = reinterpret_cast<int*>(smem4 + 64);    // [256]
+  float4* cent = smem4 + 128;                         // [len] (L, a, b, chroma)
+  float4* g = cent + len;                             // [2 len], fast tiers only
+  float* den = reinterpret_cast<float*>(g + (kFast ? 2 * len : 0));  // [kp * kp]
+  const bool use_den = !Chunked && kp <= kDenTableMaxK;
 
   // The frame's operands.
   const int64_t f = frame_base + blockIdx.y;
   rgb += f * frame_stride * 3;
   centroids += f * kp * 3;
-  if (gtab_in != nullptr) gtab_in += f * kp * kGCols;
+  if (kFast) gtab_in += f * kp * kGCols;
   if (k_actives != nullptr) k_active = k_actives[f];
   out += f * 3 * n_groups;
 
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = gamma_lut[i];
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int i = threadIdx.x; i < 256; i += kThreads) {
+    lut[i] = gamma_lut[i];
+    steps[i] = kSrgb8Steps[i];
+  }
+  bool staged_ok = true;
+  if (!Chunked) {
+    staged_ok = stage_cent4(centroids, 0, kp, cent);
+    if (kFast) stage_feature_rows(gtab_in, g, kp);
+  }
+  const bool cents_ok = __syncthreads_and(staged_ok);
+  if (use_den) {
+    // From the launch operand, as `stage_cent4` stages it: the shared
+    // table's loads stay the tile loop's alone.
+    for (int i = threadIdx.x; i < kp * kp; i += kThreads) {
+      den[i] = centroid_distance<Metric>(centroid4(centroids, i / kp),
+                                         centroid4(centroids, i % kp));
+    }
+    __syncthreads();
+  }
+
+  const int64_t gi = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int blk = tile_rows / 4;
-  const int64_t row = g / kLanes;
-  const int lane = static_cast<int>(g % kLanes);
+  const int64_t row = gi / kLanes;
+  const int lane = static_cast<int>(gi % kLanes);
   const int64_t tile = row / blk;
   const int64_t r = row % blk;
+  const bool active = gi < n_groups;
+  auto pixel = [&](int s) {
+    float l, a, b;
+    pixel_lab(rgb, n, ((tile * tile_rows) + s * blk + r) * kLanes + lane, lut, &l, &a, &b);
+    return cie94_pixel(l, a, b, kmeans::chroma(a, b));
+  };
   uint32_t bytes[12];
 
   if constexpr (Chunked) {
-    // Exact tier: the four pixels' two closest carry across the chunks.
-    const bool active = g < n_groups;
-    float pl[4], pa[4], pb[4], pc[4];
-    TwoClosest two[4];
+    // Exact tier: the four pixels' two closest carry across the chunks,
+    // SP pixels a scan.
+    Cie94Pixel px[P];
+    TwoClosest two[P];
+    if (active) {
+#pragma unroll
+      for (int s = 0; s < P; ++s) px[s] = pixel(s);
+    }
     for (int start = 0; start < k_active; start += chunk) {
       const int staged = min(chunk, kp - start);
       __syncthreads();  // the previous chunk's readers are done
-      for (int i = threadIdx.x; i < staged; i += blockDim.x) {
-        const float ca = centroids[3 * (start + i) + 1];
-        const float cb = centroids[3 * (start + i) + 2];
-        cent[3 * i + 0] = centroids[3 * (start + i) + 0];
-        cent[3 * i + 1] = ca;
-        cent[3 * i + 2] = cb;
-        chroma[i] = kmeans::chroma(ca, cb);
-      }
-      __syncthreads();
+      const bool chunk_ok = __syncthreads_and(stage_cent4(centroids, start, staged, cent));
       if (!active) continue;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        if (start == 0) {
-          const int64_t p = ((tile * tile_rows) + s * blk + r) * kLanes + lane;
-          pixel_lab(rgb, n, p, lut, &pl[s], &pa[s], &pb[s]);
-          pc[s] = kmeans::chroma(pa[s], pb[s]);
-        }
-        OffsetTwoClosest carry{&two[s], start};
-        scan_centroids<Metric, kTierExact, 0>(pl[s], pa[s], pb[s], pc[s], cent, chroma,
-                                              nullptr, min(staged, k_active - start),
-                                              &carry);
+      for (int s = 0; s < P; s += SP) {
+        scan_exact_tile<Metric, SP>(reinterpret_cast<const Cie94Pixel(&)[SP]>(px[s]),
+                                    reinterpret_cast<TwoClosest(&)[SP]>(two[s]), cent,
+                                    min(staged, k_active - start), start, chunk_ok);
       }
     }
     if (!active) return;
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      float ol = centroids[0], oa = centroids[1], ob = centroids[2];
+    for (int s = 0; s < P; ++s) {
       if (k_active > 1) {
-        const float* c1p = centroids + 3 * two[s].k1;
-        const float* c2p = centroids + 3 * two[s].k2;
-        blend<Metric, kTierExact>(pl[s], pa[s], pb[s], pc[s], two[s].d2, c1p[0], c1p[1],
-                                  c1p[2], kmeans::chroma(c1p[1], c1p[2]), c2p[0], c2p[1],
-                                  c2p[2], kmeans::chroma(c2p[1], c2p[2]), &ol, &oa, &ob);
+        const float4 c1 = centroid4(centroids, two[s].k1);
+        const float4 c2 = centroid4(centroids, two[s].k2);
+        blend_rgb(two[s].d2, centroid_distance<Metric>(c1, c2), c1, c2, steps, bytes + 3 * s);
+      } else {
+        centroid_rgb(make_float4(centroids[0], centroids[1], centroids[2], 0.0f), steps,
+                     bytes + 3 * s);
       }
-      put_rgb(ol, oa, ob, bytes + 3 * s);
     }
   } else {
-    stage_g_table(gtab_in, gtab, kp);
-    for (int i = threadIdx.x; i < kp; i += blockDim.x) {
-      const float ca = centroids[3 * i + 1];
-      const float cb = centroids[3 * i + 2];
-      cent[3 * i + 0] = centroids[3 * i + 0];
-      cent[3 * i + 1] = ca;
-      cent[3 * i + 2] = cb;
-      chroma[i] = kmeans::chroma(ca, cb);
-    }
-    __syncthreads();
-    if (g >= n_groups) return;
-
-    for (int s = 0; s < 4; ++s) {
-      const int64_t p = ((tile * tile_rows) + s * blk + r) * kLanes + lane;
-      float l, a, b;
-      pixel_lab(rgb, n, p, lut, &l, &a, &b);
-
-      float ol = cent[0], oa = cent[1], ob = cent[2];
+    if (!active) return;
+#pragma unroll 1
+    for (int s0 = 0; s0 < 4; s0 += P) {
+      Cie94Pixel px[P];
+      TwoClosest two[P];
+#pragma unroll
+      for (int s = 0; s < P; ++s) px[s] = pixel(s0 + s);
       if (k_active > 1) {
-        const float c1 = kmeans::chroma(a, b);
-        TwoClosest two;
-        scan_centroids<Metric, Tier, M>(l, a, b, c1, cent, chroma, gtab, k_active, &two);
-        const int k1 = two.k1, k2 = two.k2;
-        blend<Metric, Tier>(l, a, b, c1, two.d2, cent[3 * k1 + 0], cent[3 * k1 + 1],
-                            cent[3 * k1 + 2], chroma[k1], cent[3 * k2 + 0],
-                            cent[3 * k2 + 1], cent[3 * k2 + 2], chroma[k2], &ol, &oa, &ob);
+        scan_tile<Metric, Tier, M, P>(px, two, cent, g, k_active, 0, cents_ok);
       }
-      put_rgb(ol, oa, ob, bytes + 3 * s);
+#pragma unroll
+      for (int s = 0; s < P; ++s) {
+        uint32_t* out_rgb = bytes + 3 * (s0 + s);
+        if (k_active > 1) {
+          const float4 c1 = cent[two[s].k1], c2 = cent[two[s].k2];
+          float d2 = two[s].d2;
+          if constexpr (Tier == kTierFactor) {
+            // The carried score only ranks: the exact distance to the second.
+            d2 = pixel_distance<Metric>(px[s].l, px[s].a, px[s].b, px[s].c1, px[s].sc,
+                                        px[s].sh2, c2.x, c2.y, c2.z, c2.w);
+          }
+          const float den_sq = use_den ? den[two[s].k1 * kp + two[s].k2]
+                                       : centroid_distance<Metric>(c1, c2);
+          blend_rgb(d2, den_sq, c1, c2, steps, out_rgb);
+        } else {
+          centroid_rgb(cent[0], steps, out_rgb);
+        }
+      }
     }
   }
   store_group(bytes, out, tile, r, lane, blk);
@@ -296,10 +327,10 @@ int kmeans_meld(const void* rgb, int64_t n, int64_t frame_stride, int frames,
     kernel = meld_kernel<kMetricCie2000, kTierExact, 0, false>;
   }
   if (tier == kTierExact) gtab = nullptr;
-  const int threads = 256;
-  const int64_t blocks = (n_groups + threads - 1) / threads;
+  const int64_t blocks = (n_groups + kThreads - 1) / kThreads;
   const size_t len = static_cast<size_t>(chunked ? chunk : kp);
-  const size_t smem = sizeof(float) * (256 + (gtab ? 4 + kGCols : 4) * len);
+  const size_t den = !chunked && kp <= kDenTableMaxK ? static_cast<size_t>(kp) * kp : 0;
+  const size_t smem = sizeof(float4) * (128 + len * (gtab ? 3 : 1)) + sizeof(float) * den;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -309,7 +340,7 @@ int kmeans_meld(const void* rgb, int64_t n, int64_t frame_stride, int frames,
     const int64_t left = static_cast<int64_t>(frames) - base;
     const int64_t group = left < kMaxGridY ? left : kMaxGridY;
     kernel<<<dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(group)),
-             threads, smem, static_cast<cudaStream_t>(stream)>>>(
+             kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(rgb), n, frame_stride,
         static_cast<const float*>(centroids), kp, chunk, k_active,
         static_cast<const int32_t*>(k_actives), static_cast<const float*>(gtab),

@@ -182,5 +182,7 @@ def _declare_main(lib: ctypes.CDLL) -> None:
         p, p,              # out, stream
     ]
     lib.kmeans_dither_threshold.restype = i32
+    lib.kmeans_srgb8_steps.argtypes = [p, p, p]  # steps, counts, stream
+    lib.kmeans_srgb8_steps.restype = i32
     lib.kmeans_error_string.argtypes = [i32]
     lib.kmeans_error_string.restype = ctypes.c_char_p

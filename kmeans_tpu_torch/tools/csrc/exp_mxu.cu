@@ -81,7 +81,7 @@ __global__ void factor_vpu_kernel(const uint32_t* __restrict__ rgba, int64_t n,
   float* lut = smem;        // [256]
   float* gtab = smem + 256; // [kp * 7]
   for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = gamma_lut[i];
-  stage_g_table(gtab_in, gtab, kp);
+  for (int i = threadIdx.x; i < kGCols * kp; i += blockDim.x) gtab[i] = gtab_in[i];
   __syncthreads();
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; p < n;

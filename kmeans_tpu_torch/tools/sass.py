@@ -83,28 +83,41 @@ def _opcode(instruction: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", instruction).split()[0]
 
 
-def centroid_loops(library: Path, pattern: str = "_kernel") -> dict[str, dict]:
+def centroid_loops(library: Path, pattern: str = "_kernel",
+                   require: dict[str, str] | None = None) -> dict[str, dict]:
     """`centroid_loop` of each kernel instance of `library` (`cuobjdump
-    -sass`) whose name holds `pattern`."""
+    -sass`) whose name holds `pattern`; `require` maps a name prefix to
+    the opcode prefix its loop must hold."""
     cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(library)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True, check=True, timeout=600).stdout
-    return {name: centroid_loop(instructions)
+    require = require or {}
+    return {name: centroid_loop(instructions, next(
+                (op for prefix, op in require.items() if name.startswith(prefix)), None))
             for name, instructions in _functions(sass).items() if pattern in name}
 
 
-def centroid_loop(instructions: list[tuple[int, str]]) -> dict | None:
+def centroid_loop(instructions: list[tuple[int, str]], require: str | None = None) -> dict | None:
     """The smallest loop (a backward branch and its target) around the
     kernel's first 16-byte shared load (`LDS.128`, a staged centroid), with
-    its instruction count and its counts by opcode; None without one."""
-    first = next((addr for addr, ins in instructions if _opcode(ins) == "LDS.128"), None)
-    if first is None:
+    its instruction count and its counts by opcode; None without one. With
+    `require`, the smallest loop that holds an `LDS.128` and an opcode
+    starting with `require` (the pruned screen's loop: its warp vote)."""
+    loads = [addr for addr, ins in instructions if _opcode(ins) == "LDS.128"]
+    if not loads:
         return None
     spans = []
     for addr, ins in instructions:
         m = _BACKWARD.search(ins)
-        if m and m.group(1) and int(m.group(1), 16) <= first < addr:
-            spans.append((int(m.group(1), 16), addr))
+        if not (m and m.group(1)):
+            continue
+        lo = int(m.group(1), 16)
+        if require is None:
+            if lo <= loads[0] < addr:
+                spans.append((lo, addr))
+        elif any(lo <= a <= addr for a in loads) and any(
+                lo <= a <= addr and _opcode(i).startswith(require) for a, i in instructions):
+            spans.append((lo, addr))
     if not spans:
         return None
     lo, hi = min(spans, key=lambda span: span[1] - span[0])

@@ -726,3 +726,125 @@ def test_accumulator_same_bits_on_two_streams(cuda, metric):
     assert torch.equal(outs[0][:, 3], want[:, 3])
     bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
     assert ((outs[0].double() - want.double()).abs() <= bound).all()
+
+
+def _meld_within_bar(got, want, h, w, k, metric):
+    """CIE94: equal words. CIEDE2000: every channel within 1 u8 step on at
+    most 1e-4 of the pixels (the exact CIEDE2000 twin's library calls, as
+    in `test_meld_kernel_matches_twin`)."""
+    if metric == "cie94":
+        return torch.equal(got, want)
+    rows = kernels.quant_tile_rows(k)
+    a = unpack_rgb24_tile_words(got.cpu().numpy(), h, w, rows).astype(int)
+    b = unpack_rgb24_tile_words(want.cpu().numpy(), h, w, rows).astype(int)
+    step = np.abs(a - b).max(-1)
+    return step.max() <= 1 and (step > 0).sum() <= h * w // 10000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("case", ADVERSARIAL)
+@pytest.mark.parametrize("k", [1, 2, 8, 16, 17, 64, 256, 512])
+def test_exact_meld_adversarial_palettes(cuda, k, case, metric):
+    """The exact meld tiles (the `d(closest, second)` table up to 16
+    colours, the sRGB encode by step points) on the adversarial palettes."""
+    rgb, cents, k_active = _adversarial(case, k, 3400 + k, cuda)
+    got = kernels.meld_packed(rgb, cents, k_active, metric)
+    want = kernels.meld_packed_reference(rgb, cents, k_active, metric)
+    assert _meld_within_bar(got, want, 37, 53, k, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("case", ["random", "duplicates", "inf", "tiny", "k_active"])
+def test_chunked_meld_adversarial(cuda, case, metric, monkeypatch):
+    """The chunked meld with 64-centroid chunks at k = 300: both closest
+    carry through the tile across chunks."""
+    monkeypatch.setattr(kernels, "STAGE_CHUNK", 64)
+    rgb, cents, k_active = _adversarial(case, 300, 3500, cuda, 29, 41)
+    before = kernels.LAUNCHES_BY_MODE["meld_packed", metric, "exact-chunked"]
+    got = kernels.meld_packed(rgb, cents, k_active, metric)
+    want = kernels.meld_packed_reference(rgb, cents, k_active, metric)
+    assert kernels.LAUNCHES_BY_MODE["meld_packed", metric, "exact-chunked"] == before + 1
+    assert _meld_within_bar(got, want, 29, 41, 300, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("k,fast", [(1, False), (8, False), (64, False), (64, True)])
+def test_meld_frames_adversarial(cuda, k, fast, metric):
+    """The frames mode of the meld tiles: three frames with duplicate, inf
+    and tiny-chroma palettes and per-frame `k_active`."""
+    parts = [_adversarial(case, k, 3600 + k, cuda, 30, 41)
+             for case in ("duplicates", "inf", "tiny")]
+    frames = torch.stack([p[0] for p in parts])
+    cents = torch.stack([p[1] for p in parts]).contiguous()
+    k_actives = [k, max(1, k // 2), max(1, k - 3)]
+    got = kernels.meld_frames_packed(frames, cents, k_actives, metric, fast)
+    want = kernels.meld_frames_packed_reference(frames, cents, k_actives, metric, fast)
+    for f in range(3):
+        assert _meld_within_bar(got[f], want[f], 30, 41, k, "cie94" if fast else metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("case", ADVERSARIAL)
+@pytest.mark.parametrize("k", [17, 64, 129, 256, 512])
+def test_fast_adversarial_palettes(cuda, k, case, metric):
+    """The factorized CIE94 tile and the pruned CIEDE2000 network screen in
+    every assign output mode and in meld: equal words to the twins."""
+    rgb, cents, k_active = _adversarial(case, k, 3700 + k, cuda)
+    finite = cents[torch.isfinite(cents).all(-1)]
+    thr = dither_threshold(finite, metric=metric) if len(finite) else 0.0
+    tier = kernels.assign_tier(True, metric, k)
+    before = kernels.LAUNCHES_BY_MODE["assign_packed", metric, tier]
+    for mode in ("replace", "dither"):
+        args = (rgb, cents, thr, k_active, mode, 1, metric, True)
+        assert torch.equal(kernels.assign_packed(*args), kernels.assign_packed_reference(*args))
+        assert torch.equal(kernels.quantize_rgba(*args), kernels.quantize_rgba_reference(*args))
+        if k <= 256:
+            assert torch.equal(kernels.assign_u8(*args), kernels.assign_u8_reference(*args))
+    assert kernels.LAUNCHES_BY_MODE["assign_packed", metric, tier] == before + 2
+    assert torch.equal(kernels.meld_packed(rgb, cents, k_active, metric, True),
+                       kernels.meld_packed_reference(rgb, cents, k_active, metric, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("case", ADVERSARIAL)
+@pytest.mark.parametrize("k", [17, 129, 512])
+def test_fast_accumulator_adversarial(cuda, k, case, metric):
+    """The accumulator's fast tiers (factorized, algebraic with the inertia
+    column, pruned) on the adversarial palettes: equal counts, the other
+    columns within 1e-5 * (|twin| + 128 * count)."""
+    rgb, cents, k_active = _adversarial(case, k, 3800 + k, cuda, 61, 97)
+    planes, n = kernels.pack_lab_planes(srgb8_to_lab(rgb.reshape(-1, 3)))
+    for inertia in ((False, True) if metric == "cie94" else (True,)):
+        args = (planes, cents, n, k_active, None, metric, inertia)
+        got = kernels.lloyd_accumulate(*args, fast=True)
+        want = kernels.lloyd_accumulate_reference(*args, fast=True)
+        assert torch.equal(got[:, 3], want[:, 3])
+        finite = torch.isfinite(cents).all(-1) | (want[:, 3] == 0)
+        bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+        err = (got.double() - want.double()).abs()
+        assert (err[finite] <= bound[finite]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+def test_meld_and_fast_assign_same_words_on_two_streams(cuda, metric):
+    """The meld tiles (k = 8, exact) and the fast assign (k = 300) launched
+    on two streams give equal words, and the twins' words."""
+    rgb, cents = _case(300, 401, 8, 3900, cuda)
+    _, big = _case(1, 1, 300, 3901, cuda)
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            outs.append((kernels.meld_packed(rgb, cents, metric=metric),
+                         kernels.assign_packed(rgb, big, 1.5, None, "dither", 0, metric, True)))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert _meld_within_bar(outs[0][0], kernels.meld_packed_reference(rgb, cents, metric=metric),
+                            300, 401, 8, metric)
+    assert torch.equal(outs[0][1], kernels.assign_packed_reference(rgb, big, 1.5, None, "dither",
+                                                                   0, metric, True))

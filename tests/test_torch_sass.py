@@ -15,6 +15,10 @@ MANGLED = {
     "EEvPKvillPKfiiS4_S4_iPf": "lloyd_tile_kernel<0,0,0>",
     "_ZN52_GLOBAL__N__a910e99b_19_lloyd_accumulate_cu_38cbc3cd17sum_blocks_kernelEPKfiiPf":
         "sum_blocks_kernel",
+    "_ZN49_GLOBAL__N__baa400eb_16_quantize_meld_cu_de65fcac11meld_kernelILi1ELi3ELi16ELb0EEEvPKhl"
+    "lPKfiiiPKiS4_S4_iPill": "meld_kernel<1,3,16,0>",
+    "_ZN51_GLOBAL__N__2464285e_18_quantize_assign_cu_ef1646b413assign_kernelILi0ELi1ELi0ELb0EEEvP"
+    "KhlllPKfiiiPKiS4_S6_S4_S4_iliiiPvll": "assign_kernel<0,1,0,0>",
 }
 
 
@@ -82,22 +86,57 @@ def test_centroid_loop_is_the_smallest_loop_around_the_first_lds128():
     assert sass.centroid_loop(functions["sum_blocks_kernel"]) is None
 
 
+def test_centroid_loop_with_a_required_opcode():
+    """With `require`, the smallest loop holding a 16-byte shared load and
+    that opcode: the pruned screen's loop, found by its warp vote."""
+    body = """
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   FADD R5, R5, R4 ;
+        /*0020*/              @!P1 BRA 0x0 ;
+        /*0030*/                   LDS.128 R4, [R2+0x10] ;
+        /*0040*/                   VOTE.ANY R0, PT, P0 ;
+        /*0050*/               @P0 BRA 0x70 ;
+        /*0060*/                   VIMNMX.U32 R6, R6, R7, PT ;
+        /*0070*/              @!P2 BRA 0x30 ;
+        /*0080*/                   EXIT ;
+"""
+    instructions = [(int(m.group(1), 16), m.group(2))
+                    for m in map(sass._INSTRUCTION.match, body.splitlines()) if m]
+    assert sass.centroid_loop(instructions)["start"] == "0x0"
+    loop = sass.centroid_loop(instructions, "VOTE")
+    assert loop["start"] == "0x30" and loop["instructions"] == 5
+    assert sass.centroid_loop(instructions, "HMMA") is None
+
+
 def test_chip_smoke_tile_sizes_match_the_sources():
-    """`chip_smoke.py` divides a centroid loop's length by the pixels a
-    thread scans together: its table must hold the sources' constants."""
+    """`chip_smoke.py` divides a centroid loop's length by the pixel-
+    centroid pairs an iteration visits: its table must hold the sources'
+    constants (the assign and meld kernels' `tile_pixels`, the
+    accumulator's `kTilePixels`; the pruned screen's two centroids of one
+    pixel a step of `screen.cuh::prune_screen`'s loop)."""
     import re
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
     csrc = root / "kmeans_tpu_torch" / "csrc"
     assign = (csrc / "quantize_assign.cu").read_text()
+    meld = (csrc / "quantize_meld.cu").read_text()
     lloyd = (csrc / "lloyd_accumulate.cu").read_text()
-    p94, p2000 = map(int, re.search(r"return metric == kMetricCie94 \? (\d+) : (\d+);",
+    a94, a2000 = map(int, re.search(r"return metric == kMetricCie94 \? (\d+) : (\d+);",
                                     assign).groups())
+    c94, c2000 = map(int, re.search(r"if \(chunked\) return metric == kMetricCie94 \? (\d+) : "
+                                    r"(\d+);", meld).groups())
+    mf, m_exact = map(int, re.search(r"return tier == kTierFactor \? (\d+) : (\d+);",
+                                     meld).groups())
     tile = int(re.search(r"constexpr int kTilePixels = (\d+);", lloyd).group(1))
+    step = int(re.search(r"for \(int k = M; k < k_active; k \+= (\d+)\)",
+                         (csrc / "screen.cuh").read_text()).group(1))
     smoke = (root / "chip_smoke.py").read_text()
-    table = dict(re.findall(r'"(\w+<[\d,]+)": (\d+)', smoke.split("TILE_PIXELS = ", 1)[1]
-                            .split("}", 1)[0]))
-    assert {k: int(v) for k, v in table.items()} == {
-        "assign_exact_kernel<0": p94, "assign_exact_kernel<1": p2000,
-        "lloyd_tile_kernel<0,0": tile, "lloyd_tile_kernel<1,0": 1}
+    body = smoke.split("LOOP_PAIRS = ", 1)[1].split("}", 1)[0]
+    table = {k: int(v) for k, v in re.findall(r'"(\w+<[\d,]+)": (\d+)', body)}
+    assert c2000 == 1
+    assert table == {
+        "assign_kernel<0,0,0,": a94, "assign_kernel<1,0,0,": a2000, "assign_kernel<0,1,0,": a94,
+        "assign_kernel<1,3,": step, "meld_kernel<0,0,0,0": m_exact, "meld_kernel<0,0,0,1": c94,
+        "meld_kernel<1,0,0,": m_exact, "meld_kernel<0,1,0,": mf, "meld_kernel<1,3,": step,
+        "lloyd_tile_kernel<0,0": tile, "lloyd_tile_kernel<1,0": 1, "lloyd_tile_kernel<1,3,": step}
