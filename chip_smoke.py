@@ -15,7 +15,11 @@ then:
    stack and spill bytes: a spill in any of their instances fails) and a
    `sass` line for each tiled or screening instance's centroid loop in
    the built library (its instructions, per pixel-centroid pair, by
-   opcode); then `srgb_steps`: the meld kernel's sRGB encode by step
+   opcode), and a `sass` line for each instance of the threshold and
+   factor-mxu kernels compiled alone (resources, the compiler's notes of
+   a serialized `wgmma`, every opcode's count, the round or step loop:
+   factor-mxu must issue `HGMMA`, the threshold's round loop must vote);
+   then `srgb_steps`: the meld kernel's sRGB encode by step
    points against `powf` on all 2^32 float32 inputs;
 3. kernel vs plain: holds `assign_packed` (the CUDA kernel) against
    `assign_packed_reference` (plain PyTorch) on the same CUDA tensors,
@@ -85,8 +89,10 @@ then:
    `frames_past_grid_limit` (65,537 frames of 4x4 through both frames
    kernels: equal to split launches and to the twins),
    `dither_threshold_vs_plain` (the threshold kernel's bits against the
-   twin's at k = 1..2048, both metrics, one and three palettes; times
-   against the plain loop; `reduce(2048)` dither against replace), and
+   twin's at k = 1..2048 and 16384, both metrics, random palettes and the
+   palette whose every step updates the walk, one, three and 16
+   palettes, with each palette's updates; times against the plain loop
+   and the latency floor; `reduce(2048)` dither against replace), and
    the experiment tools through their entry points:
    `exp_mxu_vs_plain` (`kmeans_tpu_torch.tools.exp_mxu`: factor-vpu
    against its twin and the fast u8 assign, factor-mxu against its TF32
@@ -1507,6 +1513,8 @@ def time_frames(image, frames, device, card, drive, plain) -> dict:
 TF32_APIS = ("allow_tf32", "fp32_precision")
 TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 THRESHOLD_KS = (1, 2, 3, 8, 257, 1024, 2048)
+THRESHOLD_EVERY_STEP_KS = (8, 2048, 16384)
+THRESHOLD_FRAMES = 16
 GRID_FRAMES = 65_537  # past the 65,535 frames one grid's y extent holds
 MXU_RAGGED = (61, 97, 100)
 # Float32 operations of one pixel into the factorized features: 33 into
@@ -1658,12 +1666,20 @@ def _events_ms(fn) -> float:
 
 def dither_threshold_vs_plain(device, image, card) -> dict:
     """C.3: the threshold kernel against its twin at every k of
-    `THRESHOLD_KS`, both metrics, one palette and B = 3 palettes with
-    per-frame `k_active` (B = 3 up to k = 1024): equal bits. The plain
-    loop's time is that of its checked run (one call); the kernel's the
-    mean of 20 warm launches. Then `reduce(2048)` dither against replace
-    end to end, in turns. Returns the k=2048 CIE94 times for the kernels
-    line."""
+    `THRESHOLD_KS` and at k = 16384, both metrics, on a random palette and
+    on the palette whose every step updates the walk (`every_step`), one
+    palette and B = 3 palettes with per-frame `k_active` (B = 3 up to
+    k = 1024), and B = 16 random palettes at k = 2048: equal bits, and
+    each palette's updates (`tools/threshold_walk.py::count_updates`). The
+    plain loop's time is that of its checked run (one call; not kept at
+    k = 16384 under CIEDE2000, where the one run only checks the bits);
+    the kernel's the mean of 20 launches, each after the L2 flush (which
+    keeps the card busy while the host enqueues the next launch, so the
+    time is the kernel's and not the wrapper's). Then the latency floor of
+    the timed k=2048 palettes: the k = 1 launch plus one round of the
+    every-step palette per update. Then `reduce(2048)` dither against
+    replace end to end, in turns. Returns the k=2048 CIE94 times for the
+    kernels line."""
     import torch
 
     from kmeans_tpu_torch import ImageProcessor, ReduceMode
@@ -1673,47 +1689,85 @@ def dither_threshold_vs_plain(device, image, card) -> dict:
         dither_thresholds,
         dither_thresholds_reference,
     )
+    from kmeans_tpu_torch.tools.threshold_walk import count_updates, every_step_palette
 
-    failures, times = [], {}
+    failures, times, updates = [], {}, {}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     for metric in ("cie94", "cie2000"):
-        for k in THRESHOLD_KS:
-            cents = random_palette_lab(k, SEED + 50 + k, device)
-            got = dither_threshold(cents, metric=metric)
-            plain_ms = _events_ms(lambda: dither_threshold_reference(cents, metric=metric))
-            want = dither_threshold_reference(cents, metric=metric)
-            equal = bool(got.view(torch.int32) == want.view(torch.int32))
-            line = {"phase": "dither_threshold_vs_plain", "k": k, "metric": metric,
-                    "frames": 1, "equal_bits": equal, "threshold": float(got)}
-            if k >= 1024:
-                kernel_ms = cuda_ms(lambda: dither_threshold(cents, metric=metric), 20)
-                times[metric, k] = (kernel_ms, plain_ms)
-                line.update({"card": card, "kernel_ms": kernel_ms, "plain_ms": plain_ms})
-            if k <= 1024:
-                pals = torch.stack([random_palette_lab(k, SEED + 60 + k + f, device)
-                                    for f in range(3)])
-                k_actives = [k, max(1, k // 2), max(1, k - 1)]
-                g = dither_thresholds(pals, k_actives, metric)
-                w = dither_thresholds_reference(pals, k_actives, metric)
-                line["frames_equal_bits"] = bool(torch.equal(g.view(torch.int32),
-                                                             w.view(torch.int32)))
-                line["k_actives"] = k_actives
-                equal = equal and line["frames_equal_bits"]
-            emit(line)
-            if not equal:
-                failures.append(f"dither_threshold k={k} {metric}")
+        for k in THRESHOLD_KS + (HUGE_K,):
+            for kind in ("random", "every_step"):
+                if kind == "every_step" and k not in THRESHOLD_EVERY_STEP_KS:
+                    continue
+                cents = (random_palette_lab(k, SEED + 50 + k, device) if kind == "random"
+                         else every_step_palette(k, device))
+                got = dither_threshold(cents, metric=metric)
+                twin = []
+                plain_ms = _events_ms(lambda: twin.append(
+                    dither_threshold_reference(cents, metric=metric)))
+                equal = bool(got.view(torch.int32) == twin[0].view(torch.int32))
+                updates[metric, kind, k] = count_updates(cents, metric)
+                line = {"phase": "dither_threshold_vs_plain", "k": k, "metric": metric,
+                        "palette": kind, "frames": 1, "equal_bits": equal,
+                        "threshold": float(got), "updates": updates[metric, kind, k]}
+                if k >= 1024 or kind == "every_step" or k == 1:
+                    kernel_ms = cuda_ms(lambda: dither_threshold(cents, metric=metric), 20, flush)
+                    if k == HUGE_K and metric == "cie2000":
+                        plain_ms = "not measured"
+                    times[metric, kind, k] = (kernel_ms, plain_ms)
+                    line.update({"card": card, "kernel_ms": kernel_ms, "plain_ms": plain_ms})
+                if k <= 1024 and kind == "random":
+                    pals = torch.stack([random_palette_lab(k, SEED + 60 + k + f, device)
+                                        for f in range(3)])
+                    k_actives = [k, max(1, k // 2), max(1, k - 1)]
+                    g = dither_thresholds(pals, k_actives, metric)
+                    w = dither_thresholds_reference(pals, k_actives, metric)
+                    line["frames_equal_bits"] = bool(torch.equal(g.view(torch.int32),
+                                                                 w.view(torch.int32)))
+                    line["k_actives"] = k_actives
+                    equal = equal and line["frames_equal_bits"]
+                emit(line)
+                if not equal:
+                    failures.append(f"dither_threshold k={k} {metric} {kind}")
+        pals = torch.stack([random_palette_lab(BIG_K, SEED + 80 + f, device)
+                            for f in range(THRESHOLD_FRAMES)])
+        g = dither_thresholds(pals, None, metric)
+        w = dither_thresholds_reference(pals, None, metric)
+        equal = bool(torch.equal(g.view(torch.int32), w.view(torch.int32)))
+        line = {"phase": "dither_threshold_vs_plain", "k": BIG_K, "metric": metric,
+                "palette": "random", "frames": THRESHOLD_FRAMES, "equal_bits": equal,
+                "updates": [count_updates(pal, metric) for pal in pals], "card": card,
+                "kernel_ms": cuda_ms(lambda: dither_thresholds(pals, None, metric), 20, flush)}
+        emit(line)
+        if not equal:
+            failures.append(f"dither_thresholds {THRESHOLD_FRAMES} x k={BIG_K} {metric}")
+    del flush
     if failures:
         raise AssertionError("; ".join(failures))
+    floors = {}
+    for metric in ("cie94", "cie2000"):
+        step = ((times[metric, "every_step", HUGE_K][0] - times[metric, "every_step", 8][0])
+                / (HUGE_K - 8))
+        launch = times[metric, "random", 1][0]
+        for k in (BIG_K, HUGE_K):
+            n = updates[metric, "random", k]
+            floors[metric, k] = launch + n * step
+            emit({"phase": "timing", "what": f"dither_threshold k={k} {metric} random, floor",
+                  "card": card, "kernel_ms": times[metric, "random", k][0], "updates": n,
+                  "every_step_round_ms": step, "launch_ms": launch,
+                  "latency_floor_ms": floors[metric, k]})
     proc = ImageProcessor(device="cuda")
     for line in timed_reduces({
         "reduce 3840x2160 k=2048 replace, median of 2 warm": (proc, ReduceMode.REPLACE),
         "reduce 3840x2160 k=2048 dither, median of 2 warm": (proc, ReduceMode.DITHER),
     }, image, card, k=2048, rounds=3):
         emit(line)
-    kernel_ms, plain_ms = times["cie94", 2048]
-    # One thread reads the palette once and writes one float; the walk is
+    kernel_ms, plain_ms = times["cie94", "random", BIG_K]
+    # Each palette entry is read once and one float written; the walk is
     # two distances and a square root per centroid.
-    bound = _bound(2048 * 12 + 4, 2 * 2046 * (METRIC_OPS["cie94"] + 1) + 2)
-    return {"times": (kernel_ms, plain_ms, *bound), "err": 0}
+    bound = _bound(BIG_K * 12 + 4, 2 * (BIG_K - 2) * (METRIC_OPS["cie94"] + 1) + 2)
+    return {"times": (kernel_ms, plain_ms, *bound), "err": 0,
+            "latency_floor_ms": floors["cie94", BIG_K],
+            "updates": updates["cie94", "random", BIG_K]}
 
 
 def exp_mxu_vs_plain(device, card) -> dict:
@@ -1969,7 +2023,7 @@ def design_of(name: str) -> str:
     if name.startswith("exp_"):
         return "experiment tool"
     if name == "dither_threshold":
-        return "one thread a palette"
+        return "one block a palette, first-trigger scan by warp votes"
     return "one thread a word"
 
 
@@ -1997,6 +2051,30 @@ def compiler_report(lib_path, ptxas) -> None:
               "instructions_per_pair": loop["instructions"] / pairs, "opcodes": loop["opcodes"]})
     if spills:
         raise AssertionError(f"spills: {spills}")
+
+
+# The loop each kernel below is read by: the threshold's round loop of one
+# warp by its vote and the five square roots of its two distances (three
+# chromas, two distances), factor-mxu's step loop by its warpgroup MMA.
+LOOP_OPCODES = {"dither_threshold_kernel": "VOTE+MUFU.RSQ*5", "factor_mxu_kernel": "HGMMA"}
+
+
+def scan_report(rows) -> None:
+    """`sass` lines of the threshold and factor-mxu kernels (compiled
+    alone): `ptxas` resources and warnings, every opcode's count, and the
+    round loop. Fails unless factor-mxu issues `HGMMA` (Hopper's
+    `wgmma.mma_async`) and the threshold's round loop votes."""
+    found = set()
+    for row in rows:
+        emit({"phase": "sass", **row})
+        if row["kernel"].startswith("factor_mxu_kernel") and any(
+                op.startswith("HGMMA") for op in row["kernel_opcodes"]):
+            found.add("HGMMA")
+        if row["kernel"].startswith("dither_threshold_kernel") and row["loop"]:
+            found.add("VOTE")
+    if found != {"HGMMA", "VOTE"}:
+        raise AssertionError(f"sass: found {sorted(found)} of HGMMA (factor-mxu) and VOTE "
+                             f"(the threshold's round loop)")
 
 
 def adversarial_case(case, k, seed, device, h=37, w=53):
@@ -2230,8 +2308,12 @@ def main() -> int:
         exp_lib = pool.submit(_exp.build_exp_library)
         reports = {src: pool.submit(sass.ptxas_report, _build.CSRC / src)
                    for src in ("quantize_assign.cu", "quantize_meld.cu", "lloyd_accumulate.cu")}
+        scans = [pool.submit(sass.kernel_report, source, LOOP_OPCODES)
+                 for source in (_build.CSRC / "dither_threshold.cu",
+                                _build.EXP_CSRC / "exp_mxu.cu")]
         lib_path, exp_path = main_lib.result(), exp_lib.result()
         ptxas = {src: report.result() for src, report in reports.items()}
+        scans = [row for scan in scans for row in scan.result()]
     _build.load_library()
     _exp.load_exp_library()
     emit({
@@ -2239,6 +2321,7 @@ def main() -> int:
         "library": lib_path.name, "exp_library": exp_path.name,
     })
     compiler_report(lib_path, ptxas)
+    scan_report(scans)
     srgb_step_check(device)
 
     # 3. Kernel vs plain on the card: under CIE94 the words must be equal,
@@ -2802,7 +2885,8 @@ def main() -> int:
         # (no Pallas kernel), timed at k = 2048.
         {**entry("dither_threshold", "dither_threshold.cu", 0, threshold_launches,
                  threshold["err"], threshold["times"]),
-         "replaces": "kmeans_tpu/ops/quantize.py:112 (a lax.fori_loop, no Pallas kernel)"},
+         "replaces": "kmeans_tpu/ops/quantize.py:112 (a lax.fori_loop, no Pallas kernel)",
+         "latency_floor_ms": threshold["latency_floor_ms"], "updates": threshold["updates"]},
         # B9 at 4K k=64 (the tool also times k=256), launched by the tool.
         exp_entry("exp_factor_vpu", "exp_mxu.cu", "tools/exp_mxu.py:94",
                   mxu["counts"]["exp_factor_vpu cie94 factor"], mxu[64]["err"][0],

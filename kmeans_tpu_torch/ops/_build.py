@@ -69,17 +69,18 @@ def _sources(src_dir: Path | None = None) -> list[Path]:
     return sorted((CSRC if src_dir is None else src_dir).glob("*.cu"))
 
 
-def _hashed_files(src_dir: Path | None = None) -> list[Path]:
+def _hashed_files(src_dir: Path | None = None, include: Path | None = None) -> list[Path]:
     """The sources and the headers they may include."""
     src_dir = CSRC if src_dir is None else src_dir
-    headers = set(src_dir.glob("*.cuh")) | set(CSRC.glob("*.cuh"))
+    headers = set(src_dir.glob("*.cuh")) | set((include or CSRC).glob("*.cuh"))
     return _sources(src_dir) + sorted(headers)
 
 
-def library_path(nvcc: str, src_dir: Path | None = None, name: str = MAIN_NAME) -> Path:
+def library_path(nvcc: str, src_dir: Path | None = None, name: str = MAIN_NAME,
+                 include: Path | None = None) -> Path:
     """Where the library `name` for the current sources and flags lives."""
     h = hashlib.sha256()
-    for src in _hashed_files(src_dir):
+    for src in _hashed_files(src_dir, include):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -87,13 +88,16 @@ def library_path(nvcc: str, src_dir: Path | None = None, name: str = MAIN_NAME) 
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(src_dir: Path | None = None, name: str = MAIN_NAME) -> Path:
+def build(src_dir: Path | None = None, name: str = MAIN_NAME,
+          include: Path | None = None) -> Path:
     """Compile the sources of `src_dir` (default: `CSRC`) if no library
-    for them exists yet; return its path. Concurrent builds each work in a
+    for them exists yet; return its path. `include` (default: `CSRC`) is
+    the header directory on the include path (another checkout's, to build
+    its tools against its own headers). Concurrent builds each work in a
     private directory and rename the library into place, so a reader never
     sees a partial one."""
     nvcc = find_nvcc()
-    target = library_path(nvcc, src_dir, name)
+    target = library_path(nvcc, src_dir, name, include)
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -101,7 +105,7 @@ def build(src_dir: Path | None = None, name: str = MAIN_NAME) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [str(Path(work) / f"{src.stem}.o") for src in sources]
         compiles = [
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            [nvcc, *NVCC_FLAGS, "-I", str(include or CSRC), "-c", "-o", obj, str(src)]
             for src, obj in zip(sources, objs)
         ]
         procs = [

@@ -20,8 +20,8 @@ These are the port's plain versions: `ops/kernels.py` holds the CUDA
 kernels that do the same per pixel in one pass. The dither threshold is
 the exception that lives here: `dither_threshold` / `dither_thresholds`
 run their plain twins (`*_reference`) on a CPU tensor and launch
-`csrc/dither_threshold.cu` on a CUDA tensor, one thread per palette, or
-raise.
+`csrc/dither_threshold.cu` on a CUDA tensor (one block per palette, a
+first-trigger scan with the serial walk's bits), or raise.
 """
 
 from __future__ import annotations

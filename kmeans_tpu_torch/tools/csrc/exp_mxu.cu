@@ -19,32 +19,46 @@
 // left to right) and strict `<`, so the first minimum wins. Its bits equal
 // the twin's, `exp_mxu.py::factor_vpu_reference`.
 //
-// factor-mxu: the score as a matrix product. Each pixel's eight features
-// `[f0, 1, f2, q, f4, f5, rsh2, 0]` times the `[8, kp]` transposed,
-// zero-padded G: per warp, 32 pixels as two 16-row A fragments, and per
-// 8-centroid n-tile one `mma.sync.aligned.m16n8k8` in TF32 with float32
-// accumulation (K = 8 is exactly this product's depth). Both operands are
-// rounded to TF32 by `cvt.rna.tf32.f32` (to nearest, ties away) when they
-// are staged. Centroids go in chunks of KC = 64 (8 n-tiles): inside a
-// chunk each thread keeps the least score of its columns in increasing
-// column order (strict `<`), a quad of threads merges its four with the
-// lower index winning ties (the chunk's first minimum, `jnp.argmin`'s), and
-// the chunk's minimum replaces the pixel's best only when strictly less,
-// as the reference merges its chunks. The G fragments are pre-arranged in
-// shared memory so each thread reads its two B values for an n-tile as one
-// 8-byte word with no bank conflict. Products of two 11-bit significands
-// are exact in float32, so only the tensor core's accumulation separates
-// it from its twin (`factor_mxu_reference(tf32=True)`); flips against the
-// twin fall on near-ties.
+// factor-mxu: the score as a matrix product on Hopper's warpgroup MMA.
+// Each pixel's eight features `[f0, 1, f2, q, f4, f5, rsh2, 0]` times the
+// `[8, kp_pad]` G, as `wgmma.mma_async.m64n64k8.f32.tf32.tf32` (K = 8 is
+// exactly this product's depth): a warpgroup (4 warps) takes 128 pixels a
+// step, two 64-row tiles, and each instruction scores one tile against a
+// chunk of 64 centroids. A comes from registers: each lane converts one
+// pixel, rounds its features to TF32 (`cvt.rna.tf32.f32`, to nearest,
+// ties away) and stages them through the warp's shared rows into the A
+// fragments. B, the host-arranged TF32 G (`exp_mxu.py::mxu_b_operand`:
+// per 8 centroids, the 8 x 4 core matrix of features 0-3, then that of
+// features 4-7; padded columns score +inf), sits in shared memory behind a
+// `wgmma` descriptor without swizzle. A chunk's two products (one per
+// tile) run as one stage; while the first chunk's run, the lanes convert
+// the next step's pixels, whose words they loaded a step before, so a step
+// waits on no load. The accumulators are read only after `wait_group 0`:
+// `ptxas` serializes every product (a wait after each) when one is read
+// while another product is in flight, which a chunk-to-chunk pipeline
+// does. The scan runs on the accumulator fragment, fully unrolled and
+// without a column test (a padded column's +inf never passes strict `<`):
+// each thread keeps the least score of its even and of its odd columns,
+// each in increasing column order with strict `<` across the chunks (two
+// independent chains a row), and merges the two and then the quad's (4
+// threads of a row) with the lower index winning ties. That is the first
+// minimum over all centroids, which is what the reference's chunks give
+// (the first minimum inside a chunk, replaced only by a strictly smaller
+// one from a later chunk), since each score is the same in both. Products
+// of two 11-bit significands are exact in float32, so only the tensor
+// core's accumulation separates it from its twin
+// (`factor_mxu_reference(tf32=True)`); flips against the twin fall on
+// near-ties.
 //
 // What bounds it on this card: per pixel it reads 4 B and writes 1 B
 // (41.5 MB at 4K, 12 us at 3.35 TB/s). factor-vpu does 13 float32
 // operations per centroid on CUDA cores (67 TFLOP/s): 0.10 ms at 4K
-// k = 64. factor-mxu moves the 7 multiply-adds into the tensor core
-// (16 flops a centroid at 495 TFLOP/s) and leaves the compare and select
-// (2 operations) on CUDA cores: about 4-6x less work. Persistent blocks
-// (a grid-stride loop) stage the gamma table and G once per block. Left
-// for later: `wgmma`, TMA, deeper pipelining.
+// k = 64. factor-mxu leaves 16 TF32 flops a centroid to the tensor cores
+// (495 TFLOP/s) and the compare and select (an FSETP and two selects a
+// pixel-centroid pair) and each pixel's conversion (three `powf`, two
+// divides) to the CUDA cores, which set its pace. Persistent blocks (a
+// grid-stride loop) stage the gamma table and G once per block. Left for
+// later: TMA, a producer warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,8 +73,11 @@ using namespace kmeans;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;      // centroids per chunk (KC)
 constexpr int kFeatStride = 12; // floats per pixel row of the A staging (no bank conflict)
+constexpr int kChunk = 64;      // centroids a wgmma scores (N)
+constexpr int kMxuBlocksPerSm = 2;
+constexpr int kGroups = kThreads / 128;  // warpgroups a factor-mxu block
+constexpr int kStepPixels = 128;         // pixels a warpgroup step: two 64-row tiles
 
 __device__ __forceinline__ void word_lab(uint32_t w, const float* lut, float* l, float* a,
                                          float* b) {
@@ -115,129 +132,213 @@ __device__ __forceinline__ void take_if_less(Best* best, float d, int i) {
   }
 }
 
+// The lesser of two running minimums, the lower index on ties.
+__device__ __forceinline__ Best lesser(Best x, Best y) {
+  return (y.d < x.d || (y.d == x.d && y.i < x.i)) ? y : x;
+}
+
 // The quad's (4 threads of one row) least score, lower index on ties.
 __device__ __forceinline__ Best quad_min(Best x) {
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
-    const float od = __shfl_xor_sync(0xFFFFFFFFu, x.d, off);
-    const int oi = __shfl_xor_sync(0xFFFFFFFFu, x.i, off);
-    if (od < x.d || (od == x.d && oi < x.i)) {
-      x.d = od;
-      x.i = oi;
-    }
+    x = lesser(x, Best{__shfl_xor_sync(0xFFFFFFFFu, x.d, off),
+                       __shfl_xor_sync(0xFFFFFFFFu, x.i, off)});
   }
   return x;
 }
 
-__global__ void factor_mxu_kernel(const uint32_t* __restrict__ rgba, int64_t n,
-                                  const float* __restrict__ gmat_in, int kp, int kp_pad,
-                                  const float* __restrict__ gamma_lut,
-                                  uint8_t* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* lut = smem;                                        // [256]
-  uint32_t* gfrag = reinterpret_cast<uint32_t*>(smem + 256); // [kp_pad / 8][32][2]
-  float* feat = smem + 256 + 8 * kp_pad;                    // [kWarps][32][kFeatStride]
+// The `wgmma` shared-memory descriptor of a K-major operand without
+// swizzle: start address, leading byte offset (from the core matrix of
+// features 0-3 to that of features 4-7: 128 B) and stride byte offset
+// (from 8 centroids to the next 8: 256 B), each in 16-byte units.
+__device__ __forceinline__ uint64_t b_descriptor(const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
 
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = gamma_lut[i];
-  // B fragment of n-tile nt for lane (g, t) = (lane / 4, lane % 4): rows
-  // t and t + 4 of column g, i.e. features t and t + 4 of centroid
-  // nt * 8 + g. gmat_in is [kp_pad, 8], one row per centroid.
-  for (int i = threadIdx.x; i < 8 * kp_pad; i += blockDim.x) {
-    const int nt = i / 64, lane = (i / 2) % 32, half = i % 2;
-    const int c = nt * 8 + lane / 4;
-    gfrag[i] = to_tf32(gmat_in[c * 8 + (lane % 4) + 4 * half]);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Tells the compiler the accumulator changes here, so that no read of it
+// moves above the `wait_group` before it.
+__device__ __forceinline__ void fence_accumulator(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = A (64 x 8, this warp's 16 rows in registers) times B (8 x 64, the
+// descriptor's), TF32 in, float32 out; the old d is not read (scale-d 0).
+// d[4 j + e] is row g + 8 (e / 2), column 8 j + 2 t + (e & 1) of this
+// warp's 16 rows.
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+// A tile's accumulator into the running minimums: best[h][e] keeps row
+// g + 8 h over the thread's columns of parity e, in increasing order with
+// strict `<`: four independent chains a thread, merged at the end.
+__device__ __forceinline__ void scan_tile(const float (&d)[32], Best (&best)[2][2], int col0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    take_if_less(&best[0][0], d[4 * j], col0 + 8 * j);
+    take_if_less(&best[0][1], d[4 * j + 1], col0 + 8 * j + 1);
+    take_if_less(&best[1][0], d[4 * j + 2], col0 + 8 * j);
+    take_if_less(&best[1][1], d[4 * j + 3], col0 + 8 * j + 1);
   }
+}
+
+// This lane's RGBA word at step `step` (0 past the image): the pixel of
+// row 16 warp + lane % 16 of tile lane / 16.
+__device__ __forceinline__ uint32_t step_word(const uint32_t* __restrict__ rgba, int64_t n,
+                                              int64_t step, int warp, int lane) {
+  const int64_t q = step * kStepPixels + 64 * (lane / 16) + 16 * warp + lane % 16;
+  return q < n ? rgba[q] : 0u;
+}
+
+// The pixel's eight features, rounded to TF32, into its row of the warp's
+// staging (two 16-byte stores).
+__device__ __forceinline__ void stage_features(uint32_t word, const float* lut, float* row) {
+  float l, a, b;
+  word_lab(word, lut, &l, &a, &b);
+  const ScreenFactors f = screen_factors(l, a, b, chroma(a, b));
+  reinterpret_cast<float4*>(row)[0] =
+      make_float4(__uint_as_float(to_tf32(f.f0)), 1.0f, __uint_as_float(to_tf32(f.f2)),
+                  __uint_as_float(to_tf32(f.q)));
+  reinterpret_cast<float4*>(row)[1] =
+      make_float4(__uint_as_float(to_tf32(f.f4)), __uint_as_float(to_tf32(f.f5)),
+                  __uint_as_float(to_tf32(f.rsh2)), 0.0f);
+}
+
+// A fragments of the two tiles from the warp's staging: rows g, g + 8;
+// features t, t + 4.
+__device__ __forceinline__ void load_fragments(const float* staging, int g, int t,
+                                               uint32_t (&afrag)[2][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const float* r0 = staging + (16 * m + g) * kFeatStride;
+    const float* r1 = r0 + 8 * kFeatStride;
+    afrag[m][0] = __float_as_uint(r0[t]);
+    afrag[m][1] = __float_as_uint(r1[t]);
+    afrag[m][2] = __float_as_uint(r0[t + 4]);
+    afrag[m][3] = __float_as_uint(r1[t + 4]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMxuBlocksPerSm)
+    factor_mxu_kernel(const uint32_t* __restrict__ rgba, int64_t n,
+                      const uint4* __restrict__ gb_in, int chunks,
+                      const float* __restrict__ gamma_lut, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(128) uint4 smem_mxu[];
+  uint4* gb = smem_mxu;                                              // [chunks * 128]
+  float* lut = reinterpret_cast<float*>(smem_mxu + chunks * 128);    // [256]
+  float* feat = lut + 256;                                           // [kWarps][32][kFeatStride]
+  for (int i = threadIdx.x; i < chunks * 128; i += blockDim.x) gb[i] = gb_in[i];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = gamma_lut[i];
+  // The tensor cores read G through the async proxy.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float* my_feat = feat + warp * 32 * kFeatStride;
-  const int64_t n_tiles = (n + 31) / 32;
-  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + warp; tile < n_tiles;
-       tile += static_cast<int64_t>(gridDim.x) * kWarps) {
-    // This lane's pixel: its eight features, rounded to TF32, staged.
-    const int64_t p = tile * 32 + lane;
-    float l, a, b;
-    word_lab(p < n ? rgba[p] : 0u, lut, &l, &a, &b);
-    const ScreenFactors f = screen_factors(l, a, b, chroma(a, b));
-    const float row[8] = {f.f0, 1.0f, f.f2, f.q, f.f4, f.f5, f.rsh2, 0.0f};
+  float* staging = feat + (threadIdx.x / 32) * 32 * kFeatStride;
+  const uint64_t desc0 = b_descriptor(gb);
+  constexpr uint64_t kChunkDesc = kChunk * 8 * 4 / 16;  // a chunk of G in 16-byte units
+  float acc[2][kChunk / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      my_feat[lane * kFeatStride + j] = __uint_as_float(to_tf32(row[j]));
-    }
+  for (int i = 0; i < kChunk / 2; ++i) acc[0][i] = acc[1][i] = 0.0f;
+
+  // While the tensor cores score a step's first chunk, the lanes convert
+  // the next step's pixels (their words loaded a step earlier) and load
+  // the words of the step after it. The accumulators are read only after
+  // `wgmma.wait_group 0`, so `ptxas` serializes no product.
+  const int64_t steps = (n + kStepPixels - 1) / kStepPixels;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kGroups;
+  int64_t step = static_cast<int64_t>(blockIdx.x) * kGroups + group;
+  uint32_t afrag[2][4];
+  if (step < steps) {
+    stage_features(step_word(rgba, n, step, warp, lane), lut, staging + lane * kFeatStride);
     __syncwarp();
-    // A fragments of the two 16-pixel tiles: rows g, g + 8; columns t, t + 4.
-    uint32_t afrag[2][4];
+    load_fragments(staging, g, t, afrag);
+    __syncwarp();
+  }
+  uint32_t word_next = step_word(rgba, n, step + stride, warp, lane);
+  for (; step < steps; step += stride) {
+    const bool more = step + stride < steps;
+    // best[m][h][e]: row g + 8 h of tile m, columns of parity e.
+    Best best[2][2][2];
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
-      const float* r0 = my_feat + (m * 16 + g) * kFeatStride;
-      const float* r1 = r0 + 8 * kFeatStride;
-      afrag[m][0] = __float_as_uint(r0[t]);
-      afrag[m][1] = __float_as_uint(r1[t]);
-      afrag[m][2] = __float_as_uint(r0[t + 4]);
-      afrag[m][3] = __float_as_uint(r1[t + 4]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) best[m][h][0] = best[m][h][1] = Best{kBig, 0};
     }
-    __syncwarp();  // the staging is read before the next tile overwrites it
-
-    // best[m][0]: row g of tile m; best[m][1]: row g + 8.
-    Best best[2][2];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) best[m][0] = best[m][1] = Best{kBig, 0};
-    for (int c0 = 0; c0 < kp_pad; c0 += kChunk) {
-      Best chunk[2][2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) chunk[m][0] = chunk[m][1] = Best{kBig, 0};
-      const int nt_end = min(c0 + kChunk, kp_pad) / 8;
-      for (int nt = c0 / 8; nt < nt_end; ++nt) {
-        const uint2 bfrag = reinterpret_cast<const uint2*>(gfrag)[nt * 32 + lane];
-        const int col0 = nt * 8 + 2 * t;
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          float d0, d1, d2, d3;
-          asm volatile(
-              "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-              : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
-              : "r"(afrag[m][0]), "r"(afrag[m][1]), "r"(afrag[m][2]), "r"(afrag[m][3]),
-                "r"(bfrag.x), "r"(bfrag.y), "f"(0.0f));
-          if (col0 < kp) {
-            take_if_less(&chunk[m][0], d0, col0);
-            take_if_less(&chunk[m][1], d2, col0);
-          }
-          if (col0 + 1 < kp) {
-            take_if_less(&chunk[m][0], d1, col0 + 1);
-            take_if_less(&chunk[m][1], d3, col0 + 1);
-          }
-        }
+    for (int c = 0; c < chunks; ++c) {
+      const uint64_t desc = desc0 + c * kChunkDesc;
+      wgmma_fence();
+      wgmma_m64n64k8(acc[0], afrag[0], desc);
+      wgmma_m64n64k8(acc[1], afrag[1], desc);
+      wgmma_commit();
+      if (c == 0 && more) {
+        const uint32_t word = word_next;
+        word_next = step_word(rgba, n, step + 2 * stride, warp, lane);
+        stage_features(word, lut, staging + lane * kFeatStride);
       }
+      wgmma_wait_all();
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const Best c = quad_min(chunk[m][h]);
-          take_if_less(&best[m][h], c.d, c.i);
-        }
+        fence_accumulator(acc[m]);
+        scan_tile(acc[m], best[m], c * kChunk + 2 * t);
       }
     }
-    if (t == 0) {
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < 2; ++m) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int64_t q = tile * 32 + m * 16 + h * 8 + g;
-          if (q < n) out[q] = static_cast<uint8_t>(best[m][h].i);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const Best r = quad_min(lesser(best[m][h][0], best[m][h][1]));
+        const int64_t q = step * kStepPixels + 64 * m + 16 * warp + 8 * h + g;
+        if (t == 0 && q < n) out[q] = static_cast<uint8_t>(r.i);
       }
+    }
+    if (more) {
+      __syncwarp();
+      load_fragments(staging, g, t, afrag);
+      __syncwarp();
     }
   }
 }
 
-int grid_blocks(int64_t work_blocks) {
+int grid_blocks(int64_t work_blocks, int per_sm) {
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) == cudaSuccess) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  const int64_t cap = static_cast<int64_t>(sms) * 8;
+  const int64_t cap = static_cast<int64_t>(sms) * per_sm;
   return static_cast<int>(work_blocks < cap ? (work_blocks > 0 ? work_blocks : 1) : cap);
 }
 
@@ -253,26 +354,28 @@ int exp_factor_vpu(const void* rgba, int64_t n, const void* gtab, int kp,
                    const void* gamma_lut, void* out, void* stream) {
   if (n < 1 || kp < 1 || kp > 256) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * (256 + kGCols * kp);
-  factor_vpu_kernel<<<grid_blocks((n + kThreads - 1) / kThreads), kThreads, smem,
+  factor_vpu_kernel<<<grid_blocks((n + kThreads - 1) / kThreads, 8), kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rgba), n, static_cast<const float*>(gtab), kp,
       static_cast<const float*>(gamma_lut), static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches factor-mxu on `stream`. gmat [kp_pad * 8] f32: row c is
-// centroid c's G row and a zero (rows >= kp are ignored), kp_pad a multiple
-// of 8 with kp <= kp_pad; 1 <= kp <= 256. Other arguments as
-// exp_factor_vpu.
-int exp_factor_mxu(const void* rgba, int64_t n, const void* gmat, int kp, int kp_pad,
+// Launches factor-mxu on `stream`. gb [kp_pad * 8] TF32 values in the
+// `wgmma` B layout of `exp_mxu.py::mxu_b_operand` (its padded columns
+// score +inf); kp_pad a multiple of 64 with kp <= kp_pad <= 256 and
+// 1 <= kp. Other arguments as exp_factor_vpu.
+int exp_factor_mxu(const void* rgba, int64_t n, const void* gb, int kp, int kp_pad,
                    const void* gamma_lut, void* out, void* stream) {
-  if (n < 1 || kp < 1 || kp > 256 || kp_pad % 8 != 0 || kp_pad < kp || kp_pad > 256) {
+  if (n < 1 || kp < 1 || kp_pad % kChunk != 0 || kp_pad < kp || kp_pad > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * (256 + 8 * kp_pad + kWarps * 32 * kFeatStride);
-  factor_mxu_kernel<<<grid_blocks((n + kThreads - 1) / kThreads), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rgba), n, static_cast<const float*>(gmat), kp, kp_pad,
+  const int chunks = kp_pad / kChunk;
+  const size_t smem = sizeof(float) * (kp_pad * 8 + 256 + kWarps * 32 * kFeatStride);
+  const int64_t steps = (n + kStepPixels - 1) / kStepPixels;
+  factor_mxu_kernel<<<grid_blocks((steps + kGroups - 1) / kGroups, kMxuBlocksPerSm), kThreads,
+                      smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rgba), n, static_cast<const uint4*>(gb), chunks,
       static_cast<const float*>(gamma_lut), static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

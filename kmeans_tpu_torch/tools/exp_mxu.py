@@ -16,9 +16,12 @@ The argmin of `F . G` is the fast tier's nearest centroid; the score is
   equal bit for bit, and equal `assign_u8(fast=True)` at 16 < k <= 256.
 - `factor_mxu` (the reference's `_factor_mxu_kernel:118`): each pixel's
   eight features `[f0, 1, f2, q, f4, f5, rsh2, 0]` times the `[8, kp]`
-  padded, transposed G as TF32 `mma.sync` products on tensor cores, in
+  padded, transposed G as TF32 `wgmma` products on tensor cores, in
   chunks of KC = 64 centroids: the first minimum inside a chunk, merged
-  across chunks with strict `<`. Its twin `factor_mxu_reference(tf32=...)`
+  across chunks with strict `<`. G goes to the kernel in `wgmma`'s
+  shared-memory layout (`mxu_b_operand`), its columns padded to whole
+  chunks with columns that score +inf. Its twin
+  `factor_mxu_reference(tf32=...)`
   sums the eight products left to right in float32; with `tf32=True` it
   first rounds both operands to TF32 (`tf32_round`: to nearest, ties away,
   as `cvt.rna.tf32.f32`), whose products are exact in float32, so only
@@ -132,6 +135,30 @@ def mxu_operands(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor, tf32: bool)
     return feats, gmat
 
 
+def mxu_width(kp: int) -> int:
+    """The columns of `factor_mxu`'s product for kp centroids: kp rounded
+    up to whole chunks of KC."""
+    return -(-kp // KC) * KC
+
+
+def mxu_b_operand(centroids_lab: torch.Tensor) -> torch.Tensor:
+    """`factor_mxu`'s B operand: `[kp_pad * 8]` float32, kp_pad =
+    `mxu_width(kp)`. Each centroid's row `[g0, ..., g6, 0]` of
+    `mxu_operands`' G, rounded to TF32, and for the padded columns
+    `[0, +inf, 0, ...]` (times the feature 1: a score of +inf, which
+    strict `<` never takes). Laid out as `wgmma` reads a K-major operand
+    without swizzle: per 8 centroids, their features 0-3 (an 8 x 16-byte
+    core matrix), then their features 4-7."""
+    gtab = factor_g_table(centroids_lab)
+    kp = gtab.shape[0]
+    kp_pad = mxu_width(kp)
+    rows = torch.zeros((kp_pad, 8), dtype=torch.float32, device=gtab.device)
+    rows[:kp, :7] = gtab
+    rows[kp:, 1] = float("inf")
+    rows = tf32_round(rows)
+    return rows.reshape(kp_pad // 8, 8, 2, 4).permute(0, 2, 1, 3).contiguous().reshape(-1)
+
+
 def _scores(feats: torch.Tensor, gmat: torch.Tensor) -> torch.Tensor:
     """`feats @ gmat` in float32 with each row's eight products summed left
     to right: a fixed order on every device, and no matmul-precision
@@ -157,13 +184,18 @@ def factor_mxu_reference(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor,
     keeps float32 operands (the reference's product on the CPU);
     `tf32=True` rounds them as the tensor cores take them."""
     _check(rgba_u8, centroids_lab)
-    feats, gmat = mxu_operands(rgba_u8, centroids_lab, tf32)
-    kp = gmat.shape[1]
+    best = chunked_argmin(*mxu_operands(rgba_u8, centroids_lab, tf32), kc)
+    return best.to(torch.uint8).reshape(rgba_u8.shape[0], rgba_u8.shape[1])
+
+
+def chunked_argmin(feats: torch.Tensor, gmat: torch.Tensor, kc: int = KC) -> torch.Tensor:
+    """`[N]` int64: per chunk of `kc` columns of `gmat` the first minimum
+    of `_scores`, merged into each row's best with strict `<`."""
     out = []
     for rows in torch.split(feats, _TWIN_ROWS):
         best_d = torch.full((rows.shape[0],), _BIG, dtype=torch.float32, device=rows.device)
         best_k = torch.zeros(rows.shape[0], dtype=torch.int64, device=rows.device)
-        for c0 in range(0, kp, kc):
+        for c0 in range(0, gmat.shape[1], kc):
             s = _scores(rows, gmat[:, c0:c0 + kc])
             i = torch.argmin(s, dim=1)
             d = s.gather(1, i[:, None])[:, 0]
@@ -171,7 +203,7 @@ def factor_mxu_reference(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor,
             best_d = torch.where(take, d, best_d)
             best_k = torch.where(take, i + c0, best_k)
         out.append(best_k)
-    return torch.cat(out).to(torch.uint8).reshape(rgba_u8.shape[0], rgba_u8.shape[1])
+    return torch.cat(out)
 
 
 def near_ties(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor, got: torch.Tensor,
@@ -229,7 +261,7 @@ def factor_vpu(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor) -> torch.Tens
 
 def factor_mxu(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor) -> torch.Tensor:
     """`[H, W]` uint8 nearest index by the factorized score as TF32
-    tensor-core products in chunks of KC; see `factor_mxu_reference`. A CPU
+    `wgmma` products in chunks of KC; see `factor_mxu_reference`. A CPU
     tensor runs the twin with `tf32=True`; a CUDA tensor launches
     `tools/csrc/exp_mxu.cu::factor_mxu_kernel` or raises."""
     _check(rgba_u8, centroids_lab)
@@ -239,13 +271,10 @@ def factor_mxu(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor) -> torch.Tens
     lib = _exp.load_exp_library()
     words = _words(rgba_u8)
     n, kp = words.shape[0], centroids_lab.shape[0]
-    kp_pad = -(-kp // 8) * 8
     out = torch.empty(n, dtype=torch.uint8, device=rgba_u8.device)
     with torch.cuda.device(rgba_u8.device):
-        gtab = factor_g_table(centroids_lab)
-        gmat = torch.zeros((kp_pad, 8), dtype=torch.float32, device=rgba_u8.device)
-        gmat[:kp, :7] = gtab
-        err = lib.exp_factor_mxu(words.data_ptr(), n, gmat.data_ptr(), kp, kp_pad,
+        gb = mxu_b_operand(centroids_lab)
+        err = lib.exp_factor_mxu(words.data_ptr(), n, gb.data_ptr(), kp, gb.numel() // 8,
                                  gamma_lut(rgba_u8.device).data_ptr(), out.data_ptr(),
                                  _exp.stream_of(out))
     _exp.check(lib, err, "factor_mxu")

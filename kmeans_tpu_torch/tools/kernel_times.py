@@ -1,6 +1,6 @@
 """Time the port's kernels of one or more checkouts on a card, in turns.
 
-    python3 kmeans_tpu_torch/tools/kernel_times.py [--fast] [CHECKOUT ...]
+    python3 kmeans_tpu_torch/tools/kernel_times.py [--fast] [--modes GROUPS] [CHECKOUT ...]
 
 builds the kernels of each CHECKOUT (default: this file's checkout) from
 its `kmeans_tpu_torch/csrc/` into this checkout's `build/`, and times them
@@ -31,6 +31,31 @@ image and seeded random palettes:
   a user's do and which time the pruned tier's data-dependent work
   otherwise than random palettes.
 
+`--modes` names the groups to time, comma-separated (default `main`, the
+modes above; `--fast` adds `fast`):
+
+- `threshold`: the dither threshold kernel at k = 1, 8, 2048 and 16384
+  under both metrics, on seeded random palettes and on the palette whose
+  every step updates the walk (`tools/threshold_walk.py::every_step_palette`,
+  `_every_step_` in the name), and 16 random palettes at k = 2048 in one
+  launch. A line `threshold_updates` gives each palette's updates (counted
+  on the card by `threshold_walk.count_updates`), and
+  a line per checkout `threshold_floor_ms` its latency floor: the launch
+  and the first distance (the k = 1 time) plus one step of the
+  every-step palette per update ((t(16384) - t(8)) / 16376 of that
+  checkout: one dependent round).
+- `mxu`: the experiment tool's factor-mxu and factor-vpu at k = 64 and
+  256 on the tool's data (`tools/exp_mxu.py`), each checkout through its
+  own tool module and its own `tools/csrc/` library. factor-mxu's TF32
+  sums may flip near-ties between two kernels, so its lines give
+  `flips_vs_first` and `flips_are_near_ties` against the first checkout
+  instead of `same_outputs`.
+- `gather`: B10's single read at `[128, 128]` (`tools/exp_gather.py`,
+  each table placement) against `torch.take`, in turns (shared,
+  constant, global, take, then the reverse), 50 launches each a turn,
+  each launch after the L2 flush and timed alone: mean, median, standard
+  deviation, least and most. It times this checkout's library once.
+
 A last line, `{"same_outputs": {mode: bool}}`, says for each mode whether
 every checkout's output equals the first one's bit for bit.
 """
@@ -38,7 +63,9 @@ every checkout's output equals the first one's bit for bit.
 import argparse
 import ctypes
 import hashlib
+import importlib.util
 import json
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -65,16 +92,188 @@ class _Declared:
         return entry
 
 
+def add_main(add, rgb, hd, frames, planes, n_valid, palette):
+    """The exact kernels' modes (the default group)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+
+    for k in (8, 64):
+
+        cents = palette(k)
+        add(f"assign_k{k}", lambda c=cents: kernels.assign_packed(rgb, c, 0.0), 20)
+    cents = palette(8)
+    add("assign_cie2000_k8",
+        lambda c=cents: kernels.assign_packed(rgb, c, 0.0, metric="cie2000"), 10)
+    cents = palette(2048)
+    add("rgba_k2048", lambda c=cents: kernels.quantize_rgba(rgb, c, 0.0), 3)
+    for k in (8, 16, 32, 1025):
+        cents = palette(k)
+        add(f"meld_k{k}", lambda c=cents: kernels.meld_packed(rgb, c), 3 if k > 32 else 10)
+    for k in (8, 16, 32):
+        cents = palette(k)
+        add(f"meld_cie2000_k{k}",
+            lambda c=cents: kernels.meld_packed(rgb, c, metric="cie2000"), 5)
+    cents = palette(16384)
+    add("meld_1080p_k16384", lambda c=cents: kernels.meld_packed(hd, c), 3)
+    cents = torch.stack([palette(8) for _ in range(16)])
+    add("meld_frames_k8", lambda c=cents: kernels.meld_frames_packed(frames, c), 10)
+    for k in (8, 64, 256, 512):
+        cents = palette(k)
+        add(f"lloyd_k{k}", lambda c=cents: kernels.lloyd_accumulate(planes, c, n_valid), 10)
+    cents = palette(8)
+    add("lloyd_cie2000_k8",
+        lambda c=cents: kernels.lloyd_accumulate(planes, c, n_valid, metric="cie2000"), 10)
+
+
+def add_fast(add, rgb, frames, planes, n_valid, palette, dev):
+    """The fast tiers' modes (`--fast`)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+
+    for k in (64, 256):
+        cents = palette(k)
+        for metric in ("cie94", "cie2000"):
+            add(f"assign_fast_{metric}_k{k}", lambda c=cents, m=metric: kernels.assign_packed(
+                rgb, c, 0.0, metric=m, fast=True), 5)
+            add(f"meld_fast_{metric}_k{k}", lambda c=cents, m=metric: kernels.meld_packed(
+                rgb, c, metric=m, fast=True), 5)
+            add(f"lloyd_fast_{metric}_k{k}", lambda c=cents, m=metric:
+                kernels.lloyd_accumulate(planes, c, n_valid, metric=m, fast=True), 5)
+        add(f"lloyd_fast_cie94_inertia_k{k}", lambda c=cents: kernels.lloyd_accumulate(
+            planes, c, n_valid, emit_inertia=True, fast=True), 5)
+    # The palettes users meet: trained by `ImageProcessor` (the shrunk
+    # training, no kernel) on `chip_smoke.py`'s 4K gradient-plus-noise
+    # image, whose pixels the kernels then take.
+    from chip_smoke import synthetic_image
+    from kmeans_tpu_torch import Image, ImageProcessor
+
+    image = synthetic_image(2160, 3840)
+    grad = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to(dev)
+    grad_planes, grad_valid = kernels.pack_lab_planes(srgb8_to_lab(grad.reshape(-1, 3)))
+    for k in (64, 256):
+        for metric, delta_e in (("cie94", "94"), ("cie2000", "2000")):
+            cents = ImageProcessor(device="cuda", delta_e=delta_e).extract_palette_kmeans(
+                Image((3840, 2160), image), k).contiguous()
+            add(f"assign_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
+                kernels.assign_packed(grad, c, 0.0, metric=m, fast=True), 5)
+            add(f"meld_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
+                kernels.meld_packed(grad, c, metric=m, fast=True), 5)
+            add(f"lloyd_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
+                kernels.lloyd_accumulate(grad_planes, c, grad_valid, metric=m, fast=True), 5)
+    cents = torch.stack([palette(64) for _ in range(16)])
+    for metric in ("cie94", "cie2000"):
+        add(f"assign_frames_fast_{metric}_k64", lambda c=cents, m=metric:
+            kernels.assign_frames_packed(frames, c, 0.0, metric=m, fast=True), 3)
+        add(f"meld_frames_fast_{metric}_k64", lambda c=cents, m=metric:
+            kernels.meld_frames_packed(frames, c, metric=m, fast=True), 3)
+
+
+THRESHOLD_KS = (1, 8, 2048, 16384)
+THRESHOLD_FRAMES = 16
+
+
+def add_threshold(add, dev) -> dict:
+    """The threshold kernel's modes; returns `{mode: (palette, metric)}`
+    of the single palettes, whose updates `main` counts."""
+    import torch
+
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.ops.quantize import dither_threshold, dither_thresholds
+    from kmeans_tpu_torch.tools.threshold_walk import every_step_palette
+
+    rng = np.random.default_rng(9)
+
+    def palette(k):
+        colors = torch.from_numpy(rng.integers(0, 256, (k, 3), dtype=np.uint8)).to(dev)
+        return srgb8_to_lab(colors).contiguous()
+
+    walks = {}
+    for metric in ("cie94", "cie2000"):
+        for k in THRESHOLD_KS:
+            for kind, pal in (("random", palette(k)), ("every_step", every_step_palette(k, dev))):
+                if kind == "every_step" and k == 1:
+                    continue
+                mode = f"threshold_{metric}_{kind}_k{k}"
+                reps = 3 if k == 16384 and metric == "cie2000" else 10 if k == 16384 else 20
+                add(mode, lambda p=pal, m=metric: dither_threshold(p, metric=m), reps)
+                walks[mode] = (pal, metric)
+        pals = torch.stack([palette(2048) for _ in range(THRESHOLD_FRAMES)])
+        add(f"threshold_{metric}_{THRESHOLD_FRAMES}x_k2048",
+            lambda p=pals, m=metric: dither_thresholds(p, None, m), 10)
+    return walks
+
+
+def add_mxu(add, dev) -> dict:
+    """factor-vpu and factor-mxu on the tool's data, by each checkout's
+    own tool module; returns `{mode: (image, centroids)}`."""
+    import torch
+
+    from kmeans_tpu_torch.tools import exp_mxu
+
+    rng = np.random.default_rng(0)  # the tool's data, drawn in its order
+    img = torch.from_numpy(exp_mxu.random_image(exp_mxu.HEIGHT, exp_mxu.WIDTH, rng)).to(dev)
+    data = {}
+    for kp in exp_mxu.KS:
+        cents = torch.from_numpy(exp_mxu.random_centroids(kp, rng)).to(dev)
+        add(f"factor_vpu_k{kp}", lambda mod, c=cents: mod.factor_vpu(img, c), 10, "exp")
+        add(f"factor_mxu_k{kp}", lambda mod, c=cents: mod.factor_mxu(img, c), 10, "near_ties")
+        data[f"factor_mxu_k{kp}"] = (img, cents)
+    return data
+
+
+def time_gather(dev, flush, card) -> dict:
+    """B10's single read per table placement against `torch.take`, in
+    turns, 50 launches each a turn, each timed alone after the flush."""
+    import torch
+
+    from kmeans_tpu_torch.tools import exp_gather as eg
+
+    table = eg.gamma_table(dev)
+    idx = torch.from_numpy(eg.gather_indices()).to(dev)
+    idx_long = idx.long()  # torch.take indexes by int64
+    forms = {p: (lambda p=p: eg.gather(table, idx, p)) for p in eg.PLACEMENTS}
+    forms["take"] = lambda: torch.take(table, idx_long)
+    order = list(forms)
+    times = {name: [] for name in order}
+    for name in order:
+        forms[name]()
+    for turn in (order, order[::-1]):
+        for name in turn:
+            pairs = []
+            for _ in range(50):
+                flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                forms[name]()
+                end.record()
+                pairs.append((start, end))
+            torch.cuda.synchronize()
+            times[name] += [s.elapsed_time(e) for s, e in pairs]
+    return {"gather_single_read_ms": {
+        "card": card, "launches": {name: len(t) for name, t in times.items()},
+        **{name: {"mean": statistics.fmean(t), "median": statistics.median(t),
+                  "stdev": statistics.stdev(t), "min": min(t), "max": max(t)}
+           for name, t in times.items()}}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("checkouts", nargs="*", default=[str(ROOT)])
     parser.add_argument("--fast", action="store_true", help="also time the fast tiers")
+    parser.add_argument("--modes", default="main",
+                        help="groups to time: main, fast, threshold, mxu, gather")
     args = parser.parse_args()
+    groups = set(args.modes.split(",")) | ({"fast"} if args.fast else set())
 
     import torch
 
     from kmeans_tpu_torch.ops import _build, kernels
     from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.tools import _exp
 
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device available", file=sys.stderr)
@@ -86,8 +285,24 @@ def main() -> int:
         tag = hashlib.sha256(str(root).encode()).hexdigest()[:8]
         return _build.build(root / "kmeans_tpu_torch" / "csrc", f"kernel_times_{tag}")
 
+    def build_exp(root):
+        tag = hashlib.sha256(str(root).encode()).hexdigest()[:8]
+        pkg = root / "kmeans_tpu_torch"
+        return _build.build(pkg / "tools" / "csrc", f"kernel_times_exp_{tag}", pkg / "csrc")
+
     with ThreadPoolExecutor(4) as pool:
         paths = dict(zip(trees, pool.map(build, trees)))
+        exp_paths = dict(zip(trees, pool.map(build_exp, trees))) if "mxu" in groups else {}
+    # Each checkout's own experiment tool module, over its own library.
+    exp_tools = {}
+    for i, (root, path) in enumerate(exp_paths.items()):
+        lib = ctypes.CDLL(str(path))
+        _exp._declare(lib)
+        spec = importlib.util.spec_from_file_location(
+            f"kernel_times_exp_mxu_{i}", root / "kmeans_tpu_torch" / "tools" / "exp_mxu.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        exp_tools[root] = (lib, module)
     declared = _Declared()
     _build._declare_main(declared)
     libs = {}
@@ -114,74 +329,30 @@ def main() -> int:
     planes, n_valid = kernels.pack_lab_planes(srgb8_to_lab(rgb.reshape(-1, 3)))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    # (mode, call, launches timed): every palette drawn once, before the turns.
+    # (mode, call, launches timed, kind): every palette drawn once, before
+    # the turns. A call of kind "exp" takes the checkout's tool module; of
+    # kind "near_ties" also, and its output is compared by near-ties.
     calls = []
 
-    def add(mode, fn, reps):
-        calls.append((mode, fn, reps))
+    def add(mode, fn, reps, kind="main"):
+        calls.append((mode, fn, reps, kind))
 
-    for k in (8, 64):
-        cents = palette(k)
-        add(f"assign_k{k}", lambda c=cents: kernels.assign_packed(rgb, c, 0.0), 20)
-    cents = palette(8)
-    add("assign_cie2000_k8",
-        lambda c=cents: kernels.assign_packed(rgb, c, 0.0, metric="cie2000"), 10)
-    cents = palette(2048)
-    add("rgba_k2048", lambda c=cents: kernels.quantize_rgba(rgb, c, 0.0), 3)
-    for k in (8, 16, 32, 1025):
-        cents = palette(k)
-        add(f"meld_k{k}", lambda c=cents: kernels.meld_packed(rgb, c), 3 if k > 32 else 10)
-    for k in (8, 16, 32):
-        cents = palette(k)
-        add(f"meld_cie2000_k{k}",
-            lambda c=cents: kernels.meld_packed(rgb, c, metric="cie2000"), 5)
-    cents = palette(16384)
-    add("meld_1080p_k16384", lambda c=cents: kernels.meld_packed(hd, c), 3)
-    cents = torch.stack([palette(8) for _ in range(16)])
-    add("meld_frames_k8", lambda c=cents: kernels.meld_frames_packed(frames, c), 10)
-    for k in (8, 64, 256, 512):
-        cents = palette(k)
-        add(f"lloyd_k{k}", lambda c=cents: kernels.lloyd_accumulate(planes, c, n_valid), 10)
-    cents = palette(8)
-    add("lloyd_cie2000_k8",
-        lambda c=cents: kernels.lloyd_accumulate(planes, c, n_valid, metric="cie2000"), 10)
-    if args.fast:
-        for k in (64, 256):
-            cents = palette(k)
-            for metric in ("cie94", "cie2000"):
-                add(f"assign_fast_{metric}_k{k}", lambda c=cents, m=metric: kernels.assign_packed(
-                    rgb, c, 0.0, metric=m, fast=True), 5)
-                add(f"meld_fast_{metric}_k{k}", lambda c=cents, m=metric: kernels.meld_packed(
-                    rgb, c, metric=m, fast=True), 5)
-                add(f"lloyd_fast_{metric}_k{k}", lambda c=cents, m=metric:
-                    kernels.lloyd_accumulate(planes, c, n_valid, metric=m, fast=True), 5)
-            add(f"lloyd_fast_cie94_inertia_k{k}", lambda c=cents: kernels.lloyd_accumulate(
-                planes, c, n_valid, emit_inertia=True, fast=True), 5)
-        # The palettes users meet: trained by `ImageProcessor` (the shrunk
-        # training, no kernel) on `chip_smoke.py`'s 4K gradient-plus-noise
-        # image, whose pixels the kernels then take.
-        from chip_smoke import synthetic_image
-        from kmeans_tpu_torch import Image, ImageProcessor
+    if "main" in groups:
+        add_main(add, rgb, hd, frames, planes, n_valid, palette)
+    if "fast" in groups:
+        add_fast(add, rgb, frames, planes, n_valid, palette, dev)
+    walks, updates, mxu_data = {}, {}, {}
+    if "threshold" in groups:
+        from kmeans_tpu_torch.tools.threshold_walk import count_updates
 
-        image = synthetic_image(2160, 3840)
-        grad = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to(dev)
-        grad_planes, grad_valid = kernels.pack_lab_planes(srgb8_to_lab(grad.reshape(-1, 3)))
-        for k in (64, 256):
-            for metric, delta_e in (("cie94", "94"), ("cie2000", "2000")):
-                cents = ImageProcessor(device="cuda", delta_e=delta_e).extract_palette_kmeans(
-                    Image((3840, 2160), image), k).contiguous()
-                add(f"assign_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
-                    kernels.assign_packed(grad, c, 0.0, metric=m, fast=True), 5)
-                add(f"meld_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
-                    kernels.meld_packed(grad, c, metric=m, fast=True), 5)
-                add(f"lloyd_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
-                    kernels.lloyd_accumulate(grad_planes, c, grad_valid, metric=m, fast=True), 5)
-        cents = torch.stack([palette(64) for _ in range(16)])
-        for metric in ("cie94", "cie2000"):
-            add(f"assign_frames_fast_{metric}_k64", lambda c=cents, m=metric:
-                kernels.assign_frames_packed(frames, c, 0.0, metric=m, fast=True), 3)
-            add(f"meld_frames_fast_{metric}_k64", lambda c=cents, m=metric:
-                kernels.meld_frames_packed(frames, c, metric=m, fast=True), 3)
+        walks = add_threshold(add, dev)
+        for mode, (pal, metric) in walks.items():
+            updates[mode] = count_updates(pal, metric)
+        print(json.dumps({"threshold_updates": updates}), flush=True)
+    if "mxu" in groups:
+        from kmeans_tpu_torch.tools import exp_mxu
+
+        mxu_data = add_mxu(add, dev)
 
     def ms(fn, reps):
         fn()
@@ -202,21 +373,57 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    digests = {}
+    digests, first_out, flips = {}, {}, {}
     for root in roots:
         _build._libs[_build.MAIN_NAME] = libs[root]
+        if root in exp_tools:
+            _build._libs[_exp.EXP_NAME] = exp_tools[root][0]
         out = {"checkout": str(root), "card": card}
-        for mode, fn, reps in calls:
-            words = fn()
+        for mode, fn, reps, kind in calls:
+            call = fn if kind == "main" else (lambda fn=fn: fn(exp_tools[root][1]))
+            got = call()
             torch.cuda.synchronize()
-            digest = hashlib.sha256(words.contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
-            digests.setdefault(mode, set()).add(digest)
-            out[f"{mode}_ms"] = ms(fn, reps)
+            if kind == "near_ties":
+                if mode not in first_out:
+                    first_out[mode] = got
+                else:
+                    img, cents = mxu_data[mode]
+                    flips.setdefault(mode, []).append(exp_mxu.near_ties(
+                        img, cents, got, first_out[mode], tf32=True))
+            else:
+                digest = hashlib.sha256(
+                    got.reshape(-1).contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+                digests.setdefault(mode, set()).add(digest)
+            out[f"{mode}_ms"] = ms(call, reps)
         print(json.dumps(out), flush=True)
+        if walks:
+            print(json.dumps({"threshold_floor_ms": threshold_floor(out, updates)}), flush=True)
     del _build._libs[_build.MAIN_NAME]
+    _build._libs.pop(_exp.EXP_NAME, None)
+    if flips:
+        print(json.dumps({"flips_vs_first": {m: [f for f, _ in v] for m, v in flips.items()},
+                          "flips_are_near_ties": {m: all(n for _, n in v)
+                                                  for m, v in flips.items()}}), flush=True)
+    if "gather" in groups:
+        print(json.dumps(time_gather(dev, flush, card)), flush=True)
     print(json.dumps({"same_outputs": {mode: len(d) == 1 for mode, d in digests.items()}}),
           flush=True)
     return 0
+
+
+def threshold_floor(times: dict, updates: dict) -> dict:
+    """Each threshold mode's latency floor from one checkout's times: the
+    k = 1 launch plus one every-step round per update."""
+    floors = {}
+    for metric in ("cie94", "cie2000"):
+        big, small = (f"threshold_{metric}_every_step_k{k}_ms" for k in (16384, 8))
+        step = (times[big] - times[small]) / (16384 - 8)
+        launch = times[f"threshold_{metric}_random_k1_ms"]
+        floors[f"{metric}_step"] = step
+        for mode, n in updates.items():
+            if f"_{metric}_" in mode:
+                floors[mode] = launch + n * step
+    return floors
 
 
 if __name__ == "__main__":

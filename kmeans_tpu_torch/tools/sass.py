@@ -10,7 +10,13 @@ smallest loop around the first 16-byte shared load of a centroid
 so its length over the tile's pixel count is the instructions one
 pixel-centroid pair costs. Both need the CUDA
 toolkit (`nvcc`, `cuobjdump`); `chip_smoke.py` prints them on the card's
-machine.
+machine. `kernel_report(source, opcodes)` compiles one source alone and
+gives, per kernel instance, its resources, the compiler's warnings, its
+opcode counts and the loop around a given opcode;
+
+    python -m kmeans_tpu_torch.tools.sass SOURCE ... [--include DIR] [--loop NAME=OPCODE]
+
+prints it for any checkout's sources.
 """
 
 from __future__ import annotations
@@ -45,23 +51,41 @@ def short_name(mangled: str) -> str:
     return mangled
 
 
-def ptxas_report(source: Path) -> list[dict]:
-    """Registers, stack frame and spill bytes of each kernel instance of
-    `source`, compiled with the library's flags and `-Xptxas -v`."""
-    nvcc = _build.find_nvcc()
-    with tempfile.TemporaryDirectory() as work:
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC), "-c",
-               "-o", str(Path(work) / "k.o"), str(source)]
-        done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              timeout=600)
+def _compile(source: Path, obj: Path, include: Path | None = None) -> str:
+    """Compile `source` to `obj` with the library's flags and `-Xptxas -v`;
+    return the compiler's output."""
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+           str(include or _build.CSRC), "-c", "-o", str(obj), str(source)]
+    done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=600)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed ({done.returncode}): {' '.join(cmd)}\n{done.stdout}")
+    return done.stdout
+
+
+def ptxas_rows(output: str) -> list[dict]:
+    """Registers, stack frame and spill bytes of each kernel instance in
+    `-Xptxas -v` output."""
     return [
         {"kernel": short_name(m.group(1)), "registers": int(m.group(5)),
          "stack_bytes": int(m.group(2)), "spill_store_bytes": int(m.group(3)),
          "spill_load_bytes": int(m.group(4))}
-        for m in _PTXAS.finditer(done.stdout)
+        for m in _PTXAS.finditer(output)
     ]
+
+
+def ptxas_warnings(output: str) -> list[str]:
+    """The compiler's warnings and its notes of a lost overlap: a `wgmma`
+    it serialized ("Potential Performance Loss") or a wait it injected."""
+    keys = ("warning", "performance loss", "is injected")
+    return [line.strip() for line in output.splitlines() if any(k in line.lower() for k in keys)]
+
+
+def ptxas_report(source: Path) -> list[dict]:
+    """Registers, stack frame and spill bytes of each kernel instance of
+    `source`, compiled with the library's flags and `-Xptxas -v`."""
+    with tempfile.TemporaryDirectory() as work:
+        return ptxas_rows(_compile(source, Path(work) / "k.o"))
 
 
 def _functions(sass: str) -> dict[str, list[tuple[int, str]]]:
@@ -83,18 +107,91 @@ def _opcode(instruction: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", instruction).split()[0]
 
 
+def _sass(binary: Path) -> str:
+    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(binary)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, check=True, timeout=600).stdout
+
+
 def centroid_loops(library: Path, pattern: str = "_kernel",
                    require: dict[str, str] | None = None) -> dict[str, dict]:
     """`centroid_loop` of each kernel instance of `library` (`cuobjdump
     -sass`) whose name holds `pattern`; `require` maps a name prefix to
     the opcode prefix its loop must hold."""
-    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(library)], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True, check=True, timeout=600).stdout
     require = require or {}
     return {name: centroid_loop(instructions, next(
                 (op for prefix, op in require.items() if name.startswith(prefix)), None))
-            for name, instructions in _functions(sass).items() if pattern in name}
+            for name, instructions in _functions(_sass(library)).items() if pattern in name}
+
+
+def loop_with(instructions: list[tuple[int, str]], opcode: str) -> dict | None:
+    """The smallest loop (a backward branch and its target) that holds, for
+    each of the `+`-separated prefixes of `opcode`, an instruction whose
+    opcode starts with it (`PREFIX*N`: N of them), with its instruction
+    count and its counts by opcode; None without one."""
+    wants = [(w.partition("*")[0], int(w.partition("*")[2] or 1)) for w in opcode.split("+")]
+    spans = []
+    for addr, ins in instructions:
+        m = _BACKWARD.search(ins)
+        if not (m and m.group(1)):
+            continue
+        lo = int(m.group(1), 16)
+        inside = [_opcode(i) for a, i in instructions if lo <= a <= addr]
+        if all(sum(op.startswith(want) for op in inside) >= n for want, n in wants):
+            spans.append((lo, addr))
+    if not spans:
+        return None
+    lo, hi = min(spans, key=lambda span: span[1] - span[0])
+    ops = collections.Counter(_opcode(ins) for addr, ins in instructions if lo <= addr <= hi)
+    return {"start": hex(lo), "instructions": sum(ops.values()), "opcodes": dict(ops.most_common())}
+
+
+def kernel_report(source: Path, opcodes: dict[str, str],
+                  include: Path | None = None) -> list[dict]:
+    """For each kernel instance of `source` (compiled alone, with the
+    library's flags): its `ptxas` resources, the compiler's warnings, the
+    count of every opcode in the whole kernel, and `loop_with` of the
+    opcode that `opcodes` maps its name's prefix to (e.g. the round loop
+    of the threshold kernel by its `VOTE`, the chunk loop of factor-mxu by
+    its `HGMMA`)."""
+    with tempfile.TemporaryDirectory() as work:
+        obj = Path(work) / "k.o"
+        output = _compile(source, obj, include)
+        functions = _functions(_sass(obj))
+    rows = {row["kernel"]: row for row in ptxas_rows(output)}
+    warnings = ptxas_warnings(output)
+    out = []
+    for name, instructions in functions.items():
+        op = next((v for prefix, v in opcodes.items() if name.startswith(prefix)), None)
+        out.append({**rows.get(name, {"kernel": name}), "warnings": warnings,
+                    "kernel_opcodes": dict(collections.Counter(
+                        _opcode(i) for _, i in instructions).most_common()),
+                    "loop_opcode": op, "loop": loop_with(instructions, op) if op else None})
+    return out
+
+
+def main(argv=None) -> int:
+    """`python -m kmeans_tpu_torch.tools.sass SOURCE [SOURCE ...] [--include
+    DIR] [--loop PREFIX=OPCODE ...]`: one JSON line of `kernel_report` per
+    kernel instance of each source."""
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    parser.add_argument("sources", nargs="+", type=Path)
+    parser.add_argument("--include", type=Path, default=None)
+    parser.add_argument("--loop", action="append", default=[],
+                        help="kernel name prefix=opcode prefix of its loop")
+    args = parser.parse_args(argv)
+    opcodes = dict(item.split("=", 1) for item in args.loop)
+    for source in args.sources:
+        for row in kernel_report(source, opcodes, args.include):
+            print(json.dumps({"source": str(source), **row}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
 
 
 def centroid_loop(instructions: list[tuple[int, str]], require: str | None = None) -> dict | None:

@@ -566,6 +566,79 @@ def test_dither_threshold_kernel_matches_twin(cuda, k, metric):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+THRESHOLD_KINDS = ("random", "every_step", "duplicates", "nan_inf", "k_active")
+
+
+def _threshold_palette(kind, k, seed, device):
+    """`(palette [k, 3], k_active)` of one adversarial kind for the
+    threshold's first-trigger scan (as `tests/test_torch_threshold_scan.py`)."""
+    from kmeans_tpu_torch.tools.threshold_walk import every_step_palette
+
+    rng = np.random.default_rng(seed)
+    if kind == "every_step":
+        return every_step_palette(k, device), k
+    pal = np.stack([rng.uniform(0, 100, k), rng.uniform(-60, 60, k),
+                    rng.uniform(-60, 60, k)], axis=1).astype(np.float32)
+    if kind == "duplicates" and k > 1:
+        pal[k // 2:] = pal[: k - k // 2]
+        pal[rng.integers(0, k, k // 3)] = pal[0]
+    if kind == "nan_inf":
+        specials = (np.nan, np.inf, -np.inf)
+        for i in rng.choice(k, min(k, 3), replace=False):
+            pal[i, rng.integers(0, 3)] = specials[rng.integers(0, 3)]
+    k_active = max(1, int(rng.integers(1, k + 1))) if kind == "k_active" else k
+    return torch.from_numpy(pal).to(device), k_active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+@pytest.mark.parametrize("kind", THRESHOLD_KINDS)
+@pytest.mark.parametrize("k", [1, 2, 3, 33, 700])
+def test_threshold_scan_adversarial(cuda, k, kind, metric):
+    from kmeans_tpu_torch.ops.quantize import dither_threshold_reference
+
+    pal, k_active = _threshold_palette(kind, k, 1200 + k, cuda)
+    got = dither_threshold(pal, k_active, metric)
+    want = dither_threshold_reference(pal, k_active, metric)
+    assert got.view(torch.int32) == want.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+def test_threshold_scan_ragged_frames(cuda, metric):
+    """B = 6 palettes of every kind in one launch, each with its own
+    `k_active` (1, 2 and 3 among them)."""
+    from kmeans_tpu_torch.ops.quantize import dither_thresholds_reference
+
+    pals = torch.stack([_threshold_palette(kind, 300, 1300 + f, cuda)[0]
+                        for f, kind in enumerate(THRESHOLD_KINDS + ("random",))])
+    k_actives = [300, 1, 2, 3, 150, 299]
+    got = dither_thresholds(pals, k_actives, metric)
+    want = dither_thresholds_reference(pals, k_actives, metric)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,k", [(37, 53, 61), (61, 97, 3), (13, 7, 129), (1, 1, 1),
+                                   (64, 130, 256), (5, 3, 200)])
+def test_factor_mxu_ragged(cuda, h, w, k):
+    """factor-mxu on pixel counts that fill no whole 128-pixel step and
+    palettes of no whole 8 or 64 columns: every index a real column, every
+    flip against the TF32 twin a near-tie."""
+    from kmeans_tpu_torch.tools import exp_mxu
+
+    rng = np.random.default_rng(70 + k)
+    img = torch.from_numpy(exp_mxu.random_image(h, w, rng)).to(cuda)
+    cents = torch.from_numpy(exp_mxu.random_centroids(k, rng)).to(cuda)
+    before = kernels.launches("exp_factor_mxu")
+    mxu = exp_mxu.factor_mxu(img, cents)
+    assert kernels.launches("exp_factor_mxu") == before + 1
+    assert int(mxu.max()) < k
+    want = exp_mxu.factor_mxu_reference(img, cents, tf32=True)
+    flips, near = exp_mxu.near_ties(img, cents, mxu, want, tf32=True)
+    assert near and flips <= max(1, h * w // 100)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,k", [(8, 16, 64), (40, 100, 256), (37, 53, 100)])
 def test_exp_mxu_kernels_match_twins(cuda, h, w, k):

@@ -150,3 +150,36 @@ def test_tool_refuses_to_time_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--cpu"):
         exp_mxu.main([])
+
+
+@pytest.mark.parametrize("kp", [1, 3, 61, 64, 100, 129, 256])
+def test_b_operand_inverts_to_the_product_g(kp):
+    """`mxu_b_operand` (the kernel's `wgmma` layout) read back as rows is
+    `mxu_operands`' TF32 G, and each padded column is `[0, +inf, 0, ...]`."""
+    rgba, cents = _inputs(4, 8, kp, seed=kp)
+    img, c = torch.from_numpy(rgba), torch.from_numpy(cents)
+    gb = exp_mxu.mxu_b_operand(c)
+    kp_pad = exp_mxu.mxu_width(kp)
+    assert gb.dtype == torch.float32 and tuple(gb.shape) == (kp_pad * 8,)
+    rows = gb.reshape(kp_pad // 8, 2, 8, 4).permute(0, 2, 1, 3).reshape(kp_pad, 8)
+    _, gmat = exp_mxu.mxu_operands(img, c, tf32=True)
+    assert torch.equal(rows[:kp].T.contiguous().view(torch.int32), gmat.view(torch.int32))
+    pad = rows[kp:]
+    assert bool((pad[:, 1] == float("inf")).all())
+    assert bool((pad[:, [0, 2, 3, 4, 5, 6, 7]] == 0).all())
+
+
+@pytest.mark.parametrize("h,w,kp", [(8, 16, 1), (8, 16, 3), (40, 100, 61), (40, 100, 100),
+                                    (8, 16, 129)])
+def test_twin_never_picks_a_padded_column(h, w, kp):
+    """The TF32 twin over the kernel's padded G (every KC-column chunk, the
+    +inf columns included) picks what it picks over the kp columns."""
+    rgba, cents = _inputs(h, w, kp, seed=3 * kp)
+    img, c = torch.from_numpy(rgba), torch.from_numpy(cents)
+    kp_pad = exp_mxu.mxu_width(kp)
+    rows = exp_mxu.mxu_b_operand(c).reshape(kp_pad // 8, 2, 8, 4).permute(0, 2, 1, 3)
+    feats, _ = exp_mxu.mxu_operands(img, c, tf32=True)
+    padded = exp_mxu.chunked_argmin(feats, rows.reshape(kp_pad, 8).T.contiguous())
+    assert int(padded.max()) < kp
+    want = exp_mxu.factor_mxu_reference(img, c, tf32=True)
+    assert torch.equal(padded.to(torch.uint8).reshape(h, w), want)

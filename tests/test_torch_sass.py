@@ -108,6 +108,29 @@ def test_centroid_loop_with_a_required_opcode():
     assert sass.centroid_loop(instructions, "HMMA") is None
 
 
+def test_loop_with_counted_opcodes():
+    """`loop_with` takes the smallest loop holding every `+`-separated
+    opcode prefix, `PREFIX*N` at least N times (the threshold's round loop:
+    its vote and five square roots)."""
+    body = """
+        /*0000*/                   MUFU.RSQ R1, R2 ;
+        /*0010*/                   VOTE.ANY R0, PT, P0 ;
+        /*0020*/                   MUFU.RSQ R3, R4 ;
+        /*0030*/              @!P1 BRA 0x10 ;
+        /*0040*/                   MUFU.RSQ R5, R6 ;
+        /*0050*/              @!P2 BRA 0x0 ;
+        /*0060*/                   EXIT ;
+"""
+    instructions = [(int(m.group(1), 16), m.group(2))
+                    for m in map(sass._INSTRUCTION.match, body.splitlines()) if m]
+    assert sass.loop_with(instructions, "VOTE+MUFU.RSQ")["start"] == "0x10"
+    loop = sass.loop_with(instructions, "VOTE+MUFU.RSQ*3")
+    assert loop["start"] == "0x0" and loop["instructions"] == 6
+    assert loop["opcodes"] == {"MUFU.RSQ": 3, "VOTE.ANY": 1, "BRA": 2}
+    assert sass.loop_with(instructions, "MUFU.RSQ*4") is None
+    assert sass.loop_with(instructions, "HGMMA") is None
+
+
 def test_chip_smoke_tile_sizes_match_the_sources():
     """`chip_smoke.py` divides a centroid loop's length by the pixel-
     centroid pairs an iteration visits: its table must hold the sources'
