@@ -101,6 +101,21 @@ then:
    (`kmeans_tpu_torch.tools.exp_gather`: each table placement returns the
    table's bits, the lut sums equal their twin, the pow sums their twin's
    bits or counted ulps, times beside `torch.take`);
+   Then the bucketing slice (`ImageProcessor(device="cuda",
+   bucketing=True)`): bucketed `find`, `find_batch` and `find_many` equal
+   to unbucketed `find` at 3840x2160, 1920x1080, 1080x1350 and 37x53 with
+   16 and 5 colours; bucketed `reduce` at k = 8 and 5 (replace, dither,
+   meld; 4K and 1080p), each output equal to the plain version's for its
+   trained palette, with its agreement with the unbucketed port and its
+   launches by kernel mode; the full-resolution bucketed reduce of 1080p
+   on the weighted accumulator (launches, counts against the twin's and
+   the unpadded image's); `reduce_many` of 16 mixed images (three
+   buckets) in turns with 16 `reduce` calls (images/s, launches, host
+   syncs, outputs against the solo calls) and `palette_many`; `warmup`
+   timed in fresh processes (`python3 chip_smoke.py --warmup-probe
+   warmup|none`: the library built anew inside it, then warm; the first
+   `reduce` after it against a fresh process's first); a 300x420
+   bucketed reduce on the card against the CPU;
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
@@ -1950,7 +1965,7 @@ def update_cost(image, device, card) -> None:
     from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
     from kmeans_tpu_torch.ops.resize import resize_uint8
 
-    def update_f32(pixels, assign, k):
+    def update_f32(pixels, assign, k, weight=None):  # unweighted here
         onehot = torch.zeros((pixels.shape[0], k), dtype=torch.float32,
                              device=pixels.device).scatter_(1, assign[:, None], 1.0)
         return onehot.T @ pixels, onehot.sum(dim=0)
@@ -2272,6 +2287,379 @@ def srgb_step_check(device) -> None:
           "differ": out["differ"], "steps_equal_committed": same, "seconds": out["seconds"]})
     if out["broken"] or out["differ"] or not same:
         raise AssertionError("the sRGB step points do not give powf's bytes")
+
+
+# --- The bucketing slice --------------------------------------------------------
+
+# The sizes of the bucketing slice: 4K, 1080p, a 4:5 portrait and a
+# small odd size (37x53 pads off the Bayer period); (height, width).
+BUCKET_SIZES = ((2160, 3840), (1080, 1920), (1350, 1080), (37, 53))
+BUCKET_FIND_KS = (16, 5)  # 5 pads to the k bucket 8
+# A smoke mix of three buckets (1280x2048, 768x1280, 1536x1280).
+MANY_BATCH = ((1080, 1920, 8), (720, 1280, 4), (1350, 1080, 4))
+WARMUP_SIZES = ((1920, 1080), (1280, 720), (1080, 1350))  # (width, height)
+
+
+def _bucket_frame(h, w, seed):
+    """An image of `h`x`w`: the synthetic gradient-plus-noise frame
+    with its channels rolled by the seed, so images of one size differ."""
+    img = synthetic_image(h, w, seed=seed)
+    img[..., :3] = np.roll(img[..., :3], seed % 3, axis=-1)
+    return img
+
+
+def _pixels_equal(a, b) -> float:
+    return float((a == b).all(-1).mean())
+
+
+def _bucketed_plain(bproc, image, k, mode):
+    """The plain version of a bucketed reduce's output: the bucketed
+    training again (deterministic on the card), then the plain twin of the
+    output pass on the padded image with `k_active = k`, unpacked and
+    cropped as the entry point does."""
+    from kmeans_tpu_torch.api import _lab_palette_to_u8, _unpack_gather, _unpack_meld
+    from kmeans_tpu_torch.image import Image
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.quantize import dither_threshold
+    from kmeans_tpu_torch.utils.bucketing import bucket_k, bucket_shape
+
+    h, w = image.shape[:2]
+    bh, bw = bucket_shape(h, w)
+    kp = bucket_k(k)
+    dev = bproc._upload_padded([Image((w, h), image)], bh, bw)[0]
+    cents = bproc._train_bucketed(dev, kp, w, h, k)
+    if mode == "meld":
+        words = kernels.meld_packed_reference(dev, cents, k)
+        return _unpack_meld(words.cpu().numpy(), bh, bw, kp)[:h, :w]
+    thr = dither_threshold(cents, k) if mode == "dither" else 0.0
+    words = kernels.assign_packed_reference(dev, cents, thr, k, mode=mode)
+    return _unpack_gather(words.cpu().numpy(), bh, bw, kp,
+                          _lab_palette_to_u8(cents)[0].cpu().numpy())[:h, :w]
+
+
+def _count_syncs(call):
+    """`(result, host synchronisations)` of `call()`: torch's sync debug
+    mode warns once for each operation that waits for the card."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = call()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def bucketing_find(device) -> dict:
+    """Bucketed `find`, `find_batch` and `find_many` against unbucketed
+    `find` on the card: every pixel equal, replace and dither, 16 and 5
+    colours (k bucket 16 and 8), at the slice's sizes. Returns the
+    launches by kernel mode of the bucketed calls (each counted from 0
+    just before it; the unbucketed calls it is held against are not
+    counted)."""
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+
+    bproc, uproc = ImageProcessor(device="cuda", bucketing=True), ImageProcessor(device="cuda")
+    images = {(h, w): _bucket_frame(h, w, 50 + i) for i, (h, w) in enumerate(BUCKET_SIZES)}
+    twins = {size: _bucket_frame(*size, 60 + i) for i, size in enumerate(BUCKET_SIZES[1:])}
+    counts: dict = {}
+
+    def counted(call):
+        reset_launch_counts()
+        out = call()
+        launches = mode_counts()
+        for key, n in launches.items():
+            counts[key] = counts.get(key, 0) + n
+        return out, launches
+
+    def differing(got, frames, colors, mode):
+        return sum(int((g.pixels != uproc.find(f, colors, mode).pixels).any(-1).sum())
+                   for g, f in zip(got, frames))
+
+    failures = []
+    for k in BUCKET_FIND_KS:
+        colors = np.random.default_rng(SEED + k).integers(0, 256, (k, 3), dtype=np.uint8)
+        for mode in (ReduceMode.REPLACE, ReduceMode.DITHER):
+            for (h, w), img in images.items():
+                got, _ = counted(lambda: bproc.find(img, colors, mode))
+                differ = differing([got], [img], colors, mode)
+                emit({"phase": "bucketing_find", "call": "find", "size": [h, w], "k": k,
+                      "mode": mode.value, "differing_pixels": differ})
+                if differ:
+                    failures.append(f"find {h}x{w} k={k} {mode.value}: {differ}")
+            # find_batch: two frames of each size; find_many: all sizes, the
+            # 4K image alone in its bucket, the others in pairs.
+            for size, twin in twins.items():
+                pair = [images[size], twin]
+                got, _ = counted(lambda: bproc.find_batch(pair, colors, mode))
+                differ = differing(got, pair, colors, mode)
+                emit({"phase": "bucketing_find", "call": "find_batch", "size": list(size),
+                      "k": k, "mode": mode.value, "differing_pixels": differ})
+                if differ:
+                    failures.append(f"find_batch {size} k={k} {mode.value}: {differ}")
+            many = list(images.values()) + list(twins.values())
+            got, launches = counted(lambda: bproc.find_many(many, colors, mode))
+            differ = differing(got, many, colors, mode)
+            emit({"phase": "bucketing_find", "call": "find_many", "images": len(many), "k": k,
+                  "mode": mode.value, "differing_pixels": differ, "launches": launches})
+            if differ:
+                failures.append(f"find_many k={k} {mode.value}: {differ}")
+    if failures:
+        raise AssertionError("bucketed find differs from find: " + "; ".join(failures))
+    return counts
+
+
+def bucketing_reduce(device) -> dict:
+    """Bucketed `reduce` at k = 8 and 5 (k bucket 8, three masked rows) in
+    replace, dither and meld on the 4K image and 1080p: each output equals
+    the plain version's for its trained palette; the palette's agreement
+    with the unbucketed port (u8) and the share of equal pixels are
+    printed. Then the full-resolution bucketed reduce(8) of 1080p (the
+    1280x2048 canvas, 21% of it weight 0) through the weighted
+    accumulator: its launches, and its counts on the same weighted canvas
+    against the twin's and against the unpadded image's. Returns the
+    launches by kernel mode."""
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.models.kmeans import _weight_plane
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.utils.bucketing import bucket_shape
+
+    bproc, uproc = ImageProcessor(device="cuda", bucketing=True), ImageProcessor(device="cuda")
+    counts: dict = {}
+    for h, w in BUCKET_SIZES[:2]:
+        img = _bucket_frame(h, w, 70)
+        for k in (8, 5):
+            step = int(np.abs(bproc.palette(k, img).astype(int)
+                              - uproc.palette(k, img).astype(int)).max())
+            for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+                reset_launch_counts()
+                out = bproc.reduce(k, img, reduce_mode=mode).pixels
+                launches = mode_counts()
+                for key, n in launches.items():
+                    counts[key] = counts.get(key, 0) + n
+                plain = _bucketed_plain(bproc, img, k, mode.value)
+                differ = int((plain != out).any(-1).sum())
+                line = {"phase": "bucketing_reduce", "size": [h, w], "k": k,
+                        "mode": mode.value, "colors": len(unique_rgba(out)),
+                        "differing_from_plain": differ, "launches": launches,
+                        "palette_max_u8_step_vs_unbucketed": step,
+                        "pixels_equal_to_unbucketed": _pixels_equal(
+                            out, uproc.reduce(k, img, reduce_mode=mode).pixels)}
+                emit(line)
+                if differ or out.shape != (h, w, 4) or (
+                        mode is not ReduceMode.MELD and line["colors"] > k):
+                    raise AssertionError(f"bucketed reduce: {line}")
+    # Full resolution: the weighted accumulator on the padded canvas.
+    h, w = BUCKET_SIZES[1]
+    img = _bucket_frame(h, w, 71)
+    full = ImageProcessor(device="cuda", bucketing=True, train_max_size=None)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = full.reduce(K, img).pixels
+    seconds = time.perf_counter() - t0
+    launches = mode_counts()
+    for key, n in launches.items():
+        counts[key] = counts.get(key, 0) + n
+    bh, bw = bucket_shape(h, w)
+    dev = full._upload_padded([Image((w, h), img)], bh, bw)[0]
+    cents = full._train_bucketed(dev, K, w, h, K)
+    work, weight = full._canvas_lab(dev[None], (bh, bw), [h], [w], [h], [w])
+    planes, n_valid = kernels.pack_lab_planes(work[0])
+    wplane = _weight_plane(weight[0])
+    got = kernels.lloyd_accumulate(planes, cents, n_valid, weight_planes=wplane)
+    want = kernels.lloyd_accumulate_reference(planes, cents, n_valid, weight_planes=wplane)
+    alone, n_alone = kernels.pack_lab_planes(srgb8_to_lab(
+        torch.from_numpy(np.ascontiguousarray(img[..., :3])).to(device).reshape(-1, 3)))
+    unpadded = kernels.lloyd_accumulate(alone, cents, n_alone)
+    plain = _bucketed_plain(full, img, K, "replace")
+    scale = want.double().abs() + 128.0 * want[:, 3:4].double()
+    line = {
+        "phase": "bucketing_full_res", "size": [h, w], "canvas": [bh, bw],
+        "weight_zero_share": 1 - h * w / (bh * bw), "iterations": full.last_iterations,
+        "seconds": seconds, "launches": launches,
+        "counts_equal_twin": bool(torch.equal(got[:, 3], want[:, 3])),
+        "counts_equal_unpadded": bool(torch.equal(got[:, 3], unpadded[:, 3])),
+        "max_err_over_scale": float(((got.double() - want.double()).abs() / scale).max()),
+        "differing_from_plain": int((plain != out).any(-1).sum()),
+    }
+    emit(line)
+    if (launches.get("lloyd_accumulate cie94 exact", 0) != full.last_iterations
+            or not line["counts_equal_twin"] or not line["counts_equal_unpadded"]
+            or line["max_err_over_scale"] > 1e-5 or line["differing_from_plain"]):
+        raise AssertionError(f"full-resolution bucketed reduce: {line}")
+    return counts
+
+
+def bucketing_many(card: str) -> dict:
+    """`reduce_many` of a smoke mix of 16 images (8 of 1920x1080, 4 of
+    1280x720, 4 of 1080x1350 at k = 8, replace: three buckets) in turns
+    with 16 sequential bucketed `reduce` calls, median of 3 each: images/s,
+    kernel launches and host synchronisations each way; every output and
+    every `palette_many` palette against the solo call's; the phases of
+    each way and a profiled call of each (the device's idle share).
+    Returns the coalesced run's launches by kernel mode."""
+    from kmeans_tpu_torch import ImageProcessor
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    bproc = ImageProcessor(device="cuda", bucketing=True)
+    batch = [_bucket_frame(h, w, 80 + 10 * j + i)
+             for j, (h, w, n) in enumerate(MANY_BATCH) for i in range(n)]
+    reset_launch_counts()
+    coalesced, many_syncs = _count_syncs(lambda: bproc.reduce_many(batch, K))
+    many_launches = mode_counts()
+    reset_launch_counts()
+    solo, solo_syncs = _count_syncs(lambda: [bproc.reduce(K, im) for im in batch])
+    solo_launches = mode_counts()
+    differ = sum(int((a.pixels != b.pixels).any(-1).sum()) for a, b in zip(coalesced, solo))
+    reset_launch_counts()
+    pals = bproc.palette_many(batch, K)
+    pal_launches = mode_counts()
+    pal_equal = all((p == bproc.palette(K, im)).all() for p, im in zip(pals, batch))
+    runs = {"reduce_many": [], "reduce": []}
+    for _ in range(3):
+        for what in runs:
+            phases: dict = {}
+            t0 = time.perf_counter()
+            with collect_phases(phases):
+                if what == "reduce_many":
+                    bproc.reduce_many(batch, K)
+                else:
+                    for im in batch:
+                        bproc.reduce(K, im)
+            runs[what].append((time.perf_counter() - t0, phases))
+    med = {what: statistics.median(r[0] for r in rs) for what, rs in runs.items()}
+    phase_ms = {what: {name: statistics.median(r[1].get(name, 0.0) for r in rs) * 1e3
+                       for name in ("host_prep", "upload", "device", "lloyd_sync", "readback",
+                                    "unpack")}
+                for what, rs in runs.items()}
+    line = {
+        "phase": "timing", "what": "reduce_many of 16 mixed images (8 1920x1080, 4 1280x720, "
+        "4 1080x1350) k=8 replace against 16 bucketed reduce calls, median of 3 in turns",
+        "card": card, "reduce_many_ms": med["reduce_many"] * 1e3,
+        "reduce_ms": med["reduce"] * 1e3,
+        "reduce_many_ms_each": [r[0] * 1e3 for r in runs["reduce_many"]],
+        "reduce_ms_each": [r[0] * 1e3 for r in runs["reduce"]],
+        "reduce_many_phases_ms": phase_ms["reduce_many"], "reduce_phases_ms": phase_ms["reduce"],
+        "reduce_many_images_per_s": len(batch) / med["reduce_many"],
+        "reduce_images_per_s": len(batch) / med["reduce"],
+        "launches_reduce_many": many_launches, "launches_reduce": solo_launches,
+        "syncs_reduce_many": many_syncs, "syncs_reduce": solo_syncs,
+        "differing_pixels_vs_solo": differ, "pixels": sum(im.shape[0] * im.shape[1]
+                                                          for im in batch),
+        "palette_many_launches": pal_launches, "palette_many_equal_solo": bool(pal_equal),
+    }
+    emit(line)
+    if differ or not pal_equal:
+        raise AssertionError(f"reduce_many / palette_many against solo calls: {line}")
+    if many_launches.get("assign_frames_packed cie94 exact", 0) != 3:
+        raise AssertionError(f"reduce_many took {many_launches}, want 3 frames launches")
+    emit(profile_call(lambda: bproc.reduce_many(batch, K), card,
+                      "reduce_many of the 16 mixed images"))
+    emit(profile_call(lambda: [bproc.reduce(K, im) for im in batch], card,
+                      "16 bucketed reduce calls of the mixed images"))
+    return many_launches
+
+
+def warmup_probe(kind: str) -> int:
+    """Run in a fresh process by `bucketing_warmup`: `kind="warmup"` builds
+    the library into an empty build directory inside `warmup` (its cold
+    seconds), calls `warmup` again (its warm seconds), then times the first
+    1080p `reduce`; `kind="none"` times a fresh process's first `reduce`
+    with the library already built. Prints one JSON line."""
+    import shutil
+
+    import torch
+
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.ops import _build
+
+    torch.zeros(1, device="cuda")  # the CUDA context, outside every timed span
+    proc = ImageProcessor(device="cuda", bucketing=True)
+    image = _bucket_frame(1080, 1920, 90)
+    out = {"probe": kind}
+    probe_dir = _build.BUILD_DIR.parent / "warmup_probe"
+    if kind == "warmup":
+        shutil.rmtree(probe_dir, ignore_errors=True)
+        _build.BUILD_DIR = probe_dir
+        for key in ("cold_s", "warm_s"):
+            t0 = time.perf_counter()
+            out["count"] = proc.warmup(WARMUP_SIZES, [K], modes=(ReduceMode.REPLACE,
+                                                                 ReduceMode.DITHER))
+            torch.cuda.synchronize()
+            out[key] = time.perf_counter() - t0
+    for key in ("first_reduce_s", "second_reduce_s"):
+        t0 = time.perf_counter()
+        proc.reduce(K, image)
+        out[key] = time.perf_counter() - t0
+    shutil.rmtree(probe_dir, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def bucketing_warmup(card: str) -> None:
+    """`warmup` over the smoke mix's three sizes at k = 8 (replace,
+    dither), each probe in a fresh process: with the library not yet built
+    and again once built, its count, and the first `reduce` after it
+    against the first `reduce` of a fresh process without it."""
+    probes = {}
+    for kind in ("warmup", "none"):
+        res = subprocess.run([sys.executable, __file__, "--warmup-probe", kind],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"warmup probe {kind} failed: {res.stderr[-2000:]}")
+        probes[kind] = json.loads(res.stdout.strip().splitlines()[-1])
+    line = {"phase": "timing", "what": "warmup of 3 sizes at k=8 (replace, dither), "
+            "fresh processes", "card": card, **{f"{k}_{key}": v for k, p in probes.items()
+                                                for key, v in p.items() if key != "probe"}}
+    emit(line)
+    if line["warmup_count"] != 9:
+        raise AssertionError(f"warmup issued {line['warmup_count']} requests, want 9")
+
+
+def bucketing_card_vs_cpu() -> None:
+    """A 300x420 bucketed reduce on the card against the same on the CPU."""
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+
+    small = synthetic_image(300, 420, seed=SEED + 2)
+    card_p = ImageProcessor(device="cuda", bucketing=True)
+    cpu_p = ImageProcessor(device="cpu", bucketing=True)
+    for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+        step = np.abs(card_p.reduce(K, small, reduce_mode=mode).pixels.astype(np.int64)
+                      - cpu_p.reduce(K, small, reduce_mode=mode).pixels).max(-1)
+        same_palette = bool((card_p.palette(K, small) == cpu_p.palette(K, small)).all())
+        differ = int((step > 0).sum())
+        emit({"phase": "card_vs_cpu", "mode": f"bucketed {mode.value}", "pixels": 300 * 420,
+              "differing_pixels": differ, "max_channel_step": int(step.max()),
+              "same_palette": same_palette})
+        bar = 1e-3 if mode is ReduceMode.MELD else 1e-4
+        if not same_palette or differ > bar * 300 * 420 or step.max() > (
+                1 if mode is ReduceMode.MELD else 255):
+            raise AssertionError(f"bucketed card vs cpu {mode.value}: {differ} pixels differ")
+
+
+def bucketing_slice(device, card: str) -> dict:
+    """The bucketing slice, `ImageProcessor(device="cuda", bucketing=True)`,
+    each path driven with the launch counts set to 0 just before it and
+    read just after. Returns the launches by kernel mode of its paths."""
+    t0 = time.perf_counter()
+    counts: dict = {}
+    for path in (lambda: bucketing_find(device), lambda: bucketing_reduce(device),
+                 lambda: bucketing_many(card)):
+        for key, n in path().items():
+            counts[key] = counts.get(key, 0) + n
+    bucketing_warmup(card)
+    bucketing_card_vs_cpu()
+    emit({"phase": "bucketing_slice", "seconds": time.perf_counter() - t0,
+          "launches": counts})
+    return counts
 
 
 def main() -> int:
@@ -2631,6 +3019,10 @@ def main() -> int:
     mxu = exp_mxu_vs_plain(device, card)
     gather = exp_gather_vs_plain(device, card)
 
+    # 4h. This slice: `bucketing=True` through find, reduce (shrunk and full
+    # resolution, on the weighted accumulator), the coalescers and warmup.
+    bucket_counts = bucketing_slice(device, card)
+
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
     shrunk_timing, full_timing, meld_timing, timing_2000 = timed_reduces({
@@ -2914,8 +3306,25 @@ def main() -> int:
                   gather["counts"]["exp_pow_table - powf"], gather["pow_table_ulps"],
                   gather["timing"]["pow_table"], "kmeans_tpu_torch.tools.exp_gather"),
     ]
+    # The kernels of the bucketing slice: its launches (counted from 0 just
+    # before each of its paths) and the entry points that made them.
+    bucket_paths = {
+        "assign_packed": ("assign_packed cie94 exact",
+                          "bucketed reduce, find, find_batch, find_many"),
+        "meld_packed": ("meld_packed cie94 exact", "bucketed reduce (meld)"),
+        "lloyd_accumulate": ("lloyd_accumulate cie94 exact",
+                             "bucketed reduce with train_max_size=None (weight plane)"),
+        "assign_frames_packed": ("assign_frames_packed cie94 exact", "reduce_many"),
+        "dither_threshold": ("dither_threshold cie94 exact", "bucketed reduce and find (dither)"),
+    }
     for line in kernel_lines:
         line["design"] = design_of(line["name"])
+        if line["name"] in bucket_paths:
+            key, entries = bucket_paths[line["name"]]
+            if bucket_counts.get(key, 0) < 1:
+                raise AssertionError(f"the bucketing slice never launched {line['name']}")
+            line["launches_bucketing_slice"] = bucket_counts[key]
+            line["launched_by"] += f"; ImageProcessor(bucketing=True): {entries}"
     emit({"kernels": kernel_lines})
     print(card, flush=True)
     emit({"ok": True, "device": {
@@ -2926,4 +3335,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--warmup-probe":
+        sys.exit(warmup_probe(sys.argv[2]))
     sys.exit(main())

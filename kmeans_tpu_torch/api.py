@@ -37,6 +37,20 @@ as in the reference); they act at 16 < k <= 512 only, and outside that
 range the results equal `fast=False` bit for bit. The shrunk, batched and
 row-chunked trainings never see `fast`, as in the reference.
 
+`ImageProcessor(bucketing=True)` is the reference's serving mode
+(`kmeans_tpu/api.py:1148-1260`, `utils/bucketing.py`): each image pads
+bottom and right to its shape bucket, the training shrink lands in a
+fixed canvas whose padding trains with weight 0
+(`ops/resize.py::resize_to_canvas`), the cluster axis pads to
+`bucket_k(k)` with the real count in `k_active`, the output pass runs on
+the padded image and the host crops. Eager PyTorch compiles nothing per
+shape, so a bucket here is what coalesces requests of different sizes:
+`reduce_many`, `find_many` and `palette_many` group same-bucket images
+into one batched Lloyd loop and one frames launch, and `warmup` issues one
+dummy request per key the reference would compile, which builds the CUDA
+library and launches every kernel instance those sizes reach before the
+first real request.
+
 The device is explicit: `ImageProcessor(device=None)` means CUDA and
 raises when there is none. The plain-PyTorch CPU path runs only when the
 caller names `device="cpu"`. Modes and options of the reference that this
@@ -67,7 +81,14 @@ from kmeans_tpu_torch.ops.kernels import (
     quantize_rgba,
 )
 from kmeans_tpu_torch.ops.quantize import dither_threshold, dither_thresholds
-from kmeans_tpu_torch.ops.resize import resize_uint8, shrunk_dimensions
+from kmeans_tpu_torch.ops.resize import resize_to_canvas, resize_uint8, shrunk_dimensions
+from kmeans_tpu_torch.utils.bucketing import (
+    bucket_frames,
+    bucket_k,
+    bucket_shape,
+    next_bucket,
+    pad_palette_k,
+)
 from kmeans_tpu_torch.utils.packing import (
     pack_bits,
     unpack_rgb24_tile_words,
@@ -145,17 +166,19 @@ def _host_rgb(pixels: np.ndarray) -> np.ndarray:
 
 
 def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
-              metric="cie94", fast=False):
+              metric="cie94", fast=False, weight=None, k_active=None):
     """Pick the trainer as the reference does (kmeans_tpu/api.py:205), with
     its `pallas_ok` read as "the accumulator route": the CUDA kernel on the
     card, its plain twin on the CPU, so both devices run one algorithm.
     Both metrics take that route, as both are in the reference's
     `PALLAS_METRICS`. `plane_dtype` and `fast` reach only the accumulator
+    route; `weight` (the bucketed canvas's) and `k_active` reach every
     route."""
     def fit_accumulated():
         return kmeans_model.fit_large_restarts(
             work, k, first_index, restarts=restarts, convergence=convergence,
-            metric=metric, plane_dtype=plane_dtype, fast=fast,
+            k_active=k_active, metric=metric, plane_dtype=plane_dtype, fast=fast,
+            weight=weight,
         )
 
     if k > 64 and work.shape[0] * k > _CHUNKED_TRAIN_ELEMS:
@@ -163,14 +186,27 @@ def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
             return fit_accumulated()
         return kmeans_model.fit_chunked(
             work, k, first_index, restarts=restarts, convergence=convergence,
-            metric=metric,
+            k_active=k_active, metric=metric, weight=weight,
         )
     if k <= 64 and work.shape[0] > _LARGE_TRAIN_PIXELS:
         return fit_accumulated()
     return kmeans_model.fit_restarts(
         work, k, first_index, restarts=restarts, convergence=convergence,
-        metric=metric,
+        k_active=k_active, metric=metric, weight=weight,
     )
+
+
+def _plain_fit_route(n_px: int, kp: int) -> bool:
+    """True when `_fit_auto` takes the plain `fit_restarts` for a training
+    of `n_px` pixels at `kp` (padded) clusters (kmeans_tpu/api.py:272):
+    the only route the coalescers batch; the others (the accumulator, the
+    row-chunked trainer) train one image at a time, as solo requests do,
+    so a coalesced request keeps solo memory behaviour. The mirror of
+    `_fit_auto`'s branches with the reference's `use_pallas` true, as
+    `_fit_auto` reads it; keep the two in step."""
+    if kp > 64 and n_px * kp > _CHUNKED_TRAIN_ELEMS:
+        return False
+    return not (kp <= 64 and n_px > _LARGE_TRAIN_PIXELS)
 
 
 def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
@@ -274,6 +310,15 @@ def _stack_rgb(frames, rows: int) -> np.ndarray:
     return stack
 
 
+def _as_tensor(pixels) -> torch.Tensor:
+    """A host tensor of an image's pixels, sharing the array's memory when
+    it is contiguous and writable (else from one copy)."""
+    arr = np.asarray(pixels)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = np.array(arr, order="C")
+    return torch.from_numpy(arr)
+
+
 def _validate_k(k) -> None:
     try:
         ok = int(k) == k and int(k) >= 1
@@ -294,8 +339,10 @@ class ImageProcessor:
     `train_dtype="bfloat16"` (accumulator planes only) act as in the
     reference. `fast=True` opts into the fast tiers (module docstring):
     not bit-equal to exact at 16 < k <= 512, equal outside.
-    `last_iterations` holds the Lloyd iteration count of the
-    latest training (of a batch: its longest member's)."""
+    `bucketing=True` is the serving mode (module docstring); with it,
+    `train_dtype` raises, as in the reference. `last_iterations` holds the
+    Lloyd iteration count of the latest training (of a batch: its longest
+    member's)."""
 
     def __init__(
         self,
@@ -313,17 +360,22 @@ class ImageProcessor:
             raise ValueError(f"delta_e must be one of {sorted(aliases)}, got {delta_e!r}")
         if int(restarts) < 1:
             raise ValueError("restarts must be >= 1")
-        if bucketing:
-            raise _not_ported("bucketing=True", "A.9")
         if pipeline:
             raise _not_ported("pipeline=True (banded transfer overlap)", "A.13")
         if train_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(
                 f"train_dtype must be 'bfloat16', 'float32' or None, got {train_dtype!r}"
             )
+        if train_dtype is not None and bucketing:
+            # kmeans_tpu/api.py:1020-1025.
+            raise ValueError(
+                "train_dtype is not supported with bucketing=True (the bucketed trainers "
+                "do not route through the accumulator's plane store)"
+            )
         self.device = _resolve_device(device)
         self.delta_e = aliases[str(delta_e)]
         self.train_max_size = None if train_max_size is None else int(train_max_size)
+        self.bucketing = bool(bucketing)
         self.restarts = int(restarts)
         self.fast = bool(fast)
         self.train_dtype = None if train_dtype == "float32" else train_dtype
@@ -331,6 +383,24 @@ class ImageProcessor:
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
+
+    def _upload_padded(self, frames, rows: int, cols: int, count: int | None = None):
+        """The frames padded on the device into `[count, rows, cols, 3]`
+        uint8: each frame at the top left, zero past its edges
+        (`pad_to_bucket`, kmeans_tpu/api.py:1166), and frames past the last
+        copies of frame 0 (the reference's frame-count bucketing, `:1683`).
+        Each frame uploads as it is, alpha included (no host copy when its
+        array is contiguous), and loses alpha on the device: a host pad
+        would be a strided copy of every pixel."""
+        count = len(frames) if count is None else count
+        with _phase("upload"):
+            dev = torch.zeros((count, rows, cols, 3), dtype=torch.uint8, device=self.device)
+            for i, f in enumerate(frames):
+                px = _as_tensor(f.pixels).to(self.device)
+                dev[i, :px.shape[0], :px.shape[1]] = px[..., :3]
+            dev[len(frames):] = dev[0]
+            _phase_sync(dev)
+        return dev
 
     def extract_palette_kmeans(
         self, image: Image, k: int, color_space: ColorSpace = ColorSpace.LAB
@@ -354,6 +424,75 @@ class ImageProcessor:
             _phase_sync(centroids)
         return centroids
 
+    # --- Bucketed training (kmeans_tpu/api.py:606, 1148) ---------------------
+
+    def _bucket_train_args(self, w: int, h: int, bw: int, bh: int):
+        """`(canvas (rows, cols), (sw, sh), first)` of a bucketed training:
+        the fixed canvas, the shrunk size inside it, and the seed pixel's
+        flat index within the canvas, `y * canvas_w + x`
+        (kmeans_tpu/api.py:1148)."""
+        cap = self.train_max_size
+        sw, sh = shrunk_dimensions(w, h, cap)
+        canvas = (bh, bw) if cap is None else (min(cap, bh), min(cap, bw))
+        y, x = divmod(kmeans_model.reference_seed_index(sw, sh), sw)
+        return canvas, (sw, sh), y * canvas[1] + x
+
+    def _canvas_lab(self, padded_u8, canvas, src_hs, src_ws, out_hs, out_ws):
+        """Canvas shrink of padded frames, then Lab: `([B, N, 3]` Lab, `[B,
+        N]` weights) (kmeans_tpu/api.py:630-633)."""
+        canv, weight = resize_to_canvas(padded_u8, *canvas, src_hs, src_ws, out_hs, out_ws)
+        b = padded_u8.shape[0]
+        return srgb8_to_lab(canv.reshape(b, -1, 3)), weight.reshape(b, -1)
+
+    def _train_bucketed(self, padded_u8, kp, w, h, k_active):
+        """`_train_bucketed_jit` (kmeans_tpu/api.py:606) of one `[bh, bw, 3]`
+        padded image: the canvas shrink, Lab, then `_fit_auto` at `kp`
+        clusters with `k_active` real ones, weighted by the canvas. Returns
+        the `[kp, 3]` centroids."""
+        bh, bw = padded_u8.shape[0], padded_u8.shape[1]
+        canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
+        work, weight = self._canvas_lab(padded_u8[None], canvas, [h], [w], [sh], [sw])
+        centroids, self.last_iterations = _fit_auto(
+            work[0], kp, first, ColorSpace.LAB.convergence, self.restarts, None,
+            self.delta_e, self.fast, weight[0], k_active,
+        )
+        return centroids
+
+    def _train_bucketed_frames(self, stack, kp, dims, k_active):
+        """The vmapped bucketed trainers (kmeans_tpu/api.py:3201, 3346, 3134)
+        as one batched Lloyd loop: frame b of the padded `[B, bh, bw, 3]`
+        stack holds a `dims[b] = (w, h)` image and trains on its own
+        weighted canvas at `kp` clusters, `k_active` real ones, on the plain
+        `fit_restarts` protocol. Returns `[B, kp, 3]` centroids."""
+        bh, bw = stack.shape[1], stack.shape[2]
+        args = [self._bucket_train_args(w, h, bw, bh) for w, h in dims]
+        work, weight = self._canvas_lab(
+            stack, args[0][0], [h for _, h in dims], [w for w, _ in dims],
+            [a[1][1] for a in args], [a[1][0] for a in args])
+        cents, iters = kmeans_model.fit_restarts_batched(
+            work, kp, [a[2] for a in args], restarts=self.restarts,
+            convergence=ColorSpace.LAB.convergence, k_actives=[k_active] * len(dims),
+            metric=self.delta_e, weights=weight,
+        )
+        self.last_iterations = max(iters)
+        return cents
+
+    def _train_bucketed_heavy(self, stack, kp, dims, k_active):
+        """The heavy coalesced trainers (kmeans_tpu/api.py:3443, 3536): the
+        frames of the stack train one after another, each on `_fit_auto`'s
+        own route, as solo requests do. The stack's padding frames are
+        copies of frame 0, whose palette they take without training again
+        (the same input through the same deterministic trainer). Returns
+        `[B, kp, 3]` centroids."""
+        cents, iters = [], []
+        for b, (w, h) in enumerate(dims):
+            cents.append(self._train_bucketed(stack[b], kp, w, h, k_active))
+            iters.append(self.last_iterations)
+        self.last_iterations = max(iters)
+        return torch.stack(cents + [cents[0]] * (stack.shape[0] - len(dims)))
+
+    # --- Entry points -------------------------------------------------------
+
     def palette(
         self, color_count: int, image, algo: Algorithm = Algorithm.KMEANS
     ) -> np.ndarray:
@@ -362,17 +501,30 @@ class ImageProcessor:
         _validate_k(color_count)
         if algo is not Algorithm.KMEANS:
             raise _not_ported(f"{algo}", "A.8")
+        if self.bucketing:
+            # kmeans_tpu/api.py:1374-1391.
+            w, h = image.dimensions
+            dev = self._upload_padded([image], *bucket_shape(h, w))[0]
+            with _phase("device"):
+                centroids = self._train_bucketed(dev, bucket_k(color_count), w, h, color_count)
+                _phase_sync(centroids)
+            return _palette_readback(centroids, color_count)
         return _palette_readback(self.extract_palette_kmeans(image, color_count), color_count)
 
     def find(
         self, image, colors, reduce_mode: ReduceMode = ReduceMode.REPLACE
     ) -> Image:
-        """Recolour with a fixed palette, no training."""
+        """Recolour with a fixed palette, no training. Under bucketing the
+        image pads to its bucket and the palette to `bucket_k` rows (copies
+        of row 0, masked by `k_active`), and the host crops: the same bits
+        as unbucketed (kmeans_tpu/api.py:1408-1415, 1601-1605)."""
         image = _as_image(image)
         palette_rgba = _colors_rgba(colors)
         if palette_rgba.shape[0] == 0:
             raise ValueError("palette must contain at least one color")
         mode = ReduceMode(reduce_mode).value
+        if self.bucketing:
+            return self._find_stack([image], palette_rgba, mode, True)[0]
         with _phase("host_prep"):
             palette_lab = _colors_to_lab(palette_rgba)
             rgb = _host_rgb(image.pixels)
@@ -395,6 +547,8 @@ class ImageProcessor:
         if algo is not Algorithm.KMEANS:
             raise _not_ported(f"{algo}", "A.8")
         mode = ReduceMode(reduce_mode).value
+        if self.bucketing:
+            return Image(image.dimensions, self._reduce_bucketed(image, color_count, mode))
         w, h = image.dimensions
         sw, sh = shrunk_dimensions(w, h, self.train_max_size)
         first = kmeans_model.reference_seed_index(sw, sh)
@@ -413,6 +567,23 @@ class ImageProcessor:
             _phase_sync(out[1])
         return Image(image.dimensions, self._readback(out, h, w, color_count))
 
+    def _reduce_bucketed(self, image: Image, k: int, mode: str) -> np.ndarray:
+        """Bucketed reduce (kmeans_tpu/api.py:1158): pad to the bucket, train
+        on the weighted canvas at `bucket_k(k)` clusters (`k_active = k`),
+        run the output pass on the padded image (packed indices up to
+        `INDEXED_MAX_K` colours, `:651`; RGB24 words for meld, `:692`; RGBA
+        past it, `:727`) and crop on the host: the crop is a view of the
+        unpacked bucket, no second copy."""
+        w, h = image.dimensions
+        bh, bw = bucket_shape(h, w)
+        kp = bucket_k(k)
+        dev = self._upload_padded([image], bh, bw)[0]
+        with _phase("device"):
+            centroids = self._train_bucketed(dev, kp, w, h, k)
+            out = self._output_pass(dev, centroids, mode, k)
+            _phase_sync(out[1])
+        return self._readback(out, bh, bw, kp)[:h, :w]
+
     def find_batch(
         self, images, colors, reduce_mode: ReduceMode = ReduceMode.REPLACE
     ) -> list[Image]:
@@ -422,24 +593,45 @@ class ImageProcessor:
         to a multiple of 4, so every frame starts at Bayer row phase 0 and
         the tall image's dither equals each frame's own
         (`_find_batch_fused_jit:3652`); meld stacks them as they are
-        (`_find_batch_meld_jit:3686`)."""
+        (`_find_batch_meld_jit:3686`). Under bucketing each frame pads to
+        its bucket, the frame count to `bucket_frames` (copies of frame 0,
+        dropped) and the palette to `bucket_k` rows (`:1675-1687`)."""
         frames = _as_frames(images)
         palette_rgba = _colors_rgba(colors)
         if palette_rgba.shape[0] == 0:
             raise ValueError("palette must contain at least one color")
-        mode = ReduceMode(reduce_mode).value
-        w, h = frames[0].dimensions
-        rows = h if mode == "meld" else -(-h // 4) * 4
+        return self._find_stack(frames, palette_rgba, ReduceMode(reduce_mode).value,
+                                self.bucketing)
+
+    def _find_stack(self, frames, palette_rgba, mode: str, bucketed: bool) -> list[Image]:
+        """One tall output pass over frames of one size (`find_batch`) or of
+        one bucket (`find_many`, `bucketed` true: each frame pads to the
+        bucket, the count to `bucket_frames`, the palette to `bucket_k`)."""
+        h, w = frames[0].pixels.shape[:2]
+        if bucketed:
+            (bh, bw), count = bucket_shape(h, w), bucket_frames(len(frames))
+        else:
+            (bh, bw), count = (h, w), len(frames)
+        rows = bh if mode == "meld" else -(-bh // 4) * 4
         with _phase("host_prep"):
             palette_lab = _colors_to_lab(palette_rgba)
-            stack = _stack_rgb(frames, rows)
+        if bucketed:
+            dev = self._upload_padded(frames, rows, bw, count)
+        else:
+            with _phase("host_prep"):
+                stack = _stack_rgb(frames, rows)
+            with _phase("upload"):
+                dev = self._upload(stack)
         with _phase("upload"):
-            dev = self._upload(stack)
             palette_dev = self._upload(palette_lab)
             _phase_sync(dev)
-        tall = self._quantize(dev.reshape(len(frames) * rows, w, 3), palette_dev, mode)
-        outs = tall.reshape(len(frames), rows, w, 4)[:, :h]
-        return [Image(frames[0].dimensions, outs[i]) for i in range(len(frames))]
+        k_active = None
+        if bucketed:
+            palette_dev, k_active = pad_palette_k(palette_dev)
+        tall = self._quantize(dev.reshape(count * rows, bw, 3), palette_dev, mode, k_active)
+        outs = tall.reshape(count, rows, bw, 4)
+        return [Image(f.dimensions, outs[i, :f.pixels.shape[0], :f.pixels.shape[1]])
+                for i, f in enumerate(frames)]
 
     def reduce_images(
         self,
@@ -453,11 +645,17 @@ class ImageProcessor:
         (`models/kmeans.py::fit_restarts_batched`), and one frames launch
         writes every frame's output: packed indices up to `INDEXED_MAX_K`
         colours, RGBA words above, RGB24 words for meld. `fast` reaches
-        only that output pass, as in the reference."""
+        only that output pass, as in the reference. Under bucketing the
+        frames pad to their bucket and their count to `bucket_frames`
+        (copies of frame 0, dropped), and each trains on its weighted
+        canvas at `bucket_k(k)` clusters (`:1844-1870`,
+        `_reduce_images_bucketed_fused_jit:3303`)."""
         frames = _as_frames(images)
         _validate_k(color_count)
         mode = ReduceMode(reduce_mode).value
         w, h = frames[0].dimensions
+        if self.bucketing:
+            return self._reduce_stack(frames, color_count, mode)
         with _phase("host_prep"):
             stack = _stack_rgb(frames, h)
         with _phase("upload"):
@@ -470,18 +668,77 @@ class ImageProcessor:
         outs = self._readback_frames(out, h, w, color_count)
         return [Image(frames[0].dimensions, o) for o in outs]
 
+    def _heavy_bucket(self, frame: Image, k: int) -> bool:
+        """Whether a bucket of `frame`'s trains off the plain trainer: its
+        canvas is past `_plain_fit_route`'s gates (kmeans_tpu/api.py:2925-2940)."""
+        h, w = frame.pixels.shape[:2]
+        bh, bw = bucket_shape(h, w)
+        (ch, cw), _, _ = self._bucket_train_args(w, h, bw, bh)
+        return not _plain_fit_route(ch * cw, bucket_k(k))
+
+    def _train_stack(self, frames, k: int, heavy: bool = False):
+        """Bucketed training of frames of one bucket (sizes may differ): pad
+        to the bucket and the count to `bucket_frames` on the device, then
+        train each frame on its weighted canvas at `bucket_k(k)` clusters
+        (one batched loop, or one after another when `heavy`). Returns the
+        padded `[count, bh, bw, 3]` stack and its `[count, kp, 3]`
+        centroids."""
+        h, w = frames[0].pixels.shape[:2]
+        bh, bw = bucket_shape(h, w)
+        kp, count = bucket_k(k), bucket_frames(len(frames))
+        dev = self._upload_padded(frames, bh, bw, count)
+        dims = [f.dimensions for f in frames]
+        with _phase("device"):
+            if heavy:
+                cents = self._train_bucketed_heavy(dev, kp, dims, k)
+            else:
+                cents = self._train_bucketed_frames(dev, kp, dims + [dims[0]] * (count - len(dims)),
+                                                    k)
+        return dev, cents
+
+    def _reduce_stack(self, frames, k: int, mode: str, heavy: bool = False) -> list[Image]:
+        """`_train_stack`, then one frames launch over the padded stack; each
+        output crops to its frame."""
+        dev, cents = self._train_stack(frames, k, heavy)
+        bh, bw = dev.shape[1], dev.shape[2]
+        with _phase("device"):
+            out = self._frames_pass(dev, cents, mode, [k] * dev.shape[0], self.fast)
+            _phase_sync(out[1])
+        outs = self._readback_frames(out, bh, bw, bucket_k(k), len(frames))
+        return [Image(f.dimensions, o[:f.pixels.shape[0], :f.pixels.shape[1]])
+                for f, o in zip(frames, outs)]
+
     def palette_images(
         self, images, color_count: int, algo: Algorithm = Algorithm.KMEANS
     ) -> np.ndarray:
         """One palette trained jointly over same-sized frames (a global GIF
         palette; kmeans_tpu/api.py:1924, `_train_frames_jit:3618`): every
         frame shrinks, the Lab pixels concatenate in frame order (the seed
-        index addresses frame 0) and train once. `[k, 4]` RGBA8, L*-sorted."""
+        index addresses frame 0) and train once. `[k, 4]` RGBA8, L*-sorted.
+        Under bucketing each frame's canvas is weighted, and the frames that
+        pad the count to `bucket_frames` weigh 0 (`frame_valid`,
+        `:1947-1977`, `_train_frames_bucketed_jit:3581`)."""
         frames = _as_frames(images)
         _validate_k(color_count)
         if algo is not Algorithm.KMEANS:
             raise _not_ported(f"{algo}", "A.8")
         w, h = frames[0].dimensions
+        if self.bucketing:
+            bh, bw = bucket_shape(h, w)
+            count = bucket_frames(len(frames))
+            canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
+            dev = self._upload_padded(frames, bh, bw, count)
+            with _phase("device"):
+                work, weight = self._canvas_lab(dev, canvas, [h] * count, [w] * count,
+                                                [sh] * count, [sw] * count)
+                weight[len(frames):] = 0.0
+                centroids, self.last_iterations = kmeans_model.fit_restarts(
+                    work.reshape(-1, 3), bucket_k(color_count), first,
+                    restarts=self.restarts, convergence=ColorSpace.LAB.convergence,
+                    k_active=color_count, metric=self.delta_e, weight=weight.reshape(-1),
+                )
+                _phase_sync(centroids)
+            return _palette_readback(centroids, color_count)
         sw, sh = shrunk_dimensions(w, h, self.train_max_size)
         with _phase("host_prep"):
             stack = _stack_rgb(frames, h)
@@ -506,7 +763,11 @@ class ImageProcessor:
         on a palette padded to the largest k, the rows past each k masked
         (its `k_active`); then one frames launch with the image as every
         frame (stride 0) writes each k's output. As in the reference, the
-        output pass is exact whatever `fast` says."""
+        output pass is exact whatever `fast` says. Under bucketing the
+        image pads to its bucket and trains on its weighted canvas, the
+        largest k pads up the ladder (`next_bucket`) and the list of k to
+        `bucket_frames` entries (copies of the first, dropped)
+        (`:2841-2864`, `_reduce_batch_bucketed_jit:3711`)."""
         image = _as_image(image)
         ks = [int(k) for k in color_counts]
         if not ks:
@@ -516,6 +777,25 @@ class ImageProcessor:
         kmax = max(ks)
         mode = ReduceMode(reduce_mode).value
         w, h = image.dimensions
+        if self.bucketing:
+            kmax = next_bucket(kmax)
+            ks_padded = ks + [ks[0]] * (bucket_frames(len(ks)) - len(ks))
+            bh, bw = bucket_shape(h, w)
+            canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
+            dev = self._upload_padded([image], bh, bw)[0]
+            with _phase("device"):
+                work, weight = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
+                cents, iters = kmeans_model.fit_restarts_batched(
+                    work[0], kmax, first, restarts=self.restarts,
+                    convergence=ColorSpace.LAB.convergence, k_actives=ks_padded,
+                    metric=self.delta_e, weights=weight[0],
+                )
+                self.last_iterations = max(iters)
+                frames = dev[None].expand(len(ks_padded), bh, bw, 3)
+                out = self._frames_pass(frames, cents, mode, ks_padded, fast=False)
+                _phase_sync(out[1])
+            return [Image(image.dimensions, o[:h, :w])
+                    for o in self._readback_frames(out, bh, bw, kmax, len(ks))]
         with _phase("host_prep"):
             rgb = _host_rgb(image.pixels)
         with _phase("upload"):
@@ -529,21 +809,227 @@ class ImageProcessor:
         return [Image(image.dimensions, o)
                 for o in self._readback_frames(out, h, w, kmax)]
 
-    def reduce_many(self, images, color_count: int, reduce_mode=ReduceMode.REPLACE):
-        """Not ported yet: mixed-size batches coalesced by shape bucket."""
-        raise _not_ported("reduce_many (bucketed mixed-size batches)", "A.9")
+    # --- The coalescers (kmeans_tpu/api.py:1740, 2882, 3026) -----------------
 
-    def find_many(self, images, colors, reduce_mode=ReduceMode.REPLACE):
-        """Not ported yet: mixed-size batches coalesced by shape bucket."""
-        raise _not_ported("find_many (bucketed mixed-size batches)", "A.9")
+    @staticmethod
+    def _bucket_groups(frames, dims_of) -> dict:
+        """Frame indices by `bucket_shape` of `dims_of(frame)` = (h, w), in
+        first-seen order."""
+        groups: dict[tuple[int, int], list[int]] = {}
+        for i, f in enumerate(frames):
+            groups.setdefault(bucket_shape(*dims_of(f)), []).append(i)
+        return groups
 
-    def palette_many(self, images, color_count: int):
-        """Not ported yet: mixed-size batches coalesced by shape bucket."""
-        raise _not_ported("palette_many (bucketed mixed-size batches)", "A.9")
+    def find_many(
+        self, images, colors, reduce_mode: ReduceMode = ReduceMode.REPLACE
+    ) -> list[Image]:
+        """Recolour images that may differ in size with one palette
+        (kmeans_tpu/api.py:1740): under bucketing the images of one bucket
+        (two or more) go through one tall output pass, as `find_batch`'s
+        bucketed branch, with the bits of solo `find`. Without bucketing,
+        past `INDEXED_MAX_K` colours, or for an image alone in its bucket,
+        each image runs `find`."""
+        frames = [_as_image(im) for im in images]
+        if not frames:
+            raise ValueError("need at least one image")
+        palette_rgba = _colors_rgba(colors)
+        if palette_rgba.shape[0] == 0:
+            raise ValueError("palette must contain at least one color")
+        if not self.bucketing or palette_rgba.shape[0] > INDEXED_MAX_K:
+            return [self.find(f, palette_rgba, reduce_mode) for f in frames]
+        mode = ReduceMode(reduce_mode).value
+        results: list[Image | None] = [None] * len(frames)
+        for idxs in self._bucket_groups(frames, lambda f: f.pixels.shape[:2]).values():
+            if len(idxs) == 1:
+                results[idxs[0]] = self.find(frames[idxs[0]], palette_rgba, reduce_mode)
+                continue
+            outs = self._find_stack([frames[i] for i in idxs], palette_rgba, mode, True)
+            for i, out in zip(idxs, outs):
+                results[i] = out
+        return results
 
-    def warmup(self, *args, **kwargs):
-        """Not ported yet: it compiles the bucketed executables."""
-        raise _not_ported("warmup (bucketing)", "A.9")
+    def reduce_many(
+        self,
+        images,
+        color_count: int,
+        reduce_mode: ReduceMode = ReduceMode.REPLACE,
+    ) -> list[Image]:
+        """Quantize images that may differ in size, each with its own trained
+        palette, coalescing each bucket's images (kmeans_tpu/api.py:2882):
+        the images of one bucket (two or more) upload as one padded stack,
+        train in one batched Lloyd loop on their weighted canvases
+        (per-image sizes and seed indices) and go through one frames
+        launch. A bucket whose canvas `_fit_auto` sends off the plain
+        trainer (`_plain_fit_route` false: the accumulator or the row-chunked
+        trainer) trains its images one after another on that route, then
+        takes the same one launch (`_reduce_many_bucketed_heavy_jit:3443`).
+        An image alone in its bucket runs `reduce`; so does every image
+        without bucketing or under `fast` (`:2906`: a fast processor keeps
+        per-image results)."""
+        frames = [_as_image(im) for im in images]
+        if not frames:
+            raise ValueError("need at least one image")
+        _validate_k(color_count)
+        if not self.bucketing or self.fast:
+            return [self.reduce(color_count, f, Algorithm.KMEANS, reduce_mode) for f in frames]
+        mode = ReduceMode(reduce_mode).value
+        results: list[Image | None] = [None] * len(frames)
+        iters = []
+        for idxs in self._bucket_groups(frames, lambda f: f.pixels.shape[:2]).values():
+            if len(idxs) == 1:
+                results[idxs[0]] = self.reduce(color_count, frames[idxs[0]], Algorithm.KMEANS,
+                                               reduce_mode)
+            else:
+                group = [frames[i] for i in idxs]
+                outs = self._reduce_stack(group, color_count, mode,
+                                          self._heavy_bucket(group[0], color_count))
+                for i, out in zip(idxs, outs):
+                    results[i] = out
+            iters.append(self.last_iterations)
+        self.last_iterations = max(iters)
+        return results
+
+    def palette_many(
+        self, images, color_count: int, algo: Algorithm = Algorithm.KMEANS
+    ) -> list[np.ndarray]:
+        """Per-image palettes of images that may differ in size, each `[k,
+        4]` RGBA8 L*-sorted as solo `palette` gives it, coalescing each
+        bucket's images into one batched training (or, for a heavy bucket,
+        one after another) (kmeans_tpu/api.py:3026). Without bucketing,
+        under `fast`, or for an image alone in its bucket, each image runs
+        `palette`; an `algo` other than KMEANS raises (ROADMAP A.8), as
+        `palette` does."""
+        frames = [_as_image(im) for im in images]
+        if not frames:
+            raise ValueError("need at least one image")
+        _validate_k(color_count)
+        if not self.bucketing or self.fast or algo is not Algorithm.KMEANS:
+            return [self.palette(color_count, f, algo) for f in frames]
+        results: list[np.ndarray | None] = [None] * len(frames)
+        iters = []
+        for idxs in self._bucket_groups(frames, lambda f: f.pixels.shape[:2]).values():
+            if len(idxs) == 1:
+                results[idxs[0]] = self.palette(color_count, frames[idxs[0]], algo)
+                iters.append(self.last_iterations)
+                continue
+            group = [frames[i] for i in idxs]
+            _, cents = self._train_stack(group, color_count,
+                                         self._heavy_bucket(group[0], color_count))
+            with _phase("device"):
+                _phase_sync(cents)
+            iters.append(self.last_iterations)
+            with _phase("readback"):
+                rgba, lightness = _host_fetch(*_lab_palette_to_u8(cents))
+            with _phase("host_sort"):
+                for j, i in enumerate(idxs):
+                    order = np.argsort(lightness[j, :color_count], kind="stable")
+                    results[i] = rgba[j, :color_count][order]
+        self.last_iterations = max(iters)
+        return results
+
+    def warmup(
+        self,
+        sizes,
+        color_counts,
+        modes=(ReduceMode.REPLACE,),
+        palette: bool = True,
+        find_palette_sizes=(),
+        gif_frame_counts=(),
+        batch_sizes=(),
+    ) -> int:
+        """Prepare a serving processor before its first request
+        (kmeans_tpu/api.py:1197), with the reference's arguments and
+        return value: the number of dummy requests issued, one per key the
+        reference compiles an executable for. `sizes` are `(width,
+        height)` pairs, each standing for its bucket. For every bucket it
+        issues `reduce` per (k bucket, mode), `palette` per k bucket unless
+        `palette=False`, and `find` per (palette-size bucket, mode) for the
+        sizes in `find_palette_sizes`; with `gif_frame_counts`, per
+        frame-count bucket, `palette_images`, `reduce_images` and
+        `reduce_many` per (k bucket, mode) and `find_batch`; with
+        `batch_sizes`, `reduce_many`, `palette_many` (unless
+        `palette=False`) and, with `find_palette_sizes`, `find_many`.
+
+        The port compiles nothing per shape. On the card the first call
+        builds the CUDA library (`ops/_build.py`, nvcc, or the cached
+        build), and the dummy requests launch every kernel instance those
+        keys reach, so a real request pays neither. Requires
+        `bucketing=True`; raises `ValueError` otherwise, as the reference
+        does."""
+        if not self.bucketing:
+            raise ValueError("warmup requires ImageProcessor(bucketing=True)")
+        if self.device.type == "cuda":
+            from kmeans_tpu_torch.ops._build import load_library
+
+            load_library()
+        rng = np.random.default_rng(0)
+        seen = set()
+
+        def dummy_image(bh, bw):
+            dummy = rng.integers(0, 256, (bh, bw, 4), dtype=np.uint8)
+            dummy[..., 3] = 255
+            return Image((bw, bh), dummy)
+
+        def dummy_colors(n):
+            colors = rng.integers(0, 256, (n, 4), dtype=np.uint8)
+            colors[:, 3] = 255
+            return colors
+
+        def once(key, fn):
+            if key not in seen:
+                seen.add(key)
+                fn()
+
+        modes = [ReduceMode(m) for m in modes]
+        for w, h in sizes:
+            bh, bw = bucket_shape(int(h), int(w))
+            img = dummy_image(bh, bw)
+            for k in map(int, color_counts):
+                for mode in modes:
+                    once((bh, bw, bucket_k(k), mode.value),
+                         lambda: self.reduce(k, img, reduce_mode=mode))
+                if palette:
+                    once((bh, bw, bucket_k(k), "palette"), lambda: self.palette(k, img))
+            for kf in map(int, find_palette_sizes):
+                colors = dummy_colors(kf)
+                for mode in modes:
+                    once((bh, bw, bucket_k(kf), mode.value, "find"),
+                         lambda: self.find(img, colors, mode))
+            for fc in gif_frame_counts:
+                fb = bucket_frames(int(fc))
+                frames = [dummy_image(bh, bw) for _ in range(fb)]
+                for k in map(int, color_counts):
+                    once((bh, bw, fb, bucket_k(k), "pimg"),
+                         lambda: self.palette_images(frames, k))
+                    for mode in modes:
+                        once((bh, bw, fb, bucket_k(k), mode.value, "rimg"),
+                             lambda: self.reduce_images(frames, k, mode))
+                        once((bh, bw, fb, bucket_k(k), mode.value, "rmany"),
+                             lambda: self.reduce_many(frames, k, mode))
+                for kf in map(int, find_palette_sizes):
+                    colors = dummy_colors(kf)
+                    for mode in modes:
+                        once((bh, bw, fb, bucket_k(kf), mode.value, "fbatch"),
+                             lambda: self.find_batch(frames, colors, mode))
+            for bs in batch_sizes:
+                fb = bucket_frames(int(bs))
+                frames = [dummy_image(bh, bw) for _ in range(fb)]
+                for k in map(int, color_counts):
+                    for mode in modes:
+                        once((bh, bw, fb, bucket_k(k), mode.value, "rmany"),
+                             lambda: self.reduce_many(frames, k, mode))
+                    if palette:
+                        once((bh, bw, fb, bucket_k(k), "pmany"),
+                             lambda: self.palette_many(frames, k))
+                for kf in map(int, find_palette_sizes):
+                    colors = dummy_colors(kf)
+                    for mode in modes:
+                        # find_batch's bucketed tall stack: one key.
+                        once((bh, bw, fb, bucket_k(kf), mode.value, "fbatch"),
+                             lambda: self.find_many(frames, colors, mode))
+        return len(seen)
+
+    # --- Shared passes ------------------------------------------------------
 
     def _train_batched(self, pixels_u8, k, w, h, k_actives=None):
         """Shrink -> Lab -> `fit_restarts_batched` on the pixels' device:
@@ -561,22 +1047,25 @@ class ImageProcessor:
         self.last_iterations = max(iterations)
         return centroids
 
-    def _output_pass(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str):
+    def _output_pass(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str,
+                     k_active: int | None = None):
         """The full-resolution pass on the pixels' device, as `(kind,
         output, palette)`: `("meld", RGB24 words, None)`; for replace and
         dither `("indexed", packed indices, [k, 4] RGBA8 palette)` up to
         `INDEXED_MAX_K` colours, `("rgba", [H, W, 4] RGBA8, None)` above
-        (kmeans_tpu/api.py:360-369, 557)."""
+        (kmeans_tpu/api.py:360-369, 557). `k_active` masks the palette's
+        trailing rows (a bucketed palette's padding)."""
         if mode == "meld":
-            return "meld", meld_packed(pixels_u8, palette_lab, metric=self.delta_e,
+            return "meld", meld_packed(pixels_u8, palette_lab, k_active, metric=self.delta_e,
                                        fast=self.fast), None
         threshold = (
-            dither_threshold(palette_lab, metric=self.delta_e) if mode == "dither" else 0.0
+            dither_threshold(palette_lab, k_active, metric=self.delta_e) if mode == "dither"
+            else 0.0
         )
         if palette_lab.shape[0] > INDEXED_MAX_K:
-            return "rgba", quantize_rgba(pixels_u8, palette_lab, threshold, mode=mode,
+            return "rgba", quantize_rgba(pixels_u8, palette_lab, threshold, k_active, mode=mode,
                                          metric=self.delta_e, fast=self.fast), None
-        words = assign_packed(pixels_u8, palette_lab, threshold, mode=mode,
+        words = assign_packed(pixels_u8, palette_lab, threshold, k_active, mode=mode,
                               metric=self.delta_e, fast=self.fast)
         return "indexed", words, _lab_palette_to_u8(palette_lab)[0]
 
@@ -604,21 +1093,41 @@ class ImageProcessor:
         return self._readback_frames(
             (kind, output[None], None if palette is None else palette[None]), h, w, kp)[0]
 
-    def _readback_frames(self, out, h: int, w: int, kp: int) -> list:
+    def _readback_frames(self, out, h: int, w: int, kp: int, n: int | None = None) -> list:
         """`_readback` of `_frames_pass`'s result: one `[h, w, 4]` RGBA8
-        array per frame, each unpacked with its own palette."""
+        array for each of the first `n` frames (default all), each unpacked
+        with its own palette."""
         kind, output, palettes = out
         with _phase("readback"):
             fetched = _host_fetch(output, *([] if palettes is None else [palettes]))
+        n = fetched[0].shape[0] if n is None else n
         with _phase("unpack"):
-            return [_unpack(kind, fetched[0][i], h, w, kp, fetched[-1][i])
-                    for i in range(fetched[0].shape[0])]
+            return [_unpack(kind, fetched[0][i], h, w, kp, fetched[-1][i]) for i in range(n)]
 
-    def _quantize(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str):
+    def _quantize(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str,
+                  k_active: int | None = None):
         """Output pass of `[H, W, 3]` pixels with a fixed Lab palette ->
         `[H, W, 4]` RGBA8 numpy (kmeans_tpu/api.py:1597)."""
         with _phase("device"):
-            out = self._output_pass(pixels_u8, palette_lab, mode)
+            out = self._output_pass(pixels_u8, palette_lab, mode, k_active)
             _phase_sync(out[1])
         return self._readback(out, pixels_u8.shape[0], pixels_u8.shape[1],
                               palette_lab.shape[0])
+
+
+def _refusal(name: str, item: str, what: str):
+    def method(self, *args, **kwargs):
+        raise _not_ported(f"{name} ({what})", item)
+
+    method.__name__ = method.__qualname__ = name
+    method.__doc__ = f"Not ported yet: {what} (ROADMAP {item})."
+    return method
+
+
+# The reference's entry points this package does not port yet: each raises
+# naming its ROADMAP item (kmeans_tpu/api.py:1996-2468, 2468-2823).
+for _name in ("reduce_streamed", "palette_streamed", "find_streamed", "reduce_pipelined"):
+    setattr(ImageProcessor, _name, _refusal(_name, "A.10", "streaming in row bands"))
+for _name in ("find_sharded", "palette_sharded", "reduce_sharded", "reduce_images_sharded",
+              "palette_images_sharded", "find_batch_sharded"):
+    setattr(ImageProcessor, _name, _refusal(_name, "A.12", "multi-device sharding"))

@@ -4,7 +4,10 @@ The JAX package hands out numpy arrays: Lab centroids (`[k, 3]` float32)
 and RGBA8 palettes (`[k, 4]` uint8). These helpers turn them into the
 port's tensors on a chosen device, so the same state can be fed to both
 implementations. They import nothing of the JAX package: the caller passes
-the arrays.
+the arrays. A palette the reference padded for bucketing
+(`kmeans_tpu/utils/bucketing.py::pad_palette_k`) is `[kp, 3]` Lab
+centroids, which `centroids_from_reference` carries, and an int
+`k_active`, which the port's kernels and trainers take as it is.
 """
 
 from __future__ import annotations

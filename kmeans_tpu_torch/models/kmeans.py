@@ -25,17 +25,25 @@ The JAX package runs each loop as one `lax.while_loop` on the device. Here
 it is a Python loop of eager ops, and each checked iteration reads the
 convergence flag back with one `.item()`, a host synchronisation every
 8th iteration; the phase recorder bills the wait to `"lloyd_sync"`.
-Per-pixel weights (`weight=` in the reference) wait for bucketing
-(ROADMAP A.9); the accumulator already takes a weight plane.
+
+Every trainer takes the reference's per-pixel `weight=` (the bucketed
+serving path pads images into fixed canvases and marks the padding with
+weight 0): a pixel of weight <= 0 never seeds, restart seeds walk past
+it, it adds exact zeros to every per-cluster sum and count (through the
+accumulator's weight plane on the tile route), and the restarts' inertia
+weighs each pixel's distance. The batched trainers take one weight
+vector and one first seed index per member.
 """
 
 from __future__ import annotations
+
+from itertools import repeat
 
 import numpy as np
 import torch
 
 from kmeans_tpu_torch.ops.delta_e import metric_fns
-from kmeans_tpu_torch.ops.kernels import lloyd_accumulate, pack_lab_planes
+from kmeans_tpu_torch.ops.kernels import lloyd_accumulate, pack_lab_planes, pack_plane
 from kmeans_tpu_torch.utils.profiling import phase
 
 MAX_ITERATIONS = 128  # kmeans_tpu/models/kmeans.py:49
@@ -94,17 +102,23 @@ def plusplus_init(
     first_index: int,
     k_active: int | None = None,
     metric: str = "cie94",
+    weight: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Farthest-point seeding: `pixels[N, 3]` Lab -> `[k, 3]` centroids.
     Centroid 0 is `pixels[first_index]`; each next one is the pixel with the
     largest distance to the chosen set (first maximum wins). With
-    `k_active < k` the trailing rows stay zero and must stay masked."""
+    `k_active < k` the trailing rows stay zero and must stay masked. With
+    `weight[N]`, a pixel of weight <= 0 never seeds: its distance-map
+    entry is pinned to -1, below every real pixel's, and the running
+    minimum keeps it there (kmeans_tpu/models/kmeans.py:113-139)."""
     k_active = k if k_active is None else k_active
     _, dist_sq = metric_fns(metric)
     centroids = torch.zeros((k, 3), dtype=torch.float32, device=pixels.device)
     c0 = pixels[first_index]
     centroids[0] = c0
     dmap = dist_sq(pixels, c0[None, :])
+    if weight is not None:
+        dmap = torch.where(weight > 0, dmap, torch.full_like(dmap, -1.0))
     for j in range(1, min(k, k_active)):
         # index_select keeps the pick on the device (no host round trip).
         new_c = torch.index_select(pixels, 0, torch.argmax(dmap).reshape(1))
@@ -114,7 +128,7 @@ def plusplus_init(
 
 
 def _update_centroids(
-    pixels: torch.Tensor, assign: torch.Tensor, k: int
+    pixels: torch.Tensor, assign: torch.Tensor, k: int, weight: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-cluster `(sums [K, 3], counts [K])` through a one-hot matrix
     product, as the reference does on its matrix unit with the product
@@ -124,10 +138,13 @@ def _update_centroids(
     caller's matmul-precision setting, and no process-wide flag is read or
     set (a serving thread may be training beside the caller). Each float32
     pixel is exact in float64, so the sums are float32 roundings of
-    near-exact totals."""
+    near-exact totals. With `weight[N]` each one-hot row is scaled by its
+    pixel's weight first (`:158-171`): a 0-weight row adds exact zeros."""
     onehot = torch.zeros(
         (pixels.shape[0], k), dtype=torch.float64, device=pixels.device
     ).scatter_(1, assign[:, None], 1.0)
+    if weight is not None:
+        onehot = onehot * weight.to(torch.float64)[:, None]
     sums = (onehot.T @ pixels.to(torch.float64)).to(torch.float32)
     counts = onehot.sum(dim=0).to(torch.float32)
     return sums, counts
@@ -172,15 +189,17 @@ def lloyd(
     max_iterations: int = MAX_ITERATIONS,
     k_active: int | None = None,
     metric: str = "cie94",
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Lloyd iterations on the one-hot product update
-    (kmeans_tpu/models/kmeans.py:184). Returns
-    `(centroids [k, 3], iterations_run)`."""
+    (kmeans_tpu/models/kmeans.py:184); `weight[N]` scales each pixel's
+    contribution. Returns `(centroids [k, 3], iterations_run)`."""
     k = centroids.shape[0]
     valid = _valid(k, k_active, pixels.device)
 
     def totals(cents):
-        return _update_centroids(pixels, assign_clusters(pixels, cents, valid, metric), k)
+        return _update_centroids(pixels, assign_clusters(pixels, cents, valid, metric), k,
+                                 weight)
 
     return _lloyd_loop(centroids, totals, convergence, max_iterations, k_active, metric)
 
@@ -194,6 +213,7 @@ def lloyd_accumulated(
     metric: str = "cie94",
     plane_dtype: str | None = None,
     fast: bool = False,
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Lloyd loop on the tile accumulator: the port of `lloyd_pallas`
     (kmeans_tpu/models/kmeans.py:241). The pixels are packed once into
@@ -204,18 +224,26 @@ def lloyd_accumulated(
     only at k > 16 (`:288`): each step then assigns by the factorized
     CIE94 score or the pruned CIEDE2000 tier, so near-tie pixels may join
     another cluster than under the exact step; smaller palettes train
-    exact."""
+    exact. `weight[N]` travels as the kernel's weight plane, packed like
+    the Lab planes (`:295`)."""
     if plane_dtype not in _PLANE_DTYPES:
         raise ValueError(f"plane_dtype must be None or 'bfloat16', got {plane_dtype!r}")
     planes, n_valid = pack_lab_planes(pixels, _PLANE_DTYPES[plane_dtype])
+    weight_planes = _weight_plane(weight)
     fast = bool(fast) and centroids.shape[0] > 16
 
     def totals(cents):
-        t = lloyd_accumulate(planes, cents, n_valid, k_active=k_active, metric=metric,
-                             fast=fast)
+        t = lloyd_accumulate(planes, cents, n_valid, k_active=k_active,
+                             weight_planes=weight_planes, metric=metric, fast=fast)
         return t[:, :3], t[:, 3]
 
     return _lloyd_loop(centroids, totals, convergence, max_iterations, k_active, metric)
+
+
+def _weight_plane(weight: torch.Tensor | None) -> torch.Tensor | None:
+    """`[N]` weights -> the accumulator's float32 `[M, 128]` weight plane
+    (zero past N, like the Lab planes' padding), or None."""
+    return None if weight is None else pack_plane(weight.to(torch.float32))
 
 
 def _chunks(pixels: torch.Tensor):
@@ -228,12 +256,13 @@ def _assign_chunked(pixels, centroids, valid, metric):
     return torch.cat([assign_clusters(px, centroids, valid, metric) for px in _chunks(pixels)])
 
 
-def _update_chunked(pixels, assign, k):
+def _update_chunked(pixels, assign, k, weight=None):
     """`_update_centroids` over row chunks, the partial (sums, counts)
     added in chunk order (kmeans_tpu/models/kmeans.py:572)."""
+    weights = repeat(None) if weight is None else _chunks(weight)
     parts = [
-        _update_centroids(px, asg, k)
-        for px, asg in zip(_chunks(pixels), torch.split(assign, _CHUNK_PIXELS))
+        _update_centroids(px, asg, k, wgt)
+        for px, asg, wgt in zip(_chunks(pixels), torch.split(assign, _CHUNK_PIXELS), weights)
     ]
     return (torch.stack([p[0] for p in parts]).sum(0),
             torch.stack([p[1] for p in parts]).sum(0))
@@ -246,6 +275,7 @@ def lloyd_chunked(
     max_iterations: int = MAX_ITERATIONS,
     k_active: int | None = None,
     metric: str = "cie94",
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """`lloyd` with every `[N, K]` intermediate cut into row chunks: the
     memory-bounded trainer for large pixel counts at k > `ACCUM_MAX_K`
@@ -255,7 +285,7 @@ def lloyd_chunked(
     valid = _valid(k, k_active, pixels.device)
 
     def totals(cents):
-        return _update_chunked(pixels, _assign_chunked(pixels, cents, valid, metric), k)
+        return _update_chunked(pixels, _assign_chunked(pixels, cents, valid, metric), k, weight)
 
     return _lloyd_loop(centroids, totals, convergence, max_iterations, k_active, metric)
 
@@ -268,11 +298,12 @@ def fit(
     max_iterations: int = MAX_ITERATIONS,
     k_active: int | None = None,
     metric: str = "cie94",
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Seed + Lloyd: `pixels[N, 3]` -> `(centroids [k, 3], iterations)`
     (kmeans_tpu/models/kmeans.py:719)."""
-    centroids = plusplus_init(pixels, k, first_index, k_active, metric)
-    return lloyd(pixels, centroids, convergence, max_iterations, k_active, metric)
+    centroids = plusplus_init(pixels, k, first_index, k_active, metric, weight)
+    return lloyd(pixels, centroids, convergence, max_iterations, k_active, metric, weight)
 
 
 def fit_large(
@@ -285,46 +316,59 @@ def fit_large(
     metric: str = "cie94",
     plane_dtype: str | None = None,
     fast: bool = False,
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """`fit` for large pixel counts: float32 seeding (always exact), then
     `lloyd_accumulated` (kmeans_tpu/models/kmeans.py:431)."""
-    centroids = plusplus_init(pixels, k, first_index, k_active, metric)
+    centroids = plusplus_init(pixels, k, first_index, k_active, metric, weight)
     return lloyd_accumulated(
-        pixels, centroids, convergence, max_iterations, k_active, metric, plane_dtype, fast
+        pixels, centroids, convergence, max_iterations, k_active, metric, plane_dtype, fast,
+        weight,
     )
 
 
-def derive_restart_seeds(n: int, first_index: int, restarts: int) -> torch.Tensor:
+def derive_restart_seeds(n: int, first_index: int, restarts: int,
+                         weight: torch.Tensor | None = None) -> torch.Tensor:
     """Flat seed-pixel indices of `restarts` runs, `[restarts]` int32 on
     the CPU: restart 0 is `first_index`, restart r adds
     `floor(r * 0.618... * n)` in float32, modulo `n`
-    (kmeans_tpu/models/kmeans.py:333)."""
+    (kmeans_tpu/models/kmeans.py:333). With `weight[N]`, restarts 1.. walk
+    off the pad pixels: seed r becomes the (seed mod n_real)-th pixel of
+    weight > 0, in index order (`:337-351`)."""
     golden = torch.tensor(0.6180339887498949, dtype=torch.float32)
     offs = torch.floor(torch.arange(restarts, dtype=torch.float32) * golden * n)
     offs = offs.to(torch.int32)
-    return torch.remainder(torch.tensor(first_index, dtype=torch.int32) + offs, n)
+    seeds = torch.remainder(torch.tensor(first_index, dtype=torch.int32) + offs, n)
+    if weight is not None:
+        real = (weight > 0).cpu()
+        order = torch.argsort((~real).to(torch.int8), stable=True)
+        ranks = torch.remainder(seeds, max(int(real.sum()), 1)).to(torch.int64)
+        seeds = torch.cat([seeds[:1], order[ranks][1:].to(torch.int32)])
+    return seeds
 
 
-def _best_of_restarts(fit_one, inertia, n, first_index, restarts):
+def _best_of_restarts(fit_one, inertia, n, first_index, restarts, weight=None):
     """Run `fit_one(seed)` for each seed of `derive_restart_seeds`, one
     after another, and return the `(centroids, iterations)` of the run
     whose `inertia(centroids)` is lowest; on a tie the first, as
     `argmin` takes it."""
     runs, inertias = [], []
-    for seed in derive_restart_seeds(n, first_index, restarts).tolist():
+    for seed in derive_restart_seeds(n, first_index, restarts, weight).tolist():
         cents, iters = fit_one(seed)
         runs.append((cents, iters))
         inertias.append(inertia(cents))
     return runs[int(torch.argmin(torch.stack(inertias)).item())]
 
 
-def _sum_min_d2(pixels, centroids, valid, metric) -> torch.Tensor:
+def _sum_min_d2(pixels, centroids, valid, metric, weight=None) -> torch.Tensor:
     """Sum over pixels of the squared delta-E to the nearest active
-    centroid, one row chunk at a time."""
-    return torch.stack([
-        torch.sum(torch.min(_masked_d2(px, centroids, valid, metric), dim=1).values)
-        for px in _chunks(pixels)
-    ]).sum()
+    centroid, each times its pixel's weight, one row chunk at a time."""
+    weights = repeat(None) if weight is None else _chunks(weight)
+    sums = []
+    for px, wgt in zip(_chunks(pixels), weights):
+        dmin = torch.min(_masked_d2(px, centroids, valid, metric), dim=1).values
+        sums.append(torch.sum(dmin if wgt is None else dmin * wgt))
+    return torch.stack(sums).sum()
 
 
 def fit_restarts(
@@ -336,6 +380,7 @@ def fit_restarts(
     max_iterations: int = MAX_ITERATIONS,
     k_active: int | None = None,
     metric: str = "cie94",
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """`fit` with `restarts` seedings from `derive_restart_seeds`; the run
     with the lowest within-cluster inertia wins
@@ -343,14 +388,14 @@ def fit_restarts(
     in one vmapped loop that freezes converged runs, so each run equals a
     single `fit` from its seed; here they run one after another."""
     def one(seed):
-        return fit(pixels, k, seed, convergence, max_iterations, k_active, metric)
+        return fit(pixels, k, seed, convergence, max_iterations, k_active, metric, weight)
 
     if restarts <= 1:
         return one(first_index)
     valid = _valid(k, k_active, pixels.device)
     return _best_of_restarts(
-        one, lambda c: _sum_min_d2(pixels, c, valid, metric),
-        pixels.shape[0], first_index, restarts,
+        one, lambda c: _sum_min_d2(pixels, c, valid, metric, weight),
+        pixels.shape[0], first_index, restarts, weight,
     )
 
 
@@ -365,6 +410,7 @@ def fit_large_restarts(
     metric: str = "cie94",
     plane_dtype: str | None = None,
     fast: bool = False,
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """`fit_large` with `restarts` seedings (kmeans_tpu/models/kmeans.py:477).
     Each run's inertia is one extra accumulator pass with
@@ -372,22 +418,24 @@ def fit_large_restarts(
     it (`:519-547`); the lowest wins. Under `fast=True` that pass runs
     exact for CIE94 (the factorized score is a rank, no distance) and
     keeps the pruned tier for CIEDE2000, whose winning distance is exact
-    (`:534-543`)."""
+    (`:534-543`). With `weight`, the pass reads the weight plane, so each
+    distance counts times its pixel's weight."""
     def one(seed):
         return fit_large(pixels, k, seed, convergence, max_iterations,
-                         k_active, metric, plane_dtype, fast)
+                         k_active, metric, plane_dtype, fast, weight)
 
     if restarts <= 1:
         return one(first_index)
     planes, n_valid = pack_lab_planes(pixels)
+    weight_planes = _weight_plane(weight)
 
     def inertia(cents):
         totals = lloyd_accumulate(planes, cents, n_valid, k_active=k_active,
-                                  metric=metric, emit_inertia=True,
-                                  fast=bool(fast) and metric == "cie2000")
+                                  weight_planes=weight_planes, metric=metric,
+                                  emit_inertia=True, fast=bool(fast) and metric == "cie2000")
         return torch.sum(totals[:, 4])
 
-    return _best_of_restarts(one, inertia, pixels.shape[0], first_index, restarts)
+    return _best_of_restarts(one, inertia, pixels.shape[0], first_index, restarts, weight)
 
 
 def fit_chunked(
@@ -399,19 +447,21 @@ def fit_chunked(
     max_iterations: int = MAX_ITERATIONS,
     k_active: int | None = None,
     metric: str = "cie94",
+    weight: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Memory-bounded fit: seeding + `lloyd_chunked`; restarts run one
     after another with a chunked inertia (kmeans_tpu/models/kmeans.py:652)."""
     def one(seed):
-        cents = plusplus_init(pixels, k, seed, k_active, metric)
-        return lloyd_chunked(pixels, cents, convergence, max_iterations, k_active, metric)
+        cents = plusplus_init(pixels, k, seed, k_active, metric, weight)
+        return lloyd_chunked(pixels, cents, convergence, max_iterations, k_active, metric,
+                             weight)
 
     if restarts <= 1:
         return one(first_index)
     valid = _valid(k, k_active, pixels.device)
     return _best_of_restarts(
-        one, lambda c: _sum_min_d2(pixels, c, valid, metric),
-        pixels.shape[0], first_index, restarts,
+        one, lambda c: _sum_min_d2(pixels, c, valid, metric, weight),
+        pixels.shape[0], first_index, restarts, weight,
     )
 
 
@@ -429,10 +479,12 @@ def plusplus_init_batched(
     first_indices,
     k_actives,
     metric: str = "cie94",
+    weights: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """`plusplus_init` of M members at once: `pixels[M, N, 3]` (one image
     expanded along M shares its pixels), member `i` seeded at flat index
-    `first_indices[i]` with `k_actives[i]` centroids -> `[M, k, 3]`. The
+    `first_indices[i]` with `k_actives[i]` centroids and, with
+    `weights[M, N]`, never at a pixel of weight <= 0 -> `[M, k, 3]`. The
     same elementwise operations per member; members past their `k_active`
     keep zero rows."""
     m = pixels.shape[0]
@@ -443,6 +495,8 @@ def plusplus_init_batched(
     c0 = pixels[rows, torch.tensor(first_indices, dtype=torch.int64).to(pixels.device)]
     centroids[:, 0] = c0
     dmap = dist_sq(pixels, c0[:, None, :])
+    if weights is not None:
+        dmap = torch.where(weights > 0, dmap, torch.full_like(dmap, -1.0))
     for j in range(1, min(k, max(k_actives))):
         new_c = pixels[rows, torch.argmax(dmap, dim=1)]
         take = j < ka
@@ -473,11 +527,12 @@ def lloyd_batched(
     convergence: float = LAB_CONVERGENCE,
     max_iterations: int = MAX_ITERATIONS,
     metric: str = "cie94",
+    weights: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`lloyd` of M members in one loop: `pixels[M, N, 3]`, `centroids[M,
-    k, 3]`, `k_actives` M ints. Each step assigns every member at once
-    (`_assign_batched`) and takes each member's `(sums, counts)` with the
-    solo `_update_centroids`. A member that votes converged at a check
+    k, 3]`, `k_actives` M ints, optional `weights[M, N]`. Each step assigns
+    every member at once (`_assign_batched`) and takes each member's
+    `(sums, counts)` with the solo `_update_centroids`. A member that votes converged at a check
     freezes: later steps leave its centroids and iteration count alone, as
     a batched `lax.while_loop` does, so each member's result is its solo
     `lloyd`'s. One host synchronisation per check for all members.
@@ -491,7 +546,9 @@ def lloyd_batched(
     iters = torch.zeros(m, dtype=torch.int64, device=device)
     for j in range(max_iterations):
         assign = _assign_batched(pixels, centroids, valid, metric)
-        totals = [_update_centroids(pixels[i], assign[i], k) for i in range(m)]
+        totals = [_update_centroids(pixels[i], assign[i], k,
+                                    None if weights is None else weights[i])
+                  for i in range(m)]
         sums = torch.stack([t[0] for t in totals])
         counts = torch.stack([t[1] for t in totals])
         nonempty = counts > 0
@@ -515,20 +572,25 @@ def lloyd_batched(
 def fit_restarts_batched(
     pixels: torch.Tensor,
     k: int,
-    first_index: int,
+    first_index,
     restarts: int = 1,
     convergence: float = LAB_CONVERGENCE,
     max_iterations: int = MAX_ITERATIONS,
     k_actives=None,
     metric: str = "cie94",
+    weights: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, list]:
     """`fit_restarts` of B members in one loop, the counterpart of the
     reference's `jax.vmap(fit_restarts)` (kmeans_tpu/api.py:3294, 3771):
     `pixels` is `[B, N, 3]` (member b trains on `pixels[b]`, all at `k`),
     or one `[N, 3]` image shared by B members with `k_actives` (B ints; the
-    kmax padding of `reduce_batch`). Every member seeds at `first_index`
-    (restart r at `derive_restart_seeds`'s r-th index) and all B x restarts
-    runs share one `lloyd_batched` loop; each member keeps its run of least
+    kmax padding of `reduce_batch`). `first_index` is one flat index for
+    every member or B of them (the coalescers' frames differ in size);
+    `weights` is None, one `[N]` vector for every member, or `[B, N]`
+    (bucketed canvases: 0 on the padding). Member b seeds at its first
+    index (restart r at `derive_restart_seeds`'s r-th index, walked off
+    its 0-weight pixels) and all B x restarts runs share one
+    `lloyd_batched` loop; each member keeps its run of least weighted
     inertia, the first on a tie. Returns `(centroids [B, k, 3], iterations
     of each member's winner)`."""
     n = pixels.shape[-2]
@@ -539,24 +601,37 @@ def fit_restarts_batched(
     else:
         b = pixels.shape[0]
     k_actives = [k] * b if k_actives is None else [int(x) for x in k_actives]
-    seeds = (derive_restart_seeds(n, first_index, restarts).tolist() if restarts > 1
-             else [first_index])
-    r = len(seeds)
+    firsts = [int(first_index)] * b if np.ndim(first_index) == 0 else [int(f) for f in first_index]
+    if weights is not None and weights.dim() == 1:
+        weights = weights.expand(b, n)
+
+    def member_seeds(i):
+        if restarts <= 1:
+            return [firsts[i]]
+        return derive_restart_seeds(n, firsts[i], restarts,
+                                    None if weights is None else weights[i]).tolist()
+
+    seeds = [member_seeds(i) for i in range(b)]
+    r = len(seeds[0])
     if pixels.dim() == 2:
         runs_px = pixels.expand(b * r, n, 3)
     else:
         runs_px = pixels.repeat_interleave(r, dim=0) if r > 1 else pixels
-    run_ka = [ka for ka in k_actives for _ in seeds]
-    cents = plusplus_init_batched(runs_px, k, seeds * b, run_ka, metric)
-    cents, iters = lloyd_batched(runs_px, cents, run_ka, convergence, max_iterations, metric)
+    run_w = None if weights is None else (weights.repeat_interleave(r, dim=0) if r > 1
+                                          else weights)
+    run_ka = [ka for ka in k_actives for _ in range(r)]
+    cents = plusplus_init_batched(runs_px, k, [s for member in seeds for s in member], run_ka,
+                                  metric, run_w)
+    cents, iters = lloyd_batched(runs_px, cents, run_ka, convergence, max_iterations, metric,
+                                 run_w)
     iters = iters.tolist()
     if r == 1:
         return cents, iters
     valid = torch.arange(k, device=pixels.device)[None, :] < torch.tensor(run_ka).to(
         pixels.device)[:, None]
-    inertia = torch.stack([_sum_min_d2(runs_px[i], cents[i], valid[i], metric)
-                           for i in range(b * r)])
+    inertia = torch.stack([
+        _sum_min_d2(runs_px[i], cents[i], valid[i], metric, None if run_w is None else run_w[i])
+        for i in range(b * r)])
     best = torch.argmin(inertia.reshape(b, r), dim=1).tolist()
     return (torch.stack([cents[i * r + w] for i, w in enumerate(best)]),
             [iters[i * r + w] for i, w in enumerate(best)])
-

@@ -8,9 +8,10 @@ the long side and scales the short side with truncation (minimum 1).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from kmeans_tpu_torch.ops._math import const, div
+from kmeans_tpu_torch.ops._math import const
 
 
 def shrunk_dimensions(
@@ -54,18 +55,138 @@ def resize_bilinear(
     return _blend(image[y0], image[y1], x0, x1, fx, fy)
 
 
+# The reference's shrinks, as XLA compiles them on the CPU (the JAX
+# package's oracle): the canvas shrink divides the coordinates truly (its
+# sizes are traced) but contracts `pos / n_out * n_in - 0.5` into one
+# fused multiply-add; both multiply the unorm conversion by the float32
+# reciprocal of 255 and contract each blend `a * (1 - f) + b * f` into
+# fma(a, 1 - f, b * f). With float32
+# operands an FMA is the float64 product plus the addend, rounded once to
+# float32 (the product is exact in float64), so the canvas computes the
+# same on both devices. IEEE divides and separate roundings instead round
+# the exact ties of a 2:1 or 15:1 shrink (samples at fraction 0.5) the
+# other way on some 2% of the canvas's bytes, and miss 17 bytes of 48
+# canvases without the coordinate's FMA alone (measured on the CPU).
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
+
+
+def _fma_blend(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """`fma(a, 1 - f, b * f)` in float32: `a * (1 - f) + b * f` with the
+    first product and the sum rounded once."""
+    return (a.double() * (1.0 - f).double() + (b * f).double()).float()
+
+
+def _compiled_axis(n_out: int, n_in: int, device):
+    """The sampler of one axis as XLA compiles the reference's jitted
+    `resize_uint8` at static sizes: `pos / n_out * n_in` folds into `pos *
+    K` with K = f32(f32(1 / n_out) * n_in), and `pos * K - 0.5` contracts
+    into one fused multiply-add. The product of an integer below 2^24 and
+    K is exact in float64, and so is the sum, so one rounding to float32
+    gives the FMA's bits."""
+    k = float(np.float32(np.float32(1.0) / np.float32(n_out)) * np.float32(n_in))
+    pos = torch.arange(n_out, dtype=torch.float64, device=device)
+    coord = (pos * k - 0.5).float()
+    i0 = torch.floor(coord)
+    frac = coord - i0
+    lo = torch.clamp(i0.to(torch.int64), 0, n_in - 1)
+    hi = torch.clamp(i0.to(torch.int64) + 1, 0, n_in - 1)
+    return lo, hi, frac
+
+
 def resize_uint8(
     image_u8: torch.Tensor, new_height: int, new_width: int
 ) -> torch.Tensor:
     """uint8 `[..., H, W, C]` resize through the unorm float path, rounded
     back to uint8 (kmeans_tpu/ops/resize.py:114); leading axes are frames,
-    each resized as alone. The sampled rows are gathered in uint8 before
+    each resized as alone. The arithmetic is the reference's as its
+    entry points run it, jitted (`_compiled_axis`, the unorm conversion
+    as a multiply by `_INV_255`, each blend as `_fma_blend`), the same on
+    both devices; the reference run op by op rounds the 0.5 ties of a
+    shrink apart from it. The sampled rows are gathered in uint8 before
     the elementwise unorm conversion, which gives the same bits as
     converting the whole image first and touches only those rows."""
     h, w = image_u8.shape[-3], image_u8.shape[-2]
-    y0, y1, fy = _axis_weights(new_height, h, image_u8.device)
-    x0, x1, fx = _axis_weights(new_width, w, image_u8.device)
-    top = div(image_u8[..., y0, :, :].to(torch.float32), 255.0)
-    bot = div(image_u8[..., y1, :, :].to(torch.float32), 255.0)
-    out = _blend(top, bot, x0, x1, fx, fy)
+    y0, y1, fy = _compiled_axis(new_height, h, image_u8.device)
+    x0, x1, fx = _compiled_axis(new_width, w, image_u8.device)
+    top = image_u8[..., y0, :, :].to(torch.float32) * _INV_255
+    bot = image_u8[..., y1, :, :].to(torch.float32) * _INV_255
+    rows = _fma_blend(top, bot, fy[:, None, None])
+    out = _fma_blend(rows[..., x0, :], rows[..., x1, :], fx[None, :, None])
     return torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _canvas_axis(n_canvas: int, n_out: torch.Tensor, n_in: torch.Tensor):
+    """Sampler of one canvas axis for B frames: `n_out`, `n_in` are `[B]`
+    int64 on the device. Returns `(lo, hi, frac, inside)`, each `[B,
+    n_canvas]` (kmeans_tpu/ops/resize.py:156-171)."""
+    pos = torch.arange(n_canvas, device=n_out.device)
+    # fma(pos / n_out, n_in, -0.5), as XLA contracts it: the float32
+    # quotient times an integer below 2^24 is exact in float64.
+    quot = torch.div(pos.to(torch.float32)[None, :], n_out.to(torch.float32)[:, None])
+    coord = (quot.double() * n_in.double()[:, None] - 0.5).float()
+    i0 = torch.floor(coord)
+    frac = coord - i0
+    last = (n_in - 1)[:, None]
+    lo = torch.minimum(torch.clamp(i0.to(torch.int64), min=0), last)
+    hi = torch.minimum(torch.clamp(i0.to(torch.int64) + 1, min=0), last)
+    ident = (n_out == n_in)[:, None]
+    direct = torch.minimum(pos[None, :], last)
+    lo = torch.where(ident, direct, lo)
+    hi = torch.where(ident, direct, hi)
+    frac = torch.where(ident, torch.zeros_like(frac), frac)
+    return lo, hi, frac, pos[None, :] < n_out[:, None]
+
+
+def resize_to_canvas(
+    image_u8: torch.Tensor,
+    canvas_height: int,
+    canvas_width: int,
+    src_h,
+    src_w,
+    out_h,
+    out_w,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shrink into a fixed canvas, the bucketed training path
+    (kmeans_tpu/ops/resize.py:121).
+
+    `image_u8` `[Hp, Wp, C]` holds real data in its top-left `[src_h,
+    src_w]` corner; it is resized to `[out_h, out_w]` with the sampler of
+    `resize_bilinear` and written to the top-left of a
+    `[canvas_height, canvas_width, C]` canvas. Along an axis where `out ==
+    src` the sampler is the exact identity gather (the corner-aligned one
+    would blend neighbours at equal sizes). Returns `(canvas_u8, weight)`,
+    `weight` float32 1.0 on real output pixels and 0.0 on the canvas's
+    padding.
+
+    The batched form takes `[B, Hp, Wp, C]` frames and B values (a
+    sequence or a `[B]` tensor) for each of `src_h/src_w/out_h/out_w`, and
+    returns `[B, canvas_height, canvas_width, C]` canvases and `[B,
+    canvas_height, canvas_width]` weights, each frame as if alone. The
+    coordinate divides are true divides of tensors, on the CPU and on
+    CUDA; the fused multiply-adds and the unorm conversion follow the
+    reference as XLA compiles it (`_INV_255`), which gives its bytes."""
+    single = image_u8.dim() == 3
+    frames = image_u8[None] if single else image_u8
+    device = frames.device
+
+    def vec(v):
+        v = torch.as_tensor([v] if single else v, dtype=torch.int64)
+        return v.to(device)
+
+    y0, y1, fy, vy = _canvas_axis(canvas_height, vec(out_h), vec(src_h))
+    x0, x1, fx, vx = _canvas_axis(canvas_width, vec(out_w), vec(src_w))
+    b, c = frames.shape[0], frames.shape[-1]
+    rows_of = torch.arange(b, device=device)[:, None]
+    # The sampled rows are gathered in uint8 before the elementwise unorm
+    # conversion (the same bits as converting the whole image first).
+    top = frames[rows_of, y0].to(torch.float32) * _INV_255
+    bot = frames[rows_of, y1].to(torch.float32) * _INV_255
+    rows = _fma_blend(top, bot, fy[:, :, None, None])
+
+    def cols(x):
+        return torch.gather(rows, 2, x[:, None, :, None].expand(b, canvas_height, -1, c))
+
+    out = _fma_blend(cols(x0), cols(x1), fx[:, None, :, None])
+    canvas = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
+    weight = (vy[:, :, None] & vx[:, None, :]).to(torch.float32)
+    return (canvas[0], weight[0]) if single else (canvas, weight)

@@ -117,23 +117,41 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"bucketing": True}, "A.9"), ({"pipeline": True}, "A.13"),
-     ({"fast": True, "bucketing": True}, "A.9")],
+    [({"pipeline": True}, "A.13"), ({"pipeline": True, "bucketing": True}, "A.13"),
+     ({"fast": True, "pipeline": True}, "A.13")],
 )
 def test_unported_options_raise(kwargs, item):
+    """What stays refused raises and names its ROADMAP item; bucketing runs
+    (tests/test_torch_bucketing.py, tests/test_torch_many.py)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         kt.ImageProcessor(device="cpu", **kwargs)
+    kt.ImageProcessor(device="cpu", **{k: v for k, v in kwargs.items() if k != "pipeline"})
 
 
 @pytest.mark.parametrize("method,args", [
     ("reduce_many", ([], 4)), ("find_many", ([], [[0, 0, 0]])), ("palette_many", ([], 4)),
-    ("warmup", ()),
+    ("warmup", ([(8, 8)], [4])),
 ])
 def test_unported_batch_methods_raise(processors, method, args):
-    """The bucketed batch methods wait for bucketing (the frame batches of
-    one size run: tests/test_torch_frames.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    """The coalescers refuse an empty batch and `warmup` an unbucketed
+    processor, with the reference's `ValueError`s; with images they run
+    (tests/test_torch_many.py, and per image without bucketing)."""
+    with pytest.raises(ValueError):
         getattr(processors[1], method)(*args)
+
+
+@pytest.mark.parametrize("method,item", [
+    ("reduce_streamed", "A.10"), ("palette_streamed", "A.10"), ("find_streamed", "A.10"),
+    ("reduce_pipelined", "A.10"), ("find_sharded", "A.12"), ("palette_sharded", "A.12"),
+    ("reduce_sharded", "A.12"), ("reduce_images_sharded", "A.12"),
+    ("palette_images_sharded", "A.12"), ("find_batch_sharded", "A.12"),
+])
+def test_unported_entry_points_raise(processors, method, item):
+    """The reference's streaming and sharded entry points exist and raise,
+    naming their ROADMAP item, with or without bucketing."""
+    for port in (processors[1], kt.ImageProcessor(device="cpu", bucketing=True)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            getattr(port, method)(_image(8, 8), 4)
 
 
 @pytest.mark.parametrize(

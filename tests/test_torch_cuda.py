@@ -921,3 +921,91 @@ def test_meld_and_fast_assign_same_words_on_two_streams(cuda, metric):
                             300, 401, 8, metric)
     assert torch.equal(outs[0][1], kernels.assign_packed_reference(rgb, big, 1.5, None, "dither",
                                                                    0, metric, True))
+
+
+# --- Bucketing: the weighted accumulator on a padded canvas, bucketed find,
+# the coalescers ----------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cie94", "cie2000"])
+def test_weighted_accumulator_on_a_bucketed_canvas(cuda, metric):
+    """A 300x420 image padded to its 320x448 bucket, the full canvas with its
+    weight plane (0 on the padding): the kernel's counts equal the twin's
+    and the counts of the unpadded pixels alone, exactly; the sums agree
+    within the accumulator's bar."""
+    from kmeans_tpu_torch.models.kmeans import _weight_plane
+    from kmeans_tpu_torch.ops.resize import resize_to_canvas
+    from kmeans_tpu_torch.utils.bucketing import bucket_shape
+
+    h, w = 300, 420
+    img = _gradient_frames(1, h, w, 21)[0][..., :3]
+    bh, bw = bucket_shape(h, w)
+    padded = np.zeros((bh, bw, 3), np.uint8)
+    padded[:h, :w] = img
+    canvas, weight = resize_to_canvas(torch.from_numpy(padded).to(cuda), bh, bw, h, w, h, w)
+    planes, n = kernels.pack_lab_planes(srgb8_to_lab(canvas.reshape(-1, 3)))
+    wplane = _weight_plane(weight.reshape(-1))
+    _, cents = _case(1, 1, 8, 22, cuda)
+    got = kernels.lloyd_accumulate(planes, cents, n, 5, wplane, metric=metric)
+    want = kernels.lloyd_accumulate_reference(planes, cents, n, 5, wplane, metric=metric)
+    alone, n_alone = kernels.pack_lab_planes(
+        srgb8_to_lab(torch.from_numpy(np.ascontiguousarray(img)).to(cuda).reshape(-1, 3)))
+    unpadded = kernels.lloyd_accumulate(alone, cents, n_alone, 5, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 3], want[:, 3]) and torch.equal(got[:, 3], unpadded[:, 3])
+    assert got[5:, 3].sum() == 0 and got[:, 3].sum() == h * w
+    bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+    assert ((got.double() - want.double()).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 16])
+@pytest.mark.parametrize("mode", [ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD])
+def test_bucketed_find_on_card_equals_unbucketed(cuda, mode, k):
+    """Bucketed `find`, `find_batch` and `find_many` on the card equal
+    unbucketed `find` on the card bit for bit (37x53 and 61x97 pad off the
+    Bayer period), with one launch for each bucket of two or more."""
+    frames = _gradient_frames(3, 37, 53, 23)
+    mixed = frames[:2] + _gradient_frames(1, 61, 97, 24) + _gradient_frames(1, 40, 50, 25)
+    colors = np.random.default_rng(26).integers(0, 256, (k, 3), dtype=np.uint8)
+    bucketed, plain = ImageProcessor(bucketing=True), ImageProcessor()
+    name = "meld_packed" if mode is ReduceMode.MELD else "assign_packed"
+    kernels.LAUNCHES_BY_MODE.clear()
+    got_one = [bucketed.find(f, colors, mode).pixels for f in mixed]
+    got_batch = bucketed.find_batch(frames, colors, mode)
+    got_many = bucketed.find_many(mixed, colors, mode)
+    torch.cuda.synchronize()
+    # 4 solo finds, 1 find_batch, find_many: 37x53 x2 and 40x50 share 40x56.
+    assert kernels.launches(name) == 4 + 1 + 2
+    for i, f in enumerate(mixed):
+        want = plain.find(f, colors, mode).pixels
+        np.testing.assert_array_equal(got_one[i], want)
+        np.testing.assert_array_equal(got_many[i].pixels, want)
+    for g, f in zip(got_batch, frames):
+        np.testing.assert_array_equal(g.pixels, plain.find(f, colors, mode).pixels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [ReduceMode.DITHER, ReduceMode.MELD])
+def test_bucketed_coalescers_on_card_match_cpu(cuda, mode):
+    """`reduce_many` and `palette_many` over a mixed batch (two buckets of
+    two, one image alone) on the card against the CPU: equal palettes;
+    dither within 1e-4 of the pixels, meld within 1 u8 step on 1e-3. Each
+    bucket of two takes one frames launch."""
+    mixed = (_gradient_frames(2, 45, 70, 27) + _gradient_frames(1, 40, 66, 28)
+             + _gradient_frames(2, 90, 130, 29))
+    card = ImageProcessor(bucketing=True)
+    cpu = ImageProcessor(device="cpu", bucketing=True)
+    kernels.LAUNCHES_BY_MODE.clear()
+    on_card = card.reduce_many(mixed, 6, mode)
+    frames_name = "meld_frames_packed" if mode is ReduceMode.MELD else "assign_frames_packed"
+    assert kernels.launches(frames_name) == 2
+    on_cpu = cpu.reduce_many(mixed, 6, mode)
+    for a, b in zip(card.palette_many(mixed, 6), cpu.palette_many(mixed, 6)):
+        np.testing.assert_array_equal(a, b)
+    bar = 1e-3 if mode is ReduceMode.MELD else 1e-4
+    for a, b in zip(on_card, on_cpu):
+        step = np.abs(a.pixels.astype(int) - b.pixels.astype(int)).max(-1)
+        assert step.max() <= (1 if mode is ReduceMode.MELD else 255)
+        assert (step > 0).sum() <= bar * step.size

@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: the training shrink."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,6 +10,8 @@ from kmeans_tpu.ops import resize as ref_rs
 from kmeans_tpu_torch.ops import resize as rs
 
 torch.set_num_threads(2)
+
+_ref_resize_jit = jax.jit(ref_rs.resize_uint8, static_argnums=(1, 2))
 
 
 def test_shrunk_dimensions_equal_over_a_grid():
@@ -23,18 +26,22 @@ def test_shrunk_dimensions_equal_over_a_grid():
 @pytest.mark.parametrize(
     "src,dst",
     [((300, 420), (182, 256)), ((300, 420), (100, 37)), ((61, 97), (61, 97)),
-     ((7, 5), (3, 2)), ((512, 96), (256, 48))],
+     ((7, 5), (3, 2)), ((512, 96), (256, 48)), ((1080, 1920), (144, 256)),
+     ((1350, 1080), (256, 204)), ((61, 97), (40, 64))],
 )
 def test_resize_uint8_identical_bytes(src, dst):
-    """Same bytes as the reference's `resize_uint8` run op by op (the
-    reference's jitted training fuses these ops and may contract them into
-    FMAs, which can move a pixel by one u8 step; that is counted in
-    tests/test_torch_api.py at the palette level)."""
+    """Same bytes as the reference's `resize_uint8` as its entry points run
+    it, jitted at static sizes: XLA folds the coordinate's divide and
+    multiply into one constant, contracts the coordinate and the blends
+    into fused multiply-adds and multiplies by 1/255. Run op by op, the
+    reference rounds the 0.5 ties apart (3.9% of the bytes of 1080p ->
+    256x144); the count of differing bytes is reported, and the bar is 0."""
     rng = np.random.default_rng(src[0] * 1000 + dst[1])
     img = rng.integers(0, 256, src + (3,), dtype=np.uint8)
-    want = np.asarray(ref_rs.resize_uint8(jnp.asarray(img), *dst))
+    want = np.asarray(_ref_resize_jit(jnp.asarray(img), *dst))
     got = rs.resize_uint8(torch.from_numpy(img), *dst).numpy()
-    np.testing.assert_array_equal(got, want)
+    differ = int((got != want).sum())
+    assert differ == 0, f"{differ} of {got.size} bytes differ"
 
 
 def test_resize_bilinear_float_matches():
