@@ -115,7 +115,21 @@ then:
    timed in fresh processes (`python3 chip_smoke.py --warmup-probe
    warmup|none`: the library built anew inside it, then warm; the first
    `reduce` after it against a fresh process's first); a 300x420
-   bucketed reduce on the card against the CPU;
+   bucketed reduce on the card against the CPU.
+   Then the host palette algorithms and the command line:
+   `palette_algos` (octree, median cut and Wu through `palette` and
+   `reduce` on the 4K image and a 1920x1080 one, unbucketed and bucketed,
+   k = 8 and 16: the shrink's bytes on the card against the CPU's, each
+   palette against the CPU's, each replace, dither and meld output against
+   the plain twin's on the same palette, 0 differing pixels, with each
+   call's launches; the host milliseconds of each algorithm and of the
+   shrink) and `cli_slice` (the 4K image written as a PNG by the port's
+   codec, then `kmeans_tpu_torch.cli.main` on the card for `reduce` with
+   each algorithm, dither and meld, `palette -s 40`, `find` with 3
+   colours, `--train-max-size none` and `--delta-e 2000`: each output file
+   decodes to the equivalent `ImageProcessor` call's pixels, with its
+   launches and its seconds split into decode, encode and the rest; then
+   `validate_kernels()` must return True);
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
@@ -129,7 +143,8 @@ then:
 Every phase prints one JSON line. The script exits non-zero on any
 failure, and when no CUDA device is present. Its last three lines are the
 kernels' summary (`launches` counts the launches of the driven paths;
-`launched_by` says whether they came through `ImageProcessor`, an
+`launched_by` says whether they came through `ImageProcessor`, the
+command line, `validate_kernels` (the u8-index assign's one route), an
 experiment tool's evaluation pass or, for the forms no entry point
 reaches, a direct call of the wrapper), the card's
 `nvidia-smi` line, and
@@ -144,6 +159,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -2662,6 +2678,234 @@ def bucketing_slice(device, card: str) -> dict:
     return counts
 
 
+# --- The host palette algorithms and the command line -----------------------
+
+ALGO_KS = (8, 16)
+# The CLI slice's calls on the 4K PNG: (name, argv after the input and
+# output, the equivalent `ImageProcessor` keyword arguments, the call).
+CLI_CALLS = (
+    ("reduce kmeans", ["reduce", "-c", "8"], {}, ("reduce", 8, "kmeans", "replace")),
+    ("reduce octree", ["reduce", "-c", "8", "-a", "octree"], {},
+     ("reduce", 8, "octree", "replace")),
+    ("reduce mediancut", ["reduce", "-c", "8", "-a", "mediancut"], {},
+     ("reduce", 8, "mediancut", "replace")),
+    ("reduce wu", ["reduce", "-c", "8", "-a", "wu"], {}, ("reduce", 8, "wu", "replace")),
+    ("reduce dither", ["reduce", "-c", "8", "-m", "dither"], {},
+     ("reduce", 8, "kmeans", "dither")),
+    ("reduce meld", ["reduce", "-c", "8", "-m", "meld"], {}, ("reduce", 8, "kmeans", "meld")),
+    ("palette -s 40", ["palette", "-c", "8", "-s", "40"], {}, ("palette", 8, "kmeans", 40)),
+    ("find 3 colours", ["find", "-p", "#1E1E28,#C8503C,#3CB4DC"], {},
+     ("find", "#1E1E28,#C8503C,#3CB4DC", None, "replace")),
+    ("--train-max-size none reduce", ["reduce", "-c", "8"], {"train_max_size": None},
+     ("reduce", 8, "kmeans", "replace")),
+    ("--delta-e 2000 reduce", ["reduce", "-c", "8"], {"delta_e": "2000"},
+     ("reduce", 8, "kmeans", "replace")),
+)
+
+
+def _host_palette_plain(dev, palette_u8, mode):
+    """The plain version of a host-palette `reduce`'s output pass: the
+    palette to Lab on the host (as the entry point does), then the twin of
+    the assign or meld kernel (and of the threshold) on the unpadded image,
+    unpacked as the entry point unpacks."""
+    import torch
+
+    from kmeans_tpu_torch.api import _colors_to_lab, _lab_palette_to_u8, _unpack_gather
+    from kmeans_tpu_torch.api import _unpack_meld
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.quantize import dither_threshold_reference
+
+    h, w = dev.shape[0], dev.shape[1]
+    lab = torch.from_numpy(_colors_to_lab(palette_u8)).to(dev.device)
+    k = lab.shape[0]
+    if mode == "meld":
+        return _unpack_meld(kernels.meld_packed_reference(dev, lab).cpu().numpy(), h, w, k)
+    thr = dither_threshold_reference(lab) if mode == "dither" else 0.0
+    words = kernels.assign_packed_reference(dev, lab, thr, mode=mode)
+    return _unpack_gather(words.cpu().numpy(), h, w, k, _lab_palette_to_u8(lab)[0].cpu().numpy())
+
+
+def palette_algos(image, card: str) -> dict:
+    """`palette_algos`: octree, median cut and Wu through the entry points on
+    the 4K image and a 1920x1080 one, unbucketed and bucketed, at k = 8 and
+    16. For each image and mode: the shrink's bytes on the card against the
+    CPU's (`_shrunk_pixels`: the eager shrink, or under bucketing the
+    canvas shrink), with its milliseconds. For each algorithm and k: the
+    palette on the card against the CPU's, with the host milliseconds of the
+    algorithm; then `reduce` in replace, dither and meld, each output
+    against the plain twin's on the same palette (0 differing pixels:
+    CIE94 meld equals its twin too) and each call's launches (replace: one
+    assign; dither: one assign and one threshold; meld: one meld; palette:
+    none). Each call is counted from 0 just before it. Returns the
+    launches by kernel mode summed over the phase."""
+    import torch
+
+    from kmeans_tpu_torch import Algorithm, Image, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.api import OCTREE_MAX_SIZE
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    t_phase = time.perf_counter()
+    images = {"3840x2160": image, "1920x1080": synthetic_image(1080, 1920, seed=SEED + 20)}
+    want_launches = {"replace": {"assign_packed cie94 exact": 1},
+                     "dither": {"assign_packed cie94 exact": 1,
+                                "dither_threshold cie94 exact": 1},
+                     "meld": {"meld_packed cie94 exact": 1}}
+    counts: dict = {}
+    failures = []
+    for name, img in images.items():
+        h, w = img.shape[:2]
+        dev = torch.from_numpy(np.ascontiguousarray(img[..., :3])).to("cuda")
+        for bucketing in (False, True):
+            card_p = ImageProcessor(device="cuda", bucketing=bucketing)
+            cpu_p = ImageProcessor(device="cpu", bucketing=bucketing)
+            shrink_ms = []
+            for _ in range(3):
+                phases: dict = {}
+                with collect_phases(phases):
+                    shrunk = card_p._shrunk_pixels(Image((w, h), img), OCTREE_MAX_SIZE)
+                shrink_ms.append(phases.get("shrink", 0.0) * 1e3)
+            want = cpu_p._shrunk_pixels(Image((w, h), img), OCTREE_MAX_SIZE)
+            differ = int((shrunk != want).sum())
+            emit({"phase": "palette_algos", "what": "shrink", "image": name,
+                  "bucketing": bucketing, "card": card, "shape": list(shrunk.shape),
+                  "differing_bytes": differ, "bytes": int(want.size),
+                  "shrink_ms_each": shrink_ms})
+            if differ or shrunk.shape != want.shape:
+                failures.append(f"shrink {name} bucketing={bucketing}: {differ} bytes differ")
+            for algo in (Algorithm.OCTREE, Algorithm.MEDIANCUT, Algorithm.WU):
+                for k in ALGO_KS:
+                    phases = {}
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    with collect_phases(phases):
+                        pal = card_p.palette(k, img, algo)
+                    palette_ms = (time.perf_counter() - t0) * 1e3
+                    palette_launches = mode_counts()
+                    cpu_pal = cpu_p.palette(k, img, algo)
+                    same = pal.shape == cpu_pal.shape and bool((pal == cpu_pal).all())
+                    line = {"phase": "palette_algos", "what": "palette", "image": name,
+                            "bucketing": bucketing, "algo": algo.value, "k": k,
+                            "colors": int(pal.shape[0]), "same_palette_as_cpu": same,
+                            "card": card, "e2e_ms": palette_ms,
+                            "host_palette_ms": phases.get("host_palette", 0.0) * 1e3,
+                            "shrink_ms": phases.get("shrink", 0.0) * 1e3,
+                            "upload_ms": phases.get("upload", 0.0) * 1e3,
+                            "launches": palette_launches, "reduce": {}}
+                    if not same or palette_launches:
+                        failures.append(f"palette {name} {algo.value} k={k} "
+                                        f"bucketing={bucketing}: same {same}, "
+                                        f"launches {palette_launches}")
+                    for mode in ("replace", "dither", "meld"):
+                        reset_launch_counts()
+                        out = card_p.reduce(k, img, algo, ReduceMode(mode)).pixels
+                        torch.cuda.synchronize()
+                        launches = mode_counts()
+                        for key, n in launches.items():
+                            counts[key] = counts.get(key, 0) + n
+                        plain = _host_palette_plain(dev, pal, mode)
+                        differ = int((out != plain).any(-1).sum())
+                        line["reduce"][mode] = {"differing_pixels": differ,
+                                                "colors": len(unique_rgba(out)),
+                                                "launches": launches}
+                        if differ or launches != want_launches[mode]:
+                            failures.append(f"reduce {name} {algo.value} k={k} {mode} "
+                                            f"bucketing={bucketing}: {differ} pixels differ, "
+                                            f"launches {launches}")
+                    emit(line)
+    emit({"phase": "palette_algos", "seconds": time.perf_counter() - t_phase,
+          "launches": counts})
+    if failures:
+        raise AssertionError("palette_algos: " + "; ".join(failures))
+    return counts
+
+
+def cli_slice(image, card: str, workdir) -> dict:
+    """`cli_slice`: the 4K image written as a PNG by the port's codec, then
+    `kmeans_tpu_torch.cli.main` in this process on the card for each of
+    `CLI_CALLS`. Each output file decodes to the pixels of the equivalent
+    `ImageProcessor(device="cuda")` call on the decoded image (the palette
+    call: its swatch), with at most k colours; each call's launches (counted
+    from 0 just before it) and seconds, split into decode, encode and the
+    rest. Then `validate_kernels()` must return True. Returns the launches
+    by kernel mode of the CLI calls and, under `"validate_kernels"`, of the
+    validation."""
+    import contextlib
+    import io
+
+    from kmeans_tpu_torch import Algorithm, ImageProcessor, ReduceMode, cli
+    from kmeans_tpu_torch.ops.validate import validate_kernels
+    from kmeans_tpu_torch.utils import png_py
+    from kmeans_tpu_torch.utils.imageio import load_image
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    src = workdir / "smoke4k.png"
+    t0 = time.perf_counter()
+    src.write_bytes(png_py.encode_png(WIDTH, HEIGHT, np.ascontiguousarray(image).tobytes()))
+    emit({"phase": "cli_slice", "what": "write the 4K PNG", "seconds": time.perf_counter() - t0,
+          "bytes": src.stat().st_size})
+    decoded = load_image(src)
+    if not (decoded.pixels == image).all():
+        raise AssertionError("the port's PNG codec did not round-trip the 4K image")
+    counts: dict = {}
+    failures = []
+    for name, argv, kwargs, (call, k, algo, mode) in CLI_CALLS:
+        out = workdir / f"out-{name.replace(' ', '_')}.png"
+        full = ([] if not kwargs else
+                ["--train-max-size", "none"] if "train_max_size" in kwargs else
+                ["--delta-e", "2000"])
+        full += argv[:1] + ["-i", str(src), "-o", str(out)] + argv[1:]
+        phases: dict = {}
+        reset_launch_counts()
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with collect_phases(phases), contextlib.redirect_stdout(stdout):
+            rc = cli.main(full)
+        seconds = time.perf_counter() - t0
+        launches = mode_counts()
+        for key, n in launches.items():
+            counts[key] = counts.get(key, 0) + n
+        got = load_image(out).pixels
+        proc = ImageProcessor(device="cuda", **kwargs)
+        if call == "reduce":
+            want = proc.reduce(k, decoded, Algorithm(algo), ReduceMode(mode)).pixels
+        elif call == "find":
+            want = proc.find(decoded, cli.parse_colors(k), ReduceMode(mode)).pixels
+        else:
+            want = cli.render_swatch(proc.palette(k, decoded, Algorithm(algo)), mode)
+        n_colors = len(unique_rgba(got))
+        limit = 3 if call == "find" else 8
+        # The shrunk k-means training of `palette` launches no kernel.
+        ok = (rc == 0 and got.shape == want.shape and bool((got == want).all())
+              and (mode == "meld" or n_colors <= limit) and (call == "palette" or launches))
+        decode_s, encode_s = phases.get("decode", 0.0), phases.get("encode", 0.0)
+        emit({"phase": "cli_slice", "call": name, "argv": full[:full.index("-i")] + argv[1:],
+              "card": card, "seconds": seconds, "decode_s": decode_s, "encode_s": encode_s,
+              "rest_s": seconds - decode_s - encode_s,
+              "phases_ms": {n: v * 1e3 for n, v in phases.items() if n != "_syncs"},
+              "equal_to_api": bool(got.shape == want.shape and (got == want).all()),
+              "colors": n_colors, "launches": launches,
+              "stdout": stdout.getvalue().strip()[:200]})
+        if not ok:
+            failures.append(f"cli {name}: rc {rc}, {n_colors} colours, launches {launches}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        valid = validate_kernels()
+    validate_counts = mode_counts()
+    emit({"phase": "cli_slice", "what": "validate_kernels", "ok": valid,
+          "seconds": time.perf_counter() - t0, "checks": stdout.getvalue().splitlines(),
+          "launches": validate_counts})
+    if not valid:
+        failures.append("validate_kernels() returned False")
+    emit({"phase": "cli_slice", "seconds": time.perf_counter() - t_phase, "launches": counts})
+    if failures:
+        raise AssertionError("cli_slice: " + "; ".join(failures))
+    return {**counts, "validate_kernels": validate_counts}
+
+
 def main() -> int:
     import torch
 
@@ -3023,6 +3267,11 @@ def main() -> int:
     # resolution, on the weighted accumulator), the coalescers and warmup.
     bucket_counts = bucketing_slice(device, card)
 
+    # 4i. This slice: the host palette algorithms through the entry points,
+    # and the command line from file to file (then `validate_kernels`).
+    algo_counts = palette_algos(image, card)
+    cli_counts = cli_slice(image, card, Path("build") / "cli_slice")
+
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
     shrunk_timing, full_timing, meld_timing, timing_2000 = timed_reduces({
@@ -3239,9 +3488,10 @@ def main() -> int:
               frames_launches("quantize_rgba cie94 exact-chunked"),
               colour_err["quantize_rgba", "cie94", True], frames_times["quantize_rgba[chunked]"]),
         entry("assign_u8", "quantize_assign.cu", 1635,
-              frames_launches("assign_u8 cie94 exact"),
+              sum(cli_counts["validate_kernels"].get(f"assign_u8 cie94 {tier}", 0)
+                  for tier in ("exact", "exact-chunked")),
               colour_err["assign_u8", "cie94", False], frames_times["assign_u8"],
-              launched_by="direct wrapper call, no API route"),
+              launched_by="kmeans_tpu_torch.ops.validate.validate_kernels (cli_slice)"),
         # The meld kernel past one chunk of staged centroids (the repair).
         entry("meld_packed[chunked]", "quantize_meld.cu", 1878,
               frames_launches("meld_packed cie94 exact-chunked"),
@@ -3317,6 +3567,32 @@ def main() -> int:
         "assign_frames_packed": ("assign_frames_packed cie94 exact", "reduce_many"),
         "dither_threshold": ("dither_threshold cie94 exact", "bucketed reduce and find (dither)"),
     }
+    # The kernels of this slice's two paths: their launches (each call
+    # counted from 0 just before it) and the entry points that made them.
+    slice_paths = {
+        "assign_packed": ("assign_packed cie94 exact",
+                          "host-palette reduce (replace, dither)", "reduce, find"),
+        "assign_packed[cie2000]": ("assign_packed cie2000 exact", None,
+                                   "--delta-e 2000 reduce"),
+        "meld_packed": ("meld_packed cie94 exact", "host-palette reduce (meld)", "reduce -m meld"),
+        "lloyd_accumulate": ("lloyd_accumulate cie94 exact", None,
+                             "--train-max-size none reduce"),
+        "dither_threshold": ("dither_threshold cie94 exact", "host-palette reduce (dither)",
+                             "reduce -m dither"),
+    }
+    for line in kernel_lines:
+        if line["name"] not in slice_paths:
+            continue
+        key, algo_entries, cli_entries = slice_paths[line["name"]]
+        if algo_entries is not None:
+            if algo_counts.get(key, 0) < 1:
+                raise AssertionError(f"palette_algos never launched {line['name']}")
+            line["launches_palette_algos"] = algo_counts[key]
+            line["launched_by"] += f"; palette_algos: {algo_entries}"
+        if cli_counts.get(key, 0) < 1:
+            raise AssertionError(f"cli_slice never launched {line['name']}")
+        line["launches_cli_slice"] = cli_counts[key]
+        line["launched_by"] += f"; cli_slice, kmeans_tpu_torch.cli.main: {cli_entries}"
     for line in kernel_lines:
         line["design"] = design_of(line["name"])
         if line["name"] in bucket_paths:

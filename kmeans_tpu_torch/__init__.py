@@ -6,9 +6,18 @@ pass (`csrc/quantize_assign.cu`), the meld pass (`csrc/quantize_meld.cu`)
 and full-resolution training's Lloyd step (`csrc/lloyd_accumulate.cu`)
 are hand-written kernels, under CIE94 or CIEDE2000 (`delta_e=`);
 `ImageProcessor(device="cpu")` runs the same path in plain PyTorch.
+The command line is `python -m kmeans_tpu_torch` (`cli.py`).
 """
 
 from kmeans_tpu_torch.api import Algorithm, ColorSpace, ImageProcessor, ReduceMode
-from kmeans_tpu_torch.image import Image
+from kmeans_tpu_torch.image import Image, borrowed_pixel, copied_pixel
 
-__all__ = ["Algorithm", "ColorSpace", "Image", "ImageProcessor", "ReduceMode"]
+__all__ = [
+    "Algorithm",
+    "ColorSpace",
+    "Image",
+    "ImageProcessor",
+    "ReduceMode",
+    "borrowed_pixel",
+    "copied_pixel",
+]

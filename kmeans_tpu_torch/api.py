@@ -37,6 +37,15 @@ as in the reference); they act at 16 < k <= 512 only, and outside that
 range the results equal `fast=False` bit for bit. The shrunk, batched and
 row-chunked trainings never see `fast`, as in the reference.
 
+`algo=Algorithm.OCTREE`, `MEDIANCUT` or `WU` (`palette`, `reduce`,
+`palette_images`, `palette_many`) runs the reference's host palette
+algorithms (`models/octree.py`, `models/mediancut.py`, `models/wu.py`,
+numpy): the image shrinks to `OCTREE_MAX_SIZE` on the device, as the
+reference runs that shrink, op by op (`ops/resize.py::resize_uint8_eager`;
+under bucketing the canvas shrink `resize_to_canvas`), its bytes come back
+to the host for the algorithm, and `reduce` recolours with the resulting
+palette through the same output passes as `find`.
+
 `ImageProcessor(bucketing=True)` is the reference's serving mode
 (`kmeans_tpu/api.py:1148-1260`, `utils/bucketing.py`): each image pads
 bottom and right to its shape bucket, the training shrink lands in a
@@ -67,6 +76,9 @@ import torch
 
 from kmeans_tpu_torch.image import Image
 from kmeans_tpu_torch.models import kmeans as kmeans_model
+from kmeans_tpu_torch.models.mediancut import extract_palette_mediancut
+from kmeans_tpu_torch.models.octree import extract_palette_octree
+from kmeans_tpu_torch.models.wu import extract_palette_wu
 from kmeans_tpu_torch.ops._math import div
 from kmeans_tpu_torch.ops.colorspace import lab_to_srgb8, srgb8_to_lab, srgb8_to_lab_np
 from kmeans_tpu_torch.ops.kernels import (
@@ -81,7 +93,12 @@ from kmeans_tpu_torch.ops.kernels import (
     quantize_rgba,
 )
 from kmeans_tpu_torch.ops.quantize import dither_threshold, dither_thresholds
-from kmeans_tpu_torch.ops.resize import resize_to_canvas, resize_uint8, shrunk_dimensions
+from kmeans_tpu_torch.ops.resize import (
+    resize_to_canvas,
+    resize_uint8,
+    resize_uint8_eager,
+    shrunk_dimensions,
+)
 from kmeans_tpu_torch.utils.bucketing import (
     bucket_frames,
     bucket_k,
@@ -99,6 +116,8 @@ from kmeans_tpu_torch.utils.profiling import phase_sync as _phase_sync
 
 # Training-image shrink cap (kmeans_tpu/api.py:80).
 MAX_IMAGE_DIMENSION = 256
+# The host palette algorithms' shrink cap (kmeans_tpu/api.py:82).
+OCTREE_MAX_SIZE = 128
 # Above this many training pixels (k <= 64) the one-hot update's [N, K]
 # intermediate dominates memory and training moves to the tile
 # accumulator (kmeans_tpu/api.py:160).
@@ -289,6 +308,25 @@ def _colors_to_lab(colors: np.ndarray) -> np.ndarray:
     return srgb8_to_lab_np(colors[:, :3])
 
 
+def _cpu_palette_from_rgb(rgb: np.ndarray, k: int, algo) -> np.ndarray:
+    """A host palette algorithm over `[N, 3]` RGB rows, sorted by L*
+    (kmeans_tpu/api.py:865)."""
+    with _phase("host_palette"):
+        if algo is Algorithm.MEDIANCUT:
+            colors = extract_palette_mediancut(rgb, k)
+        elif algo is Algorithm.WU:
+            colors = extract_palette_wu(rgb, k)
+        else:
+            colors = extract_palette_octree(rgb, k)
+        return _sort_by_lightness(np.asarray(colors, dtype=np.uint8))
+
+
+def _sort_by_lightness(colors_u8: np.ndarray) -> np.ndarray:
+    """RGBA8 colours sorted by Lab L* ascending (kmeans_tpu/api.py:877)."""
+    lightness = srgb8_to_lab_np(colors_u8[:, :3])[:, 0]
+    return colors_u8[np.argsort(lightness, kind="stable")]
+
+
 def _as_frames(images) -> list:
     """Images of one size, as `Image`s; raises on none or mixed sizes."""
     frames = [_as_image(im) for im in images]
@@ -424,6 +462,71 @@ class ImageProcessor:
             _phase_sync(centroids)
         return centroids
 
+    # --- The host palette algorithms (kmeans_tpu/api.py:1085-1125) -----------
+
+    def _cpu_palette_u8(self, image: Image, k: int, algo, dev=None) -> np.ndarray:
+        """`[<= k, 4]` RGBA8 palette of a host algorithm, L*-sorted
+        (kmeans_tpu/api.py:1085). `dev` is the image already on the device
+        (`[H, W, 3]`, or its bucket under bucketing), if uploaded."""
+        return _cpu_palette_from_rgb(self._cpu_shrunk_rgb(image, dev), k, algo)
+
+    def _cpu_shrunk_rgb(self, image: Image, dev=None) -> np.ndarray:
+        """The image shrunk to `OCTREE_MAX_SIZE`, as `[N, 3]` RGB rows
+        (kmeans_tpu/api.py:1992)."""
+        return self._shrunk_pixels(image, OCTREE_MAX_SIZE, dev).reshape(-1, 3)
+
+    def _shrunk_pixels(self, image: Image, cap: int, dev=None) -> np.ndarray:
+        """`[sh, sw, 3]` host RGB of the image shrunk to `cap`
+        (kmeans_tpu/api.py:1093): the image as it is when it fits, else
+        shrunk on the device and read back. Unbucketed, the shrink is the
+        reference's eager one (`resize_uint8_eager`); under bucketing the
+        padded image shrinks into its canvas (`resize_to_canvas`, the
+        reference's `_canvas_shrink_jit:770`) and the host crops."""
+        w, h = image.dimensions
+        sw, sh = shrunk_dimensions(w, h, cap)
+        if (sw, sh) == (w, h):
+            with _phase("host_prep"):
+                return _host_rgb(image.pixels)
+        dev = self._upload_image(image) if dev is None else dev
+        with _phase("shrink"):
+            if self.bucketing:
+                canvas = (min(cap, dev.shape[0]), min(cap, dev.shape[1]))
+                shrunk, _ = resize_to_canvas(dev, *canvas, h, w, sh, sw)
+            else:
+                shrunk = resize_uint8_eager(dev, sh, sw)
+            _phase_sync(shrunk)
+        with _phase("readback"):
+            return shrunk.cpu().numpy()[:sh, :sw]
+
+    def _upload_image(self, image: Image) -> torch.Tensor:
+        """The image's RGB on the device, under bucketing padded to its
+        bucket (`_upload_padded`)."""
+        if self.bucketing:
+            w, h = image.dimensions
+            return self._upload_padded([image], *bucket_shape(h, w))[0]
+        with _phase("host_prep"):
+            rgb = _host_rgb(image.pixels)
+        with _phase("upload"):
+            dev = self._upload(rgb)
+            _phase_sync(dev)
+        return dev
+
+    def _reduce_cpu_palette(self, image: Image, k: int, algo, mode: str) -> np.ndarray:
+        """`reduce` with a host palette algorithm (kmeans_tpu/api.py:1525-1537):
+        the image uploads once, its shrink feeds the algorithm, and the
+        palette's output pass runs on the uploaded image; under bucketing on
+        the padded bucket, the palette padded to `bucket_k` rows (masked by
+        `k_active`), and the host crops."""
+        w, h = image.dimensions
+        dev = self._upload_image(image)
+        palette_u8 = self._cpu_palette_u8(image, k, algo, dev)
+        with _phase("upload"):
+            palette_lab = self._upload(_colors_to_lab(palette_u8))
+        k_active = None
+        if self.bucketing:
+            palette_lab, k_active = pad_palette_k(palette_lab)
+        return self._quantize(dev, palette_lab, mode, k_active)[:h, :w]
+
     # --- Bucketed training (kmeans_tpu/api.py:606, 1148) ---------------------
 
     def _bucket_train_args(self, w: int, h: int, bw: int, bh: int):
@@ -496,11 +599,12 @@ class ImageProcessor:
     def palette(
         self, color_count: int, image, algo: Algorithm = Algorithm.KMEANS
     ) -> np.ndarray:
-        """The `k` dominant colours as `[k, 4]` RGBA8, sorted by L*."""
+        """The `k` dominant colours as `[k, 4]` RGBA8, sorted by L*; a host
+        algorithm may give fewer (its boxes or leaves deduplicated)."""
         image = _as_image(image)
         _validate_k(color_count)
         if algo is not Algorithm.KMEANS:
-            raise _not_ported(f"{algo}", "A.8")
+            return self._cpu_palette_u8(image, color_count, algo)
         if self.bucketing:
             # kmeans_tpu/api.py:1374-1391.
             w, h = image.dimensions
@@ -541,12 +645,14 @@ class ImageProcessor:
         algo: Algorithm = Algorithm.KMEANS,
         reduce_mode: ReduceMode = ReduceMode.REPLACE,
     ) -> Image:
-        """Quantize the image to `color_count` trained colours."""
+        """Quantize the image to `color_count` trained colours (k-means) or
+        to a host algorithm's palette."""
         image = _as_image(image)
         _validate_k(color_count)
-        if algo is not Algorithm.KMEANS:
-            raise _not_ported(f"{algo}", "A.8")
         mode = ReduceMode(reduce_mode).value
+        if algo is not Algorithm.KMEANS:
+            return Image(image.dimensions, self._reduce_cpu_palette(image, color_count, algo,
+                                                                    mode))
         if self.bucketing:
             return Image(image.dimensions, self._reduce_bucketed(image, color_count, mode))
         w, h = image.dimensions
@@ -717,11 +823,13 @@ class ImageProcessor:
         index addresses frame 0) and train once. `[k, 4]` RGBA8, L*-sorted.
         Under bucketing each frame's canvas is weighted, and the frames that
         pad the count to `bucket_frames` weigh 0 (`frame_valid`,
-        `:1947-1977`, `_train_frames_bucketed_jit:3581`)."""
+        `:1947-1977`, `_train_frames_bucketed_jit:3581`). A host algorithm
+        runs once over every frame's shrunk pixels (`:1942-1946`)."""
         frames = _as_frames(images)
         _validate_k(color_count)
         if algo is not Algorithm.KMEANS:
-            raise _not_ported(f"{algo}", "A.8")
+            rgb = np.concatenate([self._cpu_shrunk_rgb(f) for f in frames], axis=0)
+            return _cpu_palette_from_rgb(rgb, color_count, algo)
         w, h = frames[0].dimensions
         if self.bucketing:
             bh, bw = bucket_shape(h, w)
@@ -896,9 +1004,8 @@ class ImageProcessor:
         4]` RGBA8 L*-sorted as solo `palette` gives it, coalescing each
         bucket's images into one batched training (or, for a heavy bucket,
         one after another) (kmeans_tpu/api.py:3026). Without bucketing,
-        under `fast`, or for an image alone in its bucket, each image runs
-        `palette`; an `algo` other than KMEANS raises (ROADMAP A.8), as
-        `palette` does."""
+        under `fast`, with a host algorithm (one run per image, `:3052`),
+        or for an image alone in its bucket, each image runs `palette`."""
         frames = [_as_image(im) for im in images]
         if not frames:
             raise ValueError("need at least one image")

@@ -44,3 +44,14 @@ class Image:
     def into_raw_pixels(self) -> np.ndarray:
         """Flat uint8 RGBA byte buffer."""
         return self.pixels.reshape(-1)
+
+
+def copied_pixel(dimensions: tuple[int, int], rgba: np.ndarray) -> Image:
+    """An `Image` owning a copy of `rgba` (kmeans_tpu/image.py:55)."""
+    return Image(dimensions, np.array(rgba, dtype=np.uint8, copy=True))
+
+
+def borrowed_pixel(dimensions: tuple[int, int], rgba: np.ndarray) -> Image:
+    """An `Image` over `rgba` without a copy when it is already uint8
+    (kmeans_tpu/image.py:60)."""
+    return Image(dimensions, np.asarray(rgba, dtype=np.uint8))

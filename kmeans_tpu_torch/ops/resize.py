@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kmeans_tpu_torch.ops._math import const
+from kmeans_tpu_torch.ops._math import const, div
 
 
 def shrunk_dimensions(
@@ -53,6 +53,26 @@ def resize_bilinear(
     y0, y1, fy = _axis_weights(new_height, h, image.device)
     x0, x1, fx = _axis_weights(new_width, w, image.device)
     return _blend(image[y0], image[y1], x0, x1, fx, fy)
+
+
+def resize_uint8_eager(
+    image_u8: torch.Tensor, new_height: int, new_width: int
+) -> torch.Tensor:
+    """uint8 `[H, W, C]` resize as the reference runs `resize_uint8` op by
+    op, outside any jit (kmeans_tpu/api.py:1119, the shrink of the host
+    palette algorithms): a true divide by 255, `resize_bilinear`, then
+    `round(clamp(., 0, 1) * 255)`, every operation rounded on its own. It
+    rounds the 0.5 ties of a shrink apart from the jitted form
+    (`resize_uint8`), so each call site takes the form the reference runs
+    there. The sampled rows are gathered in uint8 before the elementwise
+    conversion (the same bits as converting the whole image first)."""
+    h, w = image_u8.shape[0], image_u8.shape[1]
+    y0, y1, fy = _axis_weights(new_height, h, image_u8.device)
+    x0, x1, fx = _axis_weights(new_width, w, image_u8.device)
+    top = div(image_u8[y0].to(torch.float32), 255.0)
+    bot = div(image_u8[y1].to(torch.float32), 255.0)
+    out = _blend(top, bot, x0, x1, fx, fy)
+    return torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
 # The reference's shrinks, as XLA compiles them on the CPU (the JAX

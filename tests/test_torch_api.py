@@ -175,19 +175,26 @@ def test_ported_options_accepted(processors, kwargs):
 def test_unported_modes_raise(processors):
     """Meld runs, and so do replace and dither past 1024 colours (any
     palette size; tests/test_torch_colour_out.py holds them to the
-    reference); what stays refused raises and names its ROADMAP item."""
-    _, port = processors
+    reference) and the host palette algorithms (their palettes the
+    reference's; tests/test_torch_palette_algos.py holds their routes);
+    what stays refused raises and names its ROADMAP item."""
+    ref, port = processors
     img = _image(20, 30)
     assert port.reduce(4, img, reduce_mode=kt.ReduceMode.MELD).pixels.shape == (20, 30, 4)
     one = port.find(img, [[1, 2, 3]], kt.ReduceMode.MELD).pixels
     assert (one.reshape(-1, 4) == [1, 2, 3, 255]).all()
     big = port.find(img, np.zeros((1025, 3), np.uint8), kt.ReduceMode.DITHER).pixels
     assert (big.reshape(-1, 4) == [0, 0, 0, 255]).all()
-    for algo in (kt.Algorithm.OCTREE, kt.Algorithm.WU, kt.Algorithm.MEDIANCUT):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            port.reduce(4, img, algo)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            port.palette(4, img, algo)
+    for algo in ("OCTREE", "WU", "MEDIANCUT"):
+        assert port.reduce(4, img, kt.Algorithm[algo]).pixels.shape == (20, 30, 4)
+        np.testing.assert_array_equal(port.palette(4, img, kt.Algorithm[algo]),
+                                      ref.palette(4, img, kmeans_tpu.Algorithm[algo]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        port.reduce_streamed(4, img)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+        port.find_sharded(img, [[1, 2, 3]])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        kt.ImageProcessor(device="cpu", pipeline=True)
     with pytest.raises(ValueError):
         port.reduce(0, img)
     with pytest.raises(ValueError):

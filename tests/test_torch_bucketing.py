@@ -357,5 +357,7 @@ def test_bucketing_refusals():
                  lambda: port.find_many([], [[0, 0, 0]])):
         with pytest.raises(ValueError):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        port.palette_many([_image(8, 8, 1)] * 2, 4, kt.Algorithm.OCTREE)
+    # A host algorithm runs per image (no batched form), as solo `palette`.
+    pair = [_image(8, 8, 1)] * 2
+    for got in port.palette_many(pair, 4, kt.Algorithm.OCTREE):
+        np.testing.assert_array_equal(got, port.palette(4, pair[0], kt.Algorithm.OCTREE))

@@ -1009,3 +1009,39 @@ def test_bucketed_coalescers_on_card_match_cpu(cuda, mode):
         step = np.abs(a.pixels.astype(int) - b.pixels.astype(int)).max(-1)
         assert step.max() <= (1 if mode is ReduceMode.MELD else 255)
         assert (step > 0).sum() <= bar * step.size
+
+
+@pytest.mark.cuda
+def test_validate_kernels_on_card(cuda, capsys):
+    """`validate_kernels` holds every kernel against its twin on the card."""
+    from kmeans_tpu_torch.ops.validate import validate_kernels
+
+    before = kernels.launches("assign_u8")
+    assert validate_kernels() is True
+    assert kernels.launches("assign_u8") > before
+    lines = capsys.readouterr().out.splitlines()
+    assert lines and all(line.endswith(": OK") for line in lines)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucketing", [False, True])
+def test_host_algorithms_on_card_match_cpu(cuda, bucketing):
+    """The host palette algorithms: the shrink on the card gives the CPU's
+    bytes, so each palette is the CPU's; replace and dither on the card give
+    the CPU's pixels, through one assign launch each."""
+    from kmeans_tpu_torch import Algorithm, Image
+    from kmeans_tpu_torch.api import OCTREE_MAX_SIZE
+
+    img = _gradient_frames(1, 150, 210, 31)[0]
+    card = ImageProcessor(bucketing=bucketing)
+    cpu = ImageProcessor(device="cpu", bucketing=bucketing)
+    image = Image((210, 150), img)
+    np.testing.assert_array_equal(card._shrunk_pixels(image, OCTREE_MAX_SIZE),
+                                  cpu._shrunk_pixels(image, OCTREE_MAX_SIZE))
+    for algo in (Algorithm.OCTREE, Algorithm.MEDIANCUT, Algorithm.WU):
+        np.testing.assert_array_equal(card.palette(8, img, algo), cpu.palette(8, img, algo))
+        for mode in (ReduceMode.REPLACE, ReduceMode.DITHER):
+            before = kernels.launches("assign_packed")
+            on_card = card.reduce(8, img, algo, mode).pixels
+            assert kernels.launches("assign_packed") == before + 1
+            np.testing.assert_array_equal(on_card, cpu.reduce(8, img, algo, mode).pixels)
