@@ -129,7 +129,24 @@ then:
    colours, `--train-max-size none` and `--delta-e 2000`: each output file
    decodes to the equivalent `ImageProcessor` call's pixels, with its
    launches and its seconds split into decode, encode and the rest; then
-   `validate_kernels()` must return True);
+   `validate_kernels()` must return True).
+   Then streaming in row bands (`streaming_slice`): on a 12288x12288
+   image, `find_streamed` with 16 colours in three modes in bands of
+   4096 and 1001 rows, each equal to the whole-image bucketed `find`;
+   `reduce_streamed` in three modes (dither at both splits, equal),
+   `palette_streamed`, and `reduce_streamed` at `train_max_size=2048`
+   (the weighted accumulator), each call with its launches (assign or
+   meld one a band, the threshold one a dither call, the accumulator one
+   an iteration) and its seconds by phase; the peak device memory of
+   `reduce_streamed` at 12288x12288 and 12288x6144 beside the bucketed
+   `reduce`; on the 4K image in bands of 1001 rows each band's words
+   against the plain twins' with its `row_offset`, `find_streamed` with
+   2048 colours (RGBA) against the bucketed `find`; an image within the
+   cap against the bucketed `reduce`; 1920x1080 in bands of 256 on the
+   card against the CPU; `reduce_pipelined` over 8 frames (1080p and
+   720p), unbucketed and bucketed, each output equal to its solo
+   `reduce`, timed against 8 sequential `reduce` calls in turns with
+   each one's device idle share;
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
@@ -2906,6 +2923,402 @@ def cli_slice(image, card: str, workdir) -> dict:
     return {**counts, "validate_kernels": validate_counts}
 
 
+# --- Streaming in row bands --------------------------------------------------
+
+STREAM_SIZE = 12288  # the JAX package's measured streaming case (docs/perf.md:801-808)
+STREAM_BANDS = (4096, 1001)  # the default; band starts off the Bayer period, a short last band
+STREAM_FIND_K = 16
+# reduce_pipelined's frames: (height, width), four 1080p then four 720p.
+PIPE_FRAMES = ((1080, 1920),) * 4 + ((720, 1280),) * 4
+STREAM_PHASES = ("host_prep", "upload", "shrink", "train", "output_pass", "readback", "unpack",
+                 "host_sort")
+
+
+def big_image(height: int, width: int, seed: int) -> np.ndarray:
+    """`synthetic_image`'s gradient-plus-noise recipe made 1024 rows at a
+    time from one seeded generator: the one-shot recipe holds about 12 GB
+    of int64 temporaries at 12288x12288."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((height, width, 4), np.uint8)
+    out[..., 3] = 255
+    x = np.arange(width)[None, :]
+    for r0 in range(0, height, 1024):
+        y = np.arange(r0, min(r0 + 1024, height))[:, None]
+        rgb = np.stack(np.broadcast_arrays(x * 255 // width, y * 255 // height,
+                                           (x + y) * 255 // (width + height)), -1)
+        noise = rng.integers(-8, 9, rgb.shape, dtype=np.int16)
+        out[r0:r0 + y.shape[0], :, :3] = np.clip(rgb + noise, 0, 255)
+    return out
+
+
+def _differing(a: np.ndarray, b: np.ndarray) -> int:
+    """Pixels of two RGBA8 images that differ (as 32-bit words)."""
+    if a.shape != b.shape:
+        return -1
+    return int(np.count_nonzero(np.ascontiguousarray(a).view(np.uint32)
+                                != np.ascontiguousarray(b).view(np.uint32)))
+
+
+def _peak_bytes(call) -> tuple:
+    """`(result, peak device bytes above those allocated before the call)`."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _streamed_call(what, call, counts, card, want_launches=None, peak=False) -> tuple:
+    """One streamed call, its launches counted from 0 just before it (added
+    to `counts`) and its seconds split into the phases of
+    `utils/profiling.py`; with `peak`, its peak device bytes. Emits the
+    line; returns `(result, line)`."""
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    phases: dict = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with collect_phases(phases):
+        if peak:
+            out, peak_bytes = _peak_bytes(call)
+        else:
+            out = call()
+    seconds = time.perf_counter() - t0
+    launches = mode_counts()
+    for key, n in launches.items():
+        counts[key] = counts.get(key, 0) + n
+    line = {"phase": "streaming_slice", "call": what, "card": card, "seconds": seconds,
+            "phases_s": {n: phases[n] for n in STREAM_PHASES if n in phases},
+            "syncs": phases.get("_syncs", 0), "launches": launches}
+    if peak:
+        line["peak_device_bytes"] = peak_bytes
+    if want_launches is not None and launches != want_launches:
+        line["launches_expected"] = want_launches
+    return out, line
+
+
+def _bands(h: int, band_rows: int) -> int:
+    return -(-h // band_rows)
+
+
+def _band_twins(proc, image, cents, k_active, mode, band_rows, starts):
+    """The bands of `image` that start at the rows `starts`, each through
+    the output pass as `_quantize_bands` runs it (padded to its bucket,
+    `row_offset` its first row, the operands computed once) beside its
+    plain twin (`assign_packed_reference` with the same `row_offset`;
+    `meld_packed_reference`, which has no row phase). Yields
+    `(r0, band, kind, words, twin)`; `kind` is "indexed" or "meld"."""
+    from kmeans_tpu_torch import Image
+    from kmeans_tpu_torch.ops import kernels
+
+    h, w = image.shape[:2]
+    operands = None if mode == "meld" else proc._pass_operands(cents, mode, k_active)
+    for r0 in starts:
+        band = proc._upload_band(Image((w, h), image), r0, band_rows)
+        kind, words, _ = proc._output_pass(band, cents, mode, k_active, r0, operands)
+        if mode == "meld":
+            twin = kernels.meld_packed_reference(band, cents, k_active)
+        else:
+            twin = kernels.assign_packed_reference(band, cents, operands[0], k_active, mode, r0)
+        yield r0, band, kind, words, twin
+
+
+def streaming_12k(card: str, counts: dict) -> list:
+    """The streamed entry points on the 12288x12288 image at k = 8:
+    `find_streamed` with 16 colours in three modes at both band splits,
+    each equal to the whole-image bucketed `find`; `reduce_streamed` in
+    three modes (dither also at 1001 rows: the strip and so the output do
+    not depend on the split), `palette_streamed`, the accumulator route at
+    `train_max_size=2048`; the band words against the plain twins
+    (`streaming_12k_twins`); the peak device memory of `reduce_streamed`
+    at 12288x12288 and 12288x6144 beside the bucketed `reduce`. Returns
+    the failures."""
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+
+    t0 = time.perf_counter()
+    img = big_image(STREAM_SIZE, STREAM_SIZE, SEED + 30)
+    emit({"phase": "streaming_slice", "what": "made the 12288x12288 image",
+          "seconds": time.perf_counter() - t0})
+    proc, bproc = ImageProcessor(device="cuda"), ImageProcessor(device="cuda", bucketing=True)
+    colors = np.random.default_rng(SEED + 31).integers(0, 256, (STREAM_FIND_K, 4),
+                                                       dtype=np.uint8)
+    colors[:, 3] = 255
+    failures = []
+
+    def expect(mode, kernel, bands, extra=None):
+        key = "meld_packed" if mode == "meld" else kernel
+        want = {f"{key} cie94 exact": bands}
+        if mode == "dither":
+            want["dither_threshold cie94 exact"] = 1
+        return {**want, **(extra or {})}
+
+    for mode in ("replace", "dither", "meld"):
+        t0 = time.perf_counter()
+        whole = bproc.find(img, colors, ReduceMode(mode)).pixels
+        whole_s = time.perf_counter() - t0
+        for band in STREAM_BANDS:
+            want = expect(mode, "assign_packed", _bands(STREAM_SIZE, band))
+            out, line = _streamed_call(
+                f"find_streamed 12288x12288 {STREAM_FIND_K} colours {mode} band_rows={band}",
+                lambda: proc.find_streamed(img, colors, ReduceMode(mode), band), counts, card,
+                want)
+            line["differing_from_bucketed_find"] = _differing(out.pixels, whole)
+            line["bucketed_find_seconds"] = whole_s
+            emit(line)
+            if line["differing_from_bucketed_find"] or "launches_expected" in line:
+                failures.append(f"find_streamed {mode} band {band}: {line}")
+            del out
+        del whole
+    outs, peak_full = {}, None
+    for mode in ("replace", "dither", "meld"):
+        outs[mode], line = _streamed_call(
+            f"reduce_streamed 12288x12288 k=8 {mode} band_rows=4096",
+            lambda: proc.reduce_streamed(K, img, ReduceMode(mode)), counts, card,
+            expect(mode, "assign_packed", _bands(STREAM_SIZE, 4096)),
+            peak=mode == "replace")
+        px = outs[mode].pixels
+        if mode == "replace":
+            peak_full = line["peak_device_bytes"]
+        line.update(iterations=proc.last_iterations, colors=len(unique_rgba(px)))
+        emit(line)
+        if (px.shape != img.shape or (mode != "meld" and line["colors"] > K)
+                or "launches_expected" in line):
+            failures.append(f"reduce_streamed {mode}: {line}")
+    out, line = _streamed_call(
+        "reduce_streamed 12288x12288 k=8 dither band_rows=1001",
+        lambda: proc.reduce_streamed(K, img, ReduceMode.DITHER, 1001), counts, card,
+        expect("dither", "assign_packed", _bands(STREAM_SIZE, 1001)))
+    line["differing_from_band_rows_4096"] = _differing(out.pixels, outs["dither"].pixels)
+    emit(line)
+    if line["differing_from_band_rows_4096"] or "launches_expected" in line:
+        failures.append(f"reduce_streamed dither band 1001: {line}")
+    del out, outs
+    pal, line = _streamed_call("palette_streamed 12288x12288 k=8",
+                               lambda: proc.palette_streamed(K, img), counts, card, {})
+    line["palette"] = ["#%02X%02X%02X" % tuple(c[:3]) for c in pal]
+    emit(line)
+    if pal.shape != (K, 4) or "launches_expected" in line:
+        failures.append(f"palette_streamed: {line}")
+    # train_max_size=2048: the 2048x2048 canvas (4.2M pixels) trains on the
+    # weighted accumulator, one launch per Lloyd iteration.
+    acc = ImageProcessor(device="cuda", train_max_size=2048)
+    out, line = _streamed_call("reduce_streamed 12288x12288 k=8 replace train_max_size=2048",
+                               lambda: acc.reduce_streamed(K, img), counts, card)
+    want = expect("replace", "assign_packed", _bands(STREAM_SIZE, 4096),
+                  {"lloyd_accumulate cie94 exact": acc.last_iterations})
+    line.update(iterations=acc.last_iterations, colors=len(unique_rgba(out.pixels)))
+    if line["launches"] != want:
+        line["launches_expected"] = want
+        failures.append(f"reduce_streamed train_max_size=2048: {line}")
+    emit(line)
+    del out
+    failures += streaming_12k_twins(proc, img, colors, card)
+    # Peak device memory: streamed at 12288x12288 (above) and 12288x6144,
+    # beside the whole-image bucketed reduce of 12288x12288.
+    _, line = _streamed_call("reduce_streamed 12288x6144 k=8 replace band_rows=4096",
+                             lambda: proc.reduce_streamed(K, img[:STREAM_SIZE // 2]),
+                             counts, card, peak=True)
+    emit(line)
+    _, whole_peak = _peak_bytes(lambda: bproc.reduce(K, img))
+    peaks = {"reduce_streamed_12288x12288": peak_full,
+             "reduce_streamed_12288x6144": line["peak_device_bytes"],
+             "bucketed_reduce_12288x12288": whole_peak}
+    ratio = peaks["reduce_streamed_12288x12288"] / peaks["reduce_streamed_12288x6144"]
+    emit({"phase": "streaming_slice", "what": "peak device bytes above the call's start",
+          "card": card, **peaks, "streamed_12288_over_6144": ratio})
+    # Streaming holds one band: below the whole image, the same at both heights.
+    if not (peak_full < whole_peak and abs(ratio - 1) <= 0.1):
+        failures.append(f"streamed peak memory {peaks}")
+    return failures
+
+
+def streaming_12k_twins(proc, img, colors, card: str) -> list:
+    """The band words of the 12288x12288 image against the plain twins, at
+    the shapes the streamed paths launch: the first and the last band at
+    `band_rows` 4096 (three full bands) and 1001 (a last band of 276 rows,
+    starts off the Bayer period), in three modes, with the palette
+    `reduce_streamed` trains at k = 8 and the 16 colours of
+    `find_streamed`. Every word must be equal. Returns the failures."""
+    from kmeans_tpu_torch import Image
+    from kmeans_tpu_torch.api import _colors_to_lab
+    from kmeans_tpu_torch.utils.bucketing import pad_palette_k
+
+    t0 = time.perf_counter()
+    h, w = img.shape[:2]
+    palettes = {
+        f"reduce k={K}": (proc._train_streamed(Image((w, h), img), K, STREAM_BANDS[0]), K),
+        f"find {STREAM_FIND_K} colours": pad_palette_k(proc._upload(_colors_to_lab(colors))),
+    }
+    failures, lines = [], []
+    for what, (cents, k_active) in palettes.items():
+        for band_rows in STREAM_BANDS:
+            starts = (0, (h - 1) // band_rows * band_rows)
+            for mode in ("replace", "dither", "meld"):
+                for r0, band, _, words, twin in _band_twins(proc, img, cents, k_active, mode,
+                                                            band_rows, starts):
+                    line = {"palette": what, "mode": mode, "band_rows": band_rows, "row0": r0,
+                            "rows": min(band_rows, h - r0), "padded": list(band.shape[:2]),
+                            "words": words.numel(),
+                            "differing_words": int((words != twin).sum())}
+                    lines.append(line)
+                    if line["differing_words"] or words.shape != twin.shape:
+                        failures.append(f"12288x12288 band words: {line}")
+    emit({"phase": "streaming_slice", "what": "12288x12288 band words against the plain twins",
+          "card": card, "seconds": time.perf_counter() - t0, "bands": lines})
+    return failures
+
+
+def streaming_checks(image, card: str, counts: dict) -> list:
+    """The checks at smaller sizes: on the 4K image in bands of 1001 rows,
+    each band's words against the plain twins (with the band's
+    `row_offset`; meld has none) and the streamed outputs against the
+    words' unpack; `find_streamed` with 2048 colours (the RGBA route, in
+    dither) against the bucketed `find`; an image within the cap against
+    the bucketed `reduce`; a 1920x1080 image in bands of 256 on the card
+    against the CPU. Returns the failures."""
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.api import _unpack
+
+    proc, bproc = ImageProcessor(device="cuda"), ImageProcessor(device="cuda", bucketing=True)
+    failures = []
+    h, w = image.shape[:2]
+    band_rows = STREAM_BANDS[1]
+    cents = proc._train_streamed(Image((w, h), image), K, band_rows)
+    for mode in ("replace", "dither", "meld"):
+        pal = None if mode == "meld" else proc._pass_operands(cents, mode, K)[1].cpu().numpy()
+        plain = np.empty_like(image)
+        word_diffs = []
+        for r0, band, kind, words, twin in _band_twins(proc, image, cents, K, mode, band_rows,
+                                                       range(0, h, band_rows)):
+            bh = min(band_rows, h - r0)
+            word_diffs.append(int((words != twin).sum()))
+            plain[r0:r0 + bh] = _unpack(kind, twin.cpu().numpy(), band.shape[0], band.shape[1],
+                                        cents.shape[0], pal)[:bh, :w]
+        out, line = _streamed_call(
+            f"reduce_streamed 3840x2160 k=8 {mode} band_rows={band_rows}",
+            lambda: proc.reduce_streamed(K, image, ReduceMode(mode), band_rows), counts, card)
+        line.update(band_words_differing_from_twins=word_diffs,
+                    differing_from_plain=_differing(out.pixels, plain))
+        emit(line)
+        if any(word_diffs) or line["differing_from_plain"]:
+            failures.append(f"band words {mode}: {line}")
+    # The RGBA route past 1024 colours, dither rows offset per band.
+    colors = np.random.default_rng(SEED + 32).integers(0, 256, (BIG_K, 4), dtype=np.uint8)
+    colors[:, 3] = 255
+    want = {"quantize_rgba cie94 exact": _bands(h, band_rows), "dither_threshold cie94 exact": 1}
+    out, line = _streamed_call(f"find_streamed 3840x2160 {BIG_K} colours dither "
+                               f"band_rows={band_rows}",
+                               lambda: proc.find_streamed(image, colors, ReduceMode.DITHER,
+                                                          band_rows), counts, card, want)
+    line["differing_from_bucketed_find"] = _differing(
+        out.pixels, bproc.find(image, colors, ReduceMode.DITHER).pixels)
+    emit(line)
+    if line["differing_from_bucketed_find"] or "launches_expected" in line:
+        failures.append(f"find_streamed {BIG_K} colours: {line}")
+    # Within the cap the strip is the image: equal to the bucketed reduce.
+    small = synthetic_image(180, 240, seed=SEED + 33)
+    for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+        differ = _differing(proc.reduce_streamed(K, small, mode, 37).pixels,
+                            bproc.reduce(K, small, reduce_mode=mode).pixels)
+        emit({"phase": "streaming_slice", "what": "no shrink against bucketed reduce",
+              "size": [180, 240], "mode": mode.value, "differing_pixels": differ})
+        if differ:
+            failures.append(f"no-shrink reduce_streamed {mode.value}: {differ} pixels differ")
+    # The card against the CPU at 1920x1080 in bands of 256. The CPU side
+    # runs on one thread: the multithreaded CPU twins flip a near-tie now
+    # and then from one process to the next (0 to 10 of the 589,824 pixels
+    # of a 768x768 find over 6 runs, 0 with one thread), so with one thread
+    # replace and dither are held to equality. Meld keeps the bar of the
+    # other card_vs_cpu lines, 1 u8 step on 1e-3 of the pixels: the CPU's
+    # float32 powf and cube roots differ from the card's by an ulp here and
+    # there, and meld's blend carries such an ulp into its output.
+    mid = synthetic_image(1080, 1920, seed=SEED + 34)
+    cpu = ImageProcessor(device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        same_palette = bool((proc.palette_streamed(K, mid, 256)
+                             == cpu.palette_streamed(K, mid, 256)).all())
+        for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+            step = np.abs(proc.reduce_streamed(K, mid, mode, 256).pixels.astype(np.int16)
+                          - cpu.reduce_streamed(K, mid, mode, 256).pixels).max(-1)
+            differ = int((step > 0).sum())
+            emit({"phase": "card_vs_cpu", "mode": f"reduce_streamed band_rows=256 {mode.value}",
+                  "pixels": 1080 * 1920, "same_palette": same_palette, "cpu_threads": 1,
+                  "differing_pixels": differ, "max_channel_step": int(step.max())})
+            ok = (differ <= 1e-3 * step.size and step.max() <= 1 if mode is ReduceMode.MELD
+                  else differ == 0)
+            if not (same_palette and ok):
+                failures.append(f"reduce_streamed card vs cpu {mode.value}: {differ} differ")
+    finally:
+        torch.set_num_threads(threads)
+    return failures
+
+
+def streaming_pipelined(card: str, counts: dict) -> list:
+    """`reduce_pipelined` over 8 frames (four 1920x1080, four 1280x720) on
+    an unbucketed and a bucketed processor: each output equals its solo
+    `reduce`; then in turns with 8 sequential `reduce` calls, median of 3
+    warm runs each, and one profiled call of each (device idle share).
+    Returns the failures."""
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+
+    frames = [synthetic_image(h, w, seed=SEED + 40 + i) for i, (h, w) in enumerate(PIPE_FRAMES)]
+    failures = []
+    contenders = {}
+    for bucketing in (False, True):
+        proc = ImageProcessor(device="cuda", bucketing=bucketing)
+        for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+            outs, line = _streamed_call(
+                f"reduce_pipelined 8 frames k=8 {mode.value} bucketing={bucketing}",
+                lambda: proc.reduce_pipelined(frames, K, mode), counts, card)
+            differ = [_differing(o.pixels, proc.reduce(K, f, reduce_mode=mode).pixels)
+                      for o, f in zip(outs, frames)]
+            line["differing_from_solo_reduce"] = differ
+            emit(line)
+            if any(differ) or len(outs) != len(frames):
+                failures.append(f"reduce_pipelined {mode.value} bucketing={bucketing}: {line}")
+        tag = "bucketed" if bucketing else "unbucketed"
+        contenders[f"reduce_pipelined, {tag}"] = (
+            lambda p=proc: p.reduce_pipelined(frames, K))
+        contenders[f"8 sequential reduce calls, {tag}"] = (
+            lambda p=proc: [p.reduce(K, f) for f in frames])
+    runs = {what: [] for what in contenders}
+    for _ in range(4):
+        for what, call in contenders.items():
+            t0 = time.perf_counter()
+            call()
+            runs[what].append((time.perf_counter() - t0) * 1e3)
+    for what, call in contenders.items():
+        warm = runs[what][1:]
+        emit({"phase": "timing", "what": f"{what}: 8 frames (4 of 1920x1080, 4 of 1280x720) "
+              "at k=8 replace, median of 3 warm in turns", "card": card,
+              "e2e_ms": statistics.median(warm), "e2e_ms_each": warm,
+              "profile": profile_call(call, card, what)})
+    return failures
+
+
+def streaming_slice(image, card: str) -> dict:
+    """The streaming slice (`reduce_streamed`, `palette_streamed`,
+    `find_streamed`, `reduce_pipelined`), each call driven with the launch
+    counts set to 0 just before it and read just after. Returns the
+    launches by kernel mode summed over the phase."""
+    t0 = time.perf_counter()
+    counts: dict = {}
+    failures = streaming_12k(card, counts)
+    failures += streaming_checks(image, card, counts)
+    failures += streaming_pipelined(card, counts)
+    emit({"phase": "streaming_slice", "seconds": time.perf_counter() - t0, "launches": counts})
+    if failures:
+        raise AssertionError("streaming_slice: " + "; ".join(failures))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3272,6 +3685,10 @@ def main() -> int:
     algo_counts = palette_algos(image, card)
     cli_counts = cli_slice(image, card, Path("build") / "cli_slice")
 
+    # 4j. This slice: streaming in row bands at 12288x12288, the band words
+    # against the twins, the card against the CPU, and reduce_pipelined.
+    stream_counts = streaming_slice(image, card)
+
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
     shrunk_timing, full_timing, meld_timing, timing_2000 = timed_reduces({
@@ -3593,6 +4010,26 @@ def main() -> int:
             raise AssertionError(f"cli_slice never launched {line['name']}")
         line["launches_cli_slice"] = cli_counts[key]
         line["launched_by"] += f"; cli_slice, kmeans_tpu_torch.cli.main: {cli_entries}"
+    # The kernels of the streaming slice: its launches (each call counted
+    # from 0 just before it) and the entry points that made them.
+    stream_paths = {
+        "assign_packed": ("assign_packed cie94 exact",
+                          "reduce_streamed, find_streamed, reduce_pipelined (replace, dither)"),
+        "meld_packed": ("meld_packed cie94 exact",
+                        "reduce_streamed, find_streamed, reduce_pipelined (meld)"),
+        "dither_threshold": ("dither_threshold cie94 exact",
+                             "reduce_streamed, find_streamed (once a call), reduce_pipelined"),
+        "quantize_rgba": ("quantize_rgba cie94 exact", "find_streamed past 1024 colours"),
+        "lloyd_accumulate": ("lloyd_accumulate cie94 exact",
+                             "reduce_streamed with train_max_size=2048 (weight plane)"),
+    }
+    for line in kernel_lines:
+        if line["name"] in stream_paths:
+            key, entries = stream_paths[line["name"]]
+            if stream_counts.get(key, 0) < 1:
+                raise AssertionError(f"the streaming slice never launched {line['name']}")
+            line["launches_streaming_slice"] = stream_counts[key]
+            line["launched_by"] += f"; streaming_slice: {entries}"
     for line in kernel_lines:
         line["design"] = design_of(line["name"])
         if line["name"] in bucket_paths:

@@ -60,6 +60,17 @@ dummy request per key the reference would compile, which builds the CUDA
 library and launches every kernel instance those sizes reach before the
 first real request.
 
+Images larger than device memory go through the card in row bands
+(`reduce_streamed`, `palette_streamed`, `find_streamed`; the reference's
+`api.py:2468-2675`), so device memory holds one band, not the image: the
+bands shrink along their columns into a training strip that trains as a
+bucketed image, then each band, padded to its bucket, takes the output
+pass with its first row as the dither `row_offset` and unpacks into its
+rows of the host output. `reduce_pipelined` runs `reduce` over many
+images with the next ones' uploads and the last ones' unpacks in worker
+threads beside the training (a side stream, page-locked buffers and
+events on the card).
+
 The device is explicit: `ImageProcessor(device=None)` means CUDA and
 raises when there is none. The plain-PyTorch CPU path runs only when the
 caller names `device="cpu"`. Modes and options of the reference that this
@@ -69,6 +80,7 @@ package does not port yet raise `NotImplementedError` naming their
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from enum import Enum
 
 import numpy as np
@@ -97,6 +109,7 @@ from kmeans_tpu_torch.ops.resize import (
     resize_to_canvas,
     resize_uint8,
     resize_uint8_eager,
+    shrink_columns,
     shrunk_dimensions,
 )
 from kmeans_tpu_torch.utils.bucketing import (
@@ -127,6 +140,9 @@ _LARGE_TRAIN_PIXELS = 1 << 20
 # takes k <= ACCUM_MAX_K, the row-chunked trainer the rest
 # (kmeans_tpu/api.py:167).
 _CHUNKED_TRAIN_ELEMS = 192 * (1 << 20)
+# Images `reduce_pipelined` uploads ahead of the one it trains
+# (kmeans_tpu/api.py:2693): overlap without holding every image on the card.
+_PIPELINE_WINDOW = 4
 
 
 class ColorSpace(Enum):
@@ -422,19 +438,24 @@ class ImageProcessor:
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
 
-    def _upload_padded(self, frames, rows: int, cols: int, count: int | None = None):
+    def _upload_padded(self, frames, rows: int, cols: int, count: int | None = None,
+                       pinned: bool = False):
         """The frames padded on the device into `[count, rows, cols, 3]`
         uint8: each frame at the top left, zero past its edges
         (`pad_to_bucket`, kmeans_tpu/api.py:1166), and frames past the last
         copies of frame 0 (the reference's frame-count bucketing, `:1683`).
         Each frame uploads as it is, alpha included (no host copy when its
         array is contiguous), and loses alpha on the device: a host pad
-        would be a strided copy of every pixel."""
+        would be a strided copy of every pixel. `pinned` (CUDA only) copies
+        each frame into page-locked memory and uploads it asynchronously
+        on the current stream."""
         count = len(frames) if count is None else count
         with _phase("upload"):
             dev = torch.zeros((count, rows, cols, 3), dtype=torch.uint8, device=self.device)
             for i, f in enumerate(frames):
-                px = _as_tensor(f.pixels).to(self.device)
+                px = _as_tensor(f.pixels)
+                px = (px.pin_memory().to(self.device, non_blocking=True) if pinned
+                      else px.to(self.device))
                 dev[i, :px.shape[0], :px.shape[1]] = px[..., :3]
             dev[len(frames):] = dev[0]
             _phase_sync(dev)
@@ -498,16 +519,23 @@ class ImageProcessor:
         with _phase("readback"):
             return shrunk.cpu().numpy()[:sh, :sw]
 
-    def _upload_image(self, image: Image) -> torch.Tensor:
+    def _upload_image(self, image: Image, pinned: bool = False) -> torch.Tensor:
         """The image's RGB on the device, under bucketing padded to its
-        bucket (`_upload_padded`)."""
+        bucket (`_upload_padded`). `pinned` (CUDA only) makes the host copy
+        into page-locked memory and uploads it asynchronously on the
+        current stream."""
         if self.bucketing:
             w, h = image.dimensions
-            return self._upload_padded([image], *bucket_shape(h, w))[0]
+            return self._upload_padded([image], *bucket_shape(h, w), pinned=pinned)[0]
         with _phase("host_prep"):
-            rgb = _host_rgb(image.pixels)
+            if pinned:
+                rgb = torch.empty(image.pixels.shape[:2] + (3,), dtype=torch.uint8,
+                                  pin_memory=True)
+                rgb.numpy()[...] = image.pixels[..., :3]
+            else:
+                rgb = torch.from_numpy(_host_rgb(image.pixels))
         with _phase("upload"):
-            dev = self._upload(rgb)
+            dev = rgb.to(self.device, non_blocking=pinned)
             _phase_sync(dev)
         return dev
 
@@ -529,13 +557,16 @@ class ImageProcessor:
 
     # --- Bucketed training (kmeans_tpu/api.py:606, 1148) ---------------------
 
-    def _bucket_train_args(self, w: int, h: int, bw: int, bh: int):
-        """`(canvas (rows, cols), (sw, sh), first)` of a bucketed training:
-        the fixed canvas, the shrunk size inside it, and the seed pixel's
-        flat index within the canvas, `y * canvas_w + x`
-        (kmeans_tpu/api.py:1148)."""
+    def _bucket_train_args(self, w: int, h: int, bw: int, bh: int, out=None):
+        """`(canvas (rows, cols), (sw, sh), first)` of a bucketed training
+        of a `w`x`h` image in a `bw`x`bh` bucket: the fixed canvas, the
+        shrunk size `(sw, sh)` inside it (`out`, default
+        `shrunk_dimensions` of the image), and the seed pixel's flat index
+        within the canvas, `y * canvas_w + x`, for the seed
+        `reference_seed_index(sw, sh)` (kmeans_tpu/api.py:1148; a streamed
+        strip passes the whole image's `out`, `:2555-2559`)."""
         cap = self.train_max_size
-        sw, sh = shrunk_dimensions(w, h, cap)
+        sw, sh = shrunk_dimensions(w, h, cap) if out is None else out
         canvas = (bh, bw) if cap is None else (min(cap, bh), min(cap, bw))
         y, x = divmod(kmeans_model.reference_seed_index(sw, sh), sw)
         return canvas, (sw, sh), y * canvas[1] + x
@@ -547,13 +578,14 @@ class ImageProcessor:
         b = padded_u8.shape[0]
         return srgb8_to_lab(canv.reshape(b, -1, 3)), weight.reshape(b, -1)
 
-    def _train_bucketed(self, padded_u8, kp, w, h, k_active):
+    def _train_bucketed(self, padded_u8, kp, w, h, k_active, out=None):
         """`_train_bucketed_jit` (kmeans_tpu/api.py:606) of one `[bh, bw, 3]`
-        padded image: the canvas shrink, Lab, then `_fit_auto` at `kp`
-        clusters with `k_active` real ones, weighted by the canvas. Returns
-        the `[kp, 3]` centroids."""
+        padded image whose real corner is `w`x`h`: the canvas shrink to
+        `out` = `(sw, sh)` (`_bucket_train_args`), Lab, then `_fit_auto` at
+        `kp` clusters with `k_active` real ones, weighted by the canvas.
+        Returns the `[kp, 3]` centroids."""
         bh, bw = padded_u8.shape[0], padded_u8.shape[1]
-        canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
+        canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh, out)
         work, weight = self._canvas_lab(padded_u8[None], canvas, [h], [w], [sh], [sw])
         centroids, self.last_iterations = _fit_auto(
             work[0], kp, first, ColorSpace.LAB.convergence, self.restarts, None,
@@ -653,42 +685,37 @@ class ImageProcessor:
         if algo is not Algorithm.KMEANS:
             return Image(image.dimensions, self._reduce_cpu_palette(image, color_count, algo,
                                                                     mode))
-        if self.bucketing:
-            return Image(image.dimensions, self._reduce_bucketed(image, color_count, mode))
         w, h = image.dimensions
-        sw, sh = shrunk_dimensions(w, h, self.train_max_size)
-        first = kmeans_model.reference_seed_index(sw, sh)
-        with _phase("host_prep"):
-            rgb = _host_rgb(image.pixels)
-        with _phase("upload"):
-            dev = self._upload(rgb)
-            _phase_sync(dev)
+        dev = self._upload_image(image)
         with _phase("device"):
-            centroids, self.last_iterations = _train(
-                dev, color_count, (sh, sw), first, ColorSpace.LAB.convergence,
-                restarts=self.restarts, train_dtype=self.train_dtype,
-                metric=self.delta_e, fast=self.fast,
-            )
-            out = self._output_pass(dev, centroids, mode)
+            out = self._reduce_device(dev, image, color_count, mode)
             _phase_sync(out[1])
-        return Image(image.dimensions, self._readback(out, h, w, color_count))
+        # Under bucketing (kmeans_tpu/api.py:1158) the output pass ran on
+        # the padded image at `bucket_k(k)` rows (packed indices up to
+        # `INDEXED_MAX_K` colours, `:651`; RGB24 words for meld, `:692`;
+        # RGBA past it, `:727`) and the host crops: the crop is a view of
+        # the unpacked bucket, no second copy.
+        kp = bucket_k(color_count) if self.bucketing else color_count
+        return Image(image.dimensions,
+                     self._readback(out, dev.shape[0], dev.shape[1], kp)[:h, :w])
 
-    def _reduce_bucketed(self, image: Image, k: int, mode: str) -> np.ndarray:
-        """Bucketed reduce (kmeans_tpu/api.py:1158): pad to the bucket, train
-        on the weighted canvas at `bucket_k(k)` clusters (`k_active = k`),
-        run the output pass on the padded image (packed indices up to
-        `INDEXED_MAX_K` colours, `:651`; RGB24 words for meld, `:692`; RGBA
-        past it, `:727`) and crop on the host: the crop is a view of the
-        unpacked bucket, no second copy."""
+    def _reduce_device(self, dev: torch.Tensor, image: Image, k: int, mode: str):
+        """The training and the output pass of `reduce` on the image's
+        uploaded pixels `dev` (`[H, W, 3]`, or its bucket under bucketing),
+        as `_output_pass` returns them: unbucketed, the shrink to the
+        training size and `_fit_auto` at `k` clusters; bucketed, the
+        weighted canvas at `bucket_k(k)` clusters with `k_active = k`."""
         w, h = image.dimensions
-        bh, bw = bucket_shape(h, w)
-        kp = bucket_k(k)
-        dev = self._upload_padded([image], bh, bw)[0]
-        with _phase("device"):
-            centroids = self._train_bucketed(dev, kp, w, h, k)
-            out = self._output_pass(dev, centroids, mode, k)
-            _phase_sync(out[1])
-        return self._readback(out, bh, bw, kp)[:h, :w]
+        if self.bucketing:
+            centroids = self._train_bucketed(dev, bucket_k(k), w, h, k)
+            return self._output_pass(dev, centroids, mode, k)
+        sw, sh = shrunk_dimensions(w, h, self.train_max_size)
+        centroids, self.last_iterations = _train(
+            dev, k, (sh, sw), kmeans_model.reference_seed_index(sw, sh),
+            ColorSpace.LAB.convergence, restarts=self.restarts, train_dtype=self.train_dtype,
+            metric=self.delta_e, fast=self.fast,
+        )
+        return self._output_pass(dev, centroids, mode)
 
     def find_batch(
         self, images, colors, reduce_mode: ReduceMode = ReduceMode.REPLACE
@@ -1136,6 +1163,192 @@ class ImageProcessor:
                              lambda: self.find_many(frames, colors, mode))
         return len(seen)
 
+    # --- Streaming in row bands (kmeans_tpu/api.py:2468-2823) ---------------
+
+    def reduce_streamed(
+        self,
+        color_count: int,
+        image,
+        reduce_mode: ReduceMode = ReduceMode.REPLACE,
+        band_rows: int = 4096,
+    ) -> Image:
+        """`reduce` of an image streamed through the device in bands of
+        `band_rows` rows (at least 4), so device memory holds one band, not
+        the image (kmeans_tpu/api.py:2468): pass 1 trains on a strip the
+        bands shrink into (`_train_streamed`), pass 2 recolours band by band
+        (`_quantize_bands`), the dither pattern continuous across band
+        edges. As in the reference, the two-stage shrink rounds to uint8
+        between its stages, so past the training cap the palette may differ
+        from `reduce`'s by a u8 step; an image within the cap trains on its
+        own pixels, and the output equals a bucketed processor's `reduce`."""
+        image = _as_image(image)
+        _validate_k(color_count)
+        band_rows = max(int(band_rows), 4)
+        centroids = self._train_streamed(image, color_count, band_rows)
+        return Image(image.dimensions, self._quantize_bands(
+            image, centroids, color_count, ReduceMode(reduce_mode).value, band_rows))
+
+    def palette_streamed(self, color_count: int, image, band_rows: int = 4096) -> np.ndarray:
+        """`palette` trained as `reduce_streamed` trains: `[k, 4]` RGBA8
+        sorted by L* (kmeans_tpu/api.py:2566)."""
+        image = _as_image(image)
+        _validate_k(color_count)
+        centroids = self._train_streamed(image, color_count, max(int(band_rows), 4))
+        return _palette_readback(centroids, color_count)
+
+    def find_streamed(
+        self,
+        image,
+        colors,
+        reduce_mode: ReduceMode = ReduceMode.REPLACE,
+        band_rows: int = 4096,
+    ) -> Image:
+        """`find` streamed band by band (kmeans_tpu/api.py:2648), no
+        training. The palette always pads to `bucket_k` rows (masked by
+        `k_active`), so the output equals a bucketed processor's `find` bit
+        for bit: every pass is per pixel."""
+        image = _as_image(image)
+        palette_rgba = _colors_rgba(colors)
+        if palette_rgba.shape[0] == 0:
+            raise ValueError("palette must contain at least one color")
+        with _phase("upload"):
+            palette_lab, k_active = pad_palette_k(self._upload(_colors_to_lab(palette_rgba)))
+        return Image(image.dimensions, self._quantize_bands(
+            image, palette_lab, k_active, ReduceMode(reduce_mode).value, max(int(band_rows), 4)))
+
+    def _upload_band(self, image: Image, r0: int, band_rows: int) -> torch.Tensor:
+        """Rows `[r0, r0 + band_rows)` of the image on the device as RGB,
+        padded to their bucket (`pad_to_bucket`, kmeans_tpu/api.py:2546,
+        2600) by `_upload_padded`: the band's RGBA rows upload as they are
+        and lose alpha on the device."""
+        band = image.pixels[r0:r0 + band_rows]
+        bh, w = band.shape[0], band.shape[1]
+        return self._upload_padded([Image((w, bh), band)], *bucket_shape(bh, w))[0]
+
+    def _train_streamed(self, image: Image, k: int, band_rows: int) -> torch.Tensor:
+        """Pass 1 of the streamed paths (kmeans_tpu/api.py:2508). Each band
+        shrinks along its columns to the training width (`shrink_columns`)
+        into an `[h, sw]` strip held on the device, padded to its bucket;
+        the strip then trains as a bucketed image (`_train_bucketed`),
+        whose canvas shrink does the rows: its real corner is the strip,
+        its output size `(sw, sh)` and its seed those of the whole image. An
+        image within the cap is its own strip. Returns `[bucket_k(k), 3]`
+        Lab centroids with `k` active rows."""
+        cap = self.train_max_size
+        if cap is None:
+            raise ValueError(
+                "streamed training requires a finite train_max_size (the "
+                "training strip is assembled at that width)"
+            )
+        w, h = image.dimensions
+        sw, sh = shrunk_dimensions(w, h, cap)
+        if (sw, sh) == (w, h):
+            strip = self._upload_padded([image], *bucket_shape(h, w))[0]
+        else:
+            strip = torch.zeros(bucket_shape(h, sw) + (3,), dtype=torch.uint8,
+                                device=self.device)
+            for r0 in range(0, h, band_rows):
+                band = self._upload_band(image, r0, band_rows)
+                bh = min(band_rows, h - r0)
+                with _phase("shrink"):
+                    strip[r0:r0 + bh, :sw] = shrink_columns(band, bh, w, sw)
+                    _phase_sync(strip)
+                del band  # freed before the next band uploads: the card holds one
+        with _phase("train"):
+            centroids = self._train_bucketed(strip, bucket_k(k), sw, h, k, (sw, sh))
+            _phase_sync(centroids)
+        return centroids
+
+    def _quantize_bands(self, image: Image, palette_lab: torch.Tensor, k_active: int,
+                        mode: str, band_rows: int) -> np.ndarray:
+        """Pass 2 of the streamed paths (kmeans_tpu/api.py:2579): each band,
+        padded to its bucket, through the output pass with `row_offset` its
+        first row (the Bayer pattern runs on across band edges); its words
+        come back and unpack into its rows of one `[h, w, 4]` host array
+        (`_readback`). The dither threshold and the unpack palette serve
+        every band and are computed once."""
+        w, h = image.dimensions
+        kp = palette_lab.shape[0]
+        operands = None
+        if mode != "meld":
+            with _phase("output_pass"):
+                operands = self._pass_operands(palette_lab, mode, k_active)
+        out = np.empty((h, w, 4), np.uint8)
+        for r0 in range(0, h, band_rows):
+            band = self._upload_band(image, r0, band_rows)
+            bh = min(band_rows, h - r0)
+            with _phase("output_pass"):
+                result = self._output_pass(band, palette_lab, mode, k_active, r0, operands)
+                _phase_sync(result[1])
+            out[r0:r0 + bh] = self._readback(result, band.shape[0], band.shape[1], kp)[:bh, :w]
+            del band, result  # freed before the next band uploads: the card holds one
+        return out
+
+    def reduce_pipelined(
+        self,
+        images,
+        color_count: int,
+        reduce_mode: ReduceMode = ReduceMode.REPLACE,
+    ) -> list[Image]:
+        """`reduce` of each image in order, images of any size, with up to
+        `_PIPELINE_WINDOW` images uploaded ahead (kmeans_tpu/api.py:2675).
+        Each output is this processor's `reduce` of the image, bit for bit:
+        the same upload, `_reduce_device` and unpack, in three threads. An
+        upload thread copies the next images into page-locked host memory
+        and uploads them on a side stream, each with an event; this thread
+        waits for an image's event on its own stream, trains it and
+        launches its output pass, whose result copies back asynchronously
+        behind another event; a host thread waits for that event and
+        unpacks. So on the card one image's upload and another's unpack
+        overlap this one's training, whose host syncs wait for this
+        thread's stream alone."""
+        _validate_k(color_count)
+        mode = ReduceMode(reduce_mode).value
+        frames = [_as_image(im) for im in images]
+        kp = bucket_k(color_count) if self.bucketing else color_count
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+
+        def upload(image):
+            if not cuda:
+                return self._upload_image(image), None
+            with torch.cuda.stream(side):
+                dev = self._upload_image(image, pinned=True)
+                ready = torch.cuda.Event()
+                ready.record(side)
+            return dev, ready
+
+        def unpack(image, kind, fetched, rows, cols, done):
+            if done is not None:
+                done.synchronize()
+            w, h = image.dimensions
+            palette = fetched[1].numpy() if len(fetched) > 1 else None
+            out = _unpack(kind, fetched[0].numpy(), rows, cols, kp, palette)
+            return Image(image.dimensions, out[:h, :w])
+
+        results = []
+        with ThreadPoolExecutor(1) as uploader, ThreadPoolExecutor(1) as host:
+            uploads = [uploader.submit(upload, f) for f in frames[:_PIPELINE_WINDOW]]
+            for i, image in enumerate(frames):
+                dev, ready = uploads[i].result()
+                uploads[i] = None  # the future no longer holds the image on the card
+                if i + _PIPELINE_WINDOW < len(frames):
+                    uploads.append(uploader.submit(upload, frames[i + _PIPELINE_WINDOW]))
+                done = None
+                if cuda:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ready)
+                    dev.record_stream(stream)
+                kind, output, palette = self._reduce_device(dev, image, color_count, mode)
+                fetched = [t.to("cpu", non_blocking=cuda) for t in (output, palette)
+                           if t is not None]
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                results.append(host.submit(unpack, image, kind, fetched, dev.shape[0],
+                                           dev.shape[1], done))
+            return [r.result() for r in results]
+
     # --- Shared passes ------------------------------------------------------
 
     def _train_batched(self, pixels_u8, k, w, h, k_actives=None):
@@ -1155,26 +1368,41 @@ class ImageProcessor:
         return centroids
 
     def _output_pass(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str,
-                     k_active: int | None = None):
+                     k_active: int | None = None, row_offset: int = 0, operands=None):
         """The full-resolution pass on the pixels' device, as `(kind,
         output, palette)`: `("meld", RGB24 words, None)`; for replace and
         dither `("indexed", packed indices, [k, 4] RGBA8 palette)` up to
         `INDEXED_MAX_K` colours, `("rgba", [H, W, 4] RGBA8, None)` above
         (kmeans_tpu/api.py:360-369, 557). `k_active` masks the palette's
-        trailing rows (a bucketed palette's padding)."""
+        trailing rows (a bucketed palette's padding). `row_offset` is the
+        absolute row of the pixels' first row (a band's, for the dither
+        pattern; meld has no row phase). `operands` are
+        `_pass_operands(palette_lab, mode, k_active)`, when the caller
+        computed them once for several passes."""
         if mode == "meld":
             return "meld", meld_packed(pixels_u8, palette_lab, k_active, metric=self.delta_e,
                                        fast=self.fast), None
+        threshold, palette_rgba = (self._pass_operands(palette_lab, mode, k_active)
+                                   if operands is None else operands)
+        if palette_rgba is None:
+            return "rgba", quantize_rgba(pixels_u8, palette_lab, threshold, k_active, mode=mode,
+                                         row_offset=row_offset, metric=self.delta_e,
+                                         fast=self.fast), None
+        words = assign_packed(pixels_u8, palette_lab, threshold, k_active, mode=mode,
+                              row_offset=row_offset, metric=self.delta_e, fast=self.fast)
+        return "indexed", words, palette_rgba
+
+    def _pass_operands(self, palette_lab: torch.Tensor, mode: str, k_active: int | None = None):
+        """`(threshold, palette)` of a replace or dither output pass: the
+        dither threshold (0.0 for replace) and, up to `INDEXED_MAX_K`
+        colours, the `[k, 4]` RGBA8 palette that unpacks its indices (None
+        past it: the pass writes RGBA)."""
         threshold = (
             dither_threshold(palette_lab, k_active, metric=self.delta_e) if mode == "dither"
             else 0.0
         )
-        if palette_lab.shape[0] > INDEXED_MAX_K:
-            return "rgba", quantize_rgba(pixels_u8, palette_lab, threshold, k_active, mode=mode,
-                                         metric=self.delta_e, fast=self.fast), None
-        words = assign_packed(pixels_u8, palette_lab, threshold, k_active, mode=mode,
-                              metric=self.delta_e, fast=self.fast)
-        return "indexed", words, _lab_palette_to_u8(palette_lab)[0]
+        indexed = palette_lab.shape[0] <= INDEXED_MAX_K
+        return threshold, _lab_palette_to_u8(palette_lab)[0] if indexed else None
 
     def _frames_pass(self, frames_u8, palettes_lab, mode: str, k_actives, fast: bool):
         """`_output_pass` of B frames, frame b against `palettes_lab[b]`,
@@ -1231,10 +1459,8 @@ def _refusal(name: str, item: str, what: str):
     return method
 
 
-# The reference's entry points this package does not port yet: each raises
-# naming its ROADMAP item (kmeans_tpu/api.py:1996-2468, 2468-2823).
-for _name in ("reduce_streamed", "palette_streamed", "find_streamed", "reduce_pipelined"):
-    setattr(ImageProcessor, _name, _refusal(_name, "A.10", "streaming in row bands"))
+# The reference's sharded entry points, not ported yet: each raises naming
+# ROADMAP A.12 (kmeans_tpu/api.py:1996-2468).
 for _name in ("find_sharded", "palette_sharded", "reduce_sharded", "reduce_images_sharded",
               "palette_images_sharded", "find_batch_sharded"):
     setattr(ImageProcessor, _name, _refusal(_name, "A.12", "multi-device sharding"))

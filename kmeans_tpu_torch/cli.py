@@ -12,12 +12,14 @@ environment variable moves the command line off the card.
     python -m kmeans_tpu_torch find    -i img.png -p '#RRGGBB,#RRGGBB'|palette.png [-m replace|dither|meld]
     python -m kmeans_tpu_torch reduce  -i img.png -c 8 [-a ...] [-m ...] [-o out.png]
 
-Options the port does not have yet exit non-zero with the refusal that
-names their ROADMAP item: `--pipeline` (A.13, not ported: the reference's
-banded transfer overlap) and a valid `--band-rows` (A.10, streaming). The
-reference's compile cache is not ported (A.13): the port compiles
-nothing per shape. Decoding and encoding run under the phases `decode`
-and `encode` of `utils/profiling.py`.
+`--band-rows N` streams `reduce`, `palette` and `find` through the card
+in bands of N rows (`ImageProcessor.reduce_streamed`, `palette_streamed`,
+`find_streamed`), so device memory holds one band, not the image. An
+option the port does not have exits non-zero with the refusal that names
+its ROADMAP item: `--pipeline` (A.13, not ported: the reference's banded
+transfer overlap). The reference's compile cache is not ported (A.13):
+the port compiles nothing per shape. Decoding and encoding run under the
+phases `decode` and `encode` of `utils/profiling.py`.
 """
 
 from __future__ import annotations
@@ -253,8 +255,7 @@ def build_parser() -> argparse.ArgumentParser:
         type=validate_band_rows,
         default=None,
         help="train on the image streamed in row bands of this many rows "
-        "(gigapixel images; kmeans algorithm only; streaming is not "
-        "ported yet, ROADMAP A.10)",
+        "(gigapixel images; kmeans algorithm only)",
     )
 
     find = sub.add_parser(
@@ -272,8 +273,7 @@ def build_parser() -> argparse.ArgumentParser:
         type=validate_band_rows,
         default=None,
         help="process the image in row bands of this many rows "
-        "(gigapixel images: device memory holds one band at a time; "
-        "streaming is not ported yet, ROADMAP A.10)",
+        "(gigapixel images: device memory holds one band at a time)",
     )
 
     reduce = sub.add_parser(
@@ -294,7 +294,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="process the image in row bands of this many rows "
         "(gigapixel images: device memory holds one band at a time; "
-        "kmeans algorithm only; streaming is not ported yet, ROADMAP A.10)",
+        "kmeans algorithm only)",
     )
 
     # Batched GIF pipelines beyond redwarp's CLI (all frames in one frames
@@ -353,7 +353,8 @@ def main(argv=None, device=None) -> int:
     try:
         _run(args, processor)
     except NotImplementedError as exc:
-        # a valid --band-rows: streaming's refusal (ROADMAP A.10)
+        # an entry point the port does not have yet (ROADMAP A.12's
+        # sharded ones) exits with its refusal
         raise SystemExit(str(exc)) from exc
     return 0
 

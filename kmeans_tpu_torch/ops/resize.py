@@ -210,3 +210,31 @@ def resize_to_canvas(
     canvas = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
     weight = (vy[:, :, None] & vx[:, None, :]).to(torch.float32)
     return (canvas[0], weight[0]) if single else (canvas, weight)
+
+
+# Source pixels of one row chunk of `shrink_columns`. `resize_to_canvas`
+# holds about 110 bytes of float32 and float64 temporaries per source
+# pixel of its row pass, so a chunk holds about 230 MB at any band width.
+_COLUMN_CHUNK_PIXELS = 1 << 21
+
+
+def shrink_columns(band_u8: torch.Tensor, rows: int, width: int, out_width: int) -> torch.Tensor:
+    """`[rows, out_width, C]` uint8: the real `[rows, width]` corner of a
+    (padded) band shrunk along its columns only, the first stage of the
+    streamed training (kmeans_tpu/api.py:2545-2552, `_canvas_shrink_jit`
+    with `src_h = out_h = rows`, cropped to `[rows, out_width]`).
+
+    It is `resize_to_canvas` of one chunk of rows at a time. Along rows
+    the canvas sampler is then the identity with weight 0, so each output
+    row reads its own source row alone, and the chunks give the whole
+    canvas's bytes; the canvas's columns past `out_width` are never
+    computed (each column's sampler depends only on its position). Device
+    memory holds one chunk's temporaries, not the band's."""
+    step = max(1, _COLUMN_CHUNK_PIXELS // max(width, 1))
+    out = torch.empty((rows, out_width, band_u8.shape[-1]), dtype=torch.uint8,
+                      device=band_u8.device)
+    for r0 in range(0, rows, step):
+        n = min(step, rows - r0)
+        out[r0:r0 + n] = resize_to_canvas(band_u8[r0:r0 + n, :width], n, out_width,
+                                          n, width, n, out_width)[0]
+    return out

@@ -141,14 +141,14 @@ def test_unported_batch_methods_raise(processors, method, args):
 
 
 @pytest.mark.parametrize("method,item", [
-    ("reduce_streamed", "A.10"), ("palette_streamed", "A.10"), ("find_streamed", "A.10"),
-    ("reduce_pipelined", "A.10"), ("find_sharded", "A.12"), ("palette_sharded", "A.12"),
+    ("find_sharded", "A.12"), ("palette_sharded", "A.12"),
     ("reduce_sharded", "A.12"), ("reduce_images_sharded", "A.12"),
     ("palette_images_sharded", "A.12"), ("find_batch_sharded", "A.12"),
 ])
 def test_unported_entry_points_raise(processors, method, item):
-    """The reference's streaming and sharded entry points exist and raise,
-    naming their ROADMAP item, with or without bucketing."""
+    """The reference's sharded entry points exist and raise, naming their
+    ROADMAP item, with or without bucketing (the streamed ones run:
+    tests/test_torch_streaming.py)."""
     for port in (processors[1], kt.ImageProcessor(device="cpu", bucketing=True)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             getattr(port, method)(_image(8, 8), 4)
@@ -189,8 +189,6 @@ def test_unported_modes_raise(processors):
         assert port.reduce(4, img, kt.Algorithm[algo]).pixels.shape == (20, 30, 4)
         np.testing.assert_array_equal(port.palette(4, img, kt.Algorithm[algo]),
                                       ref.palette(4, img, kmeans_tpu.Algorithm[algo]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        port.reduce_streamed(4, img)
     with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
         port.find_sharded(img, [[1, 2, 3]])
     with pytest.raises(NotImplementedError, match="ROADMAP A.13"):

@@ -9,10 +9,10 @@ same palette) as `kmeans_tpu.cli.main(argv)` on the JAX CPU backend
 u8 step on at most 1e-3 of them). The
 cases that need a native codec (a JPEG input, the GIF subcommands) raise
 the same `RuntimeError` in both packages, neither having one built here.
-The port's refusals: `--pipeline` (ROADMAP A.13) and a valid
-`--band-rows` (A.10, streaming) exit non-zero naming their item; a
-`--band-rows` below 4, or beside a host algorithm, exits as in the
-reference. `python -m kmeans_tpu_torch` is this CLI, and on a host
+`--band-rows` streams `reduce`, `palette` and `find` in row bands, with
+the reference's bytes. The port's refusal: `--pipeline` (ROADMAP A.13)
+exits non-zero naming its item; a `--band-rows` below 4, or beside a host
+algorithm, exits as in the reference. `python -m kmeans_tpu_torch` is this CLI, and on a host
 without CUDA it refuses to run rather than fall back to the CPU, as
 `validate_kernels` does.
 """
@@ -134,6 +134,11 @@ CASES = {
     "bucketing": ["--bucketing", "reduce", "-c", "3"],
     "delta_e_2000": ["--delta-e", "2000", "reduce", "-c", "3"],
     "fast": ["--fast", "reduce", "-c", "3"],
+    "band_rows_reduce": ["reduce", "-c", "3", "--band-rows", "16"],
+    "band_rows_dither": ["reduce", "-c", "3", "-m", "dither", "--band-rows", "9"],
+    "band_rows_palette": ["palette", "-c", "3", "--band-rows", "8", "-s", "10"],
+    "band_rows_find": ["find", "-p", "#ff0000,#00ff00,#0000ff", "-m", "dither",
+                       "--band-rows", "4"],
 }
 
 
@@ -197,11 +202,6 @@ def test_refusals(sample_png, tmp_path):
     base = ["reduce", "-i", sample_png, "-c", "3", "-o", out]
     with pytest.raises(SystemExit, match="A.13"):
         cli.main(["--pipeline"] + base, device="cpu")
-    for argv in (base + ["--band-rows", "16"],
-                 ["palette", "-i", sample_png, "-c", "3", "--band-rows", "8"],
-                 ["find", "-i", sample_png, "-p", "#ff0000", "--band-rows", "4"]):
-        with pytest.raises(SystemExit, match="A.10"):
-            cli.main(argv, device="cpu")
     for argv in (base + ["--band-rows", "16", "-a", "octree"],
                  ["palette", "-i", sample_png, "-c", "3", "--band-rows", "16", "-a", "wu"]):
         for run in (lambda a: cli.main(a, device="cpu"), ref_cli.main):
@@ -214,6 +214,24 @@ def test_refusals(sample_png, tmp_path):
         with pytest.raises(SystemExit, match="bucketing"):
             run(["--train-dtype", "bfloat16", "--bucketing"] + base)
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("which", ["port", "reference"])
+def test_cli_band_rows(which, sample_png, tmp_path):
+    """tests/test_cli.py::test_cli_band_rows against each CLI: a streamed
+    reduce keeps the size and k colours; `--band-rows` beside a host
+    algorithm, or below 4 (the API would clamp it), exits."""
+    run = (lambda a: cli.main(a, device="cpu")) if which == "port" else ref_cli.main
+    out = str(tmp_path / "br.png")
+    assert run(["reduce", "-i", sample_png, "-c", "3", "--band-rows", "16", "-o", out]) == 0
+    img = load_image(out)
+    assert img.dimensions == load_image(sample_png).dimensions
+    assert len(np.unique(img.pixels.reshape(-1, 4), axis=0)) <= 3
+    with pytest.raises(SystemExit):
+        run(["reduce", "-i", sample_png, "-c", "3", "--band-rows", "16", "-a", "octree",
+             "-o", out])
+    with pytest.raises(SystemExit):
+        run(["reduce", "-i", sample_png, "-c", "3", "--band-rows", "2", "-o", out])
 
 
 def test_codec_bound_cases_raise_as_reference(sample_png, tmp_path):

@@ -1045,3 +1045,82 @@ def test_host_algorithms_on_card_match_cpu(cuda, bucketing):
             on_card = card.reduce(8, img, algo, mode).pixels
             assert kernels.launches("assign_packed") == before + 1
             np.testing.assert_array_equal(on_card, cpu.reduce(8, img, algo, mode).pixels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["replace", "dither", "meld"])
+def test_streamed_band_words_match_twins(cuda, mode):
+    """Streaming on the card in bands of 37 rows (band starts off the Bayer
+    period, a short last band): each band's words equal the plain twin's
+    with the band's `row_offset` (meld has none), `find_streamed` equals
+    the bucketed `find`, and `reduce_streamed` equals the CPU's, palette
+    and pixels (meld within 1 u8 step on at most 1e-3 of them)."""
+    from kmeans_tpu_torch import Image
+    from kmeans_tpu_torch.api import _colors_to_lab
+    from kmeans_tpu_torch.utils.bucketing import pad_palette_k
+
+    img = _gradient_frames(1, 150, 210, 41)[0]
+    colors = np.random.default_rng(42).integers(0, 256, (5, 4), dtype=np.uint8)
+    colors[:, 3] = 255
+    card, cpu = ImageProcessor(), ImageProcessor(device="cpu")
+    pal, k_active = pad_palette_k(torch.from_numpy(_colors_to_lab(colors)).to(cuda))
+    thr = dither_threshold(pal, k_active) if mode == "dither" else 0.0
+    for r0 in range(0, 150, 37):
+        band = card._upload_band(Image((210, 150), img), r0, 37)
+        if mode == "meld":
+            got = kernels.meld_packed(band, pal, k_active)
+            want = kernels.meld_packed_reference(band, pal, k_active)
+        else:
+            got = kernels.assign_packed(band, pal, thr, k_active, mode, row_offset=r0)
+            want = kernels.assign_packed_reference(band, pal, thr, k_active, mode,
+                                                   row_offset=r0)
+        assert torch.equal(got, want)
+    before = kernels.launches("meld_packed" if mode == "meld" else "assign_packed")
+    streamed = card.find_streamed(img, colors, ReduceMode(mode), band_rows=37).pixels
+    assert kernels.launches("meld_packed" if mode == "meld" else "assign_packed") == before + 5
+    np.testing.assert_array_equal(
+        streamed, ImageProcessor(bucketing=True).find(img, colors, ReduceMode(mode)).pixels)
+    np.testing.assert_array_equal(card.palette_streamed(8, img, band_rows=37),
+                                  cpu.palette_streamed(8, img, band_rows=37))
+    step = np.abs(card.reduce_streamed(8, img, ReduceMode(mode), 37).pixels.astype(np.int64)
+                  - cpu.reduce_streamed(8, img, ReduceMode(mode), 37).pixels).max(-1)
+    if mode == "meld":
+        assert step.max() <= 1 and (step > 0).sum() <= 1e-3 * step.size
+    else:
+        assert step.max() == 0
+
+
+@pytest.mark.cuda
+def test_streamed_peak_memory_follows_the_band(cuda):
+    """`reduce_streamed` in bands of 256 rows holds about the same device
+    memory for a 2048x1024 and a 2048x2048 image, less than the bucketed
+    `reduce` of the larger one."""
+    def peak(call):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    card = ImageProcessor()
+    small, large = (_gradient_frames(1, h, 2048, 43)[0] for h in (1024, 2048))
+    peaks = [peak(lambda: card.reduce_streamed(8, img, band_rows=256)) for img in (small, large)]
+    whole = peak(lambda: ImageProcessor(bucketing=True).reduce(8, large))
+    assert peaks[1] < whole
+    assert abs(peaks[1] / peaks[0] - 1) <= 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucketing", [False, True])
+def test_reduce_pipelined_on_card_matches_reduce(cuda, bucketing):
+    """Six images of three sizes through the pipeline (side stream, pinned
+    buffers, events): each output is the card's solo `reduce`."""
+    card = ImageProcessor(bucketing=bucketing)
+    frames = [_gradient_frames(1, h, w, 44 + h)[0] for h, w in ((270, 480), (180, 320),
+                                                                (301, 333))] * 2
+    for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+        outs = card.reduce_pipelined(frames, 8, mode)
+        for out, frame in zip(outs, frames):
+            np.testing.assert_array_equal(out.pixels,
+                                          card.reduce(8, frame, reduce_mode=mode).pixels)
