@@ -146,7 +146,25 @@ then:
    card against the CPU; `reduce_pipelined` over 8 frames (1080p and
    720p), unbucketed and bucketed, each output equal to its solo
    `reduce`, timed against 8 sequential `reduce` calls in turns with
-   each one's device idle share;
+   each one's device idle share.
+   Then the native host runtime and the HTTP service: `runtime_probe`
+   (the host's `cc`, whether `png.h`, `jpeglib.h` and `zlib.h` exist: the
+   runtime's PNG and JPEG unit builds only with the first two);
+   `native_vs_twins` (the 4K image's native strip and its output pass's
+   unpack in three modes against the numpy twins, and `reduce_streamed` of
+   2002x12288 in bands of 1001 with the twins in the native paths' place:
+   0 bytes apart); `codec_slice` (the 4K PNG through the native codec
+   against `png_py`, or through `png_py` where the unit is not built, JPEG
+   or its refusal; a 24-frame 640x360 GIF through the CLI's `reduce-gif`
+   in both palette modes and `find-gif`, 0 pixels apart from the API's
+   frames, delays kept; the CLI's 4K `reduce -c 8` by phase; the fuzz tool
+   at 300 mutants); `serving_slice` (`kmeans_tpu_torch.serve` in this
+   process over a warmed bucketed processor: the `docs/serving.md`
+   traffic, 8 clients x 3 requests of 320x240 at k=8 on `/reduce`,
+   `/find`, `/palette` and mixed at windows 0 and 25 ms, 1080p requests,
+   a JPEG body, the GIF endpoints, health, stats, the dimension-bomb 400
+   and the 503 backpressure at `max_pending=2`; every 200 equal to the
+   processor's direct call, each run's launches counted);
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
@@ -3319,6 +3337,541 @@ def streaming_slice(image, card: str) -> dict:
     return counts
 
 
+# --- The native host runtime, the codec and the HTTP service ----------------
+
+GIF_FRAMES, GIF_H, GIF_W = 24, 360, 640
+GIF_K = 8
+JPEG_QUALITY = 90
+
+
+def runtime_probe() -> dict:
+    """The host C toolchain and image libraries the runtime builds against."""
+    cc = subprocess.run(["cc", "--version"], capture_output=True, text=True, timeout=60)
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=60)
+    return {
+        "cc": cc.stdout.splitlines()[0] if cc.returncode == 0 else f"cc failed: {cc.stderr}",
+        "headers": {h: Path("/usr/include", h).is_file()
+                    for h in ("png.h", "jpeglib.h", "zlib.h")},
+        "libraries": sorted({line.split()[0] for line in libs.stdout.splitlines()
+                             if any(n in line for n in ("libpng", "libjpeg", "libz."))}),
+    }
+
+
+def _secs(call, reps: int = 3) -> tuple:
+    """`(result, median seconds)` of `reps` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call()
+        times.append(time.perf_counter() - t0)
+    return out, statistics.median(times)
+
+
+def gif_frames(seed: int = SEED) -> tuple:
+    """`GIF_FRAMES` frames of `GIF_H` x `GIF_W` from the seed (the gradient
+    image, each shifted and re-noised, cut to the 3-3-2 colour cube so that
+    each has <= 256 colours) and each frame's delay in centiseconds."""
+    from kmeans_tpu_torch import Image
+
+    frames = []
+    for i in range(GIF_FRAMES):
+        px = np.roll(synthetic_image(GIF_H, GIF_W, seed + i), 16 * i, axis=1)
+        px[..., :3] &= np.array([0xE0, 0xE0, 0xC0], np.uint8)
+        frames.append(Image((GIF_W, GIF_H), np.ascontiguousarray(px)))
+    delays = [4 + (i * 7) % 11 for i in range(GIF_FRAMES)]
+    return frames, delays
+
+
+def native_vs_twins(image, card: str, counts: dict) -> list:
+    """The main path's host fast paths against their numpy twins on the
+    card's outputs: the 4K image's native strip, and the unpack of its
+    output pass in three modes (k=8, a palette trained on the card); then
+    `reduce_streamed` of a 2002x12288 image in bands of 1001 rows in three
+    modes (12288 is its own width bucket, so each band unpacks straight into
+    its rows of the output) with the native paths and with the numpy twins
+    in their place. 0 bytes may differ."""
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode, api
+    from kmeans_tpu_torch.utils import packing
+
+    failures = []
+    proc = ImageProcessor(device="cuda")
+    img = Image((WIDTH, HEIGHT), image)
+    (strip, strip_s), (twin, twin_s) = (_secs(lambda: api._host_rgb(image)),
+                                        _secs(lambda: np.ascontiguousarray(image[..., :3])))
+    line = {"phase": "native_vs_twins", "what": f"strip {WIDTH}x{HEIGHT}", "card": card,
+            "differing_bytes": int(np.count_nonzero(strip != twin)),
+            "native_ms": strip_s * 1e3, "numpy_ms": twin_s * 1e3}
+    emit(line)
+    if line["differing_bytes"]:
+        failures.append(f"native strip: {line}")
+    dev = proc._upload_image(img)
+    cents = proc.extract_palette_kmeans(img, K)
+    for mode in ("replace", "dither", "meld"):
+        reset_launch_counts()
+        kind, out, pal = proc._output_pass(dev, cents, mode)
+        torch.cuda.synchronize()
+        for key, n in mode_counts().items():
+            counts[key] = counts.get(key, 0) + n
+        words = out.cpu().numpy()
+        pal_np = None if pal is None else pal.cpu().numpy()
+        native, native_s = _secs(lambda: api._unpack(kind, words, HEIGHT, WIDTH, K, pal_np))
+        if kind == "indexed":
+            bits, rows = api.pack_bits(K), api.quant_tile_rows(K)
+            twin, twin_s = _secs(lambda: packing._unpack_tile_words_gather_np(
+                words, HEIGHT, WIDTH, bits, pal_np, rows))
+        else:
+            twin, twin_s = _secs(lambda: packing._unpack_rgb24_np(
+                words, HEIGHT, WIDTH, api.quant_tile_rows(K)))
+        line = {"phase": "native_vs_twins", "what": f"unpack {WIDTH}x{HEIGHT} k={K} {mode}",
+                "card": card, "kind": kind,
+                "differing_bytes": int(np.count_nonzero(native != twin)),
+                "native_ms": native_s * 1e3, "numpy_ms": twin_s * 1e3}
+        emit(line)
+        if line["differing_bytes"]:
+            failures.append(f"native unpack {mode}: {line}")
+    band_img = Image((STREAM_SIZE, 2002), big_image(2002, STREAM_SIZE, SEED + 5))
+    saved = (api.unpack_tile_words_gather, api.unpack_rgb24_tile_words, api._host_rgb)
+
+    def twins():
+        api.unpack_tile_words_gather = (
+            lambda words, h, w, bits, pal, tile_rows, out=None: _fill(
+                packing._unpack_tile_words_gather_np(words, h, w, bits, pal, tile_rows), out))
+        api.unpack_rgb24_tile_words = (lambda words, h, w, tile_rows, out=None: _fill(
+            packing._unpack_rgb24_np(words, h, w, tile_rows), out))
+        api._host_rgb = lambda px: np.ascontiguousarray(np.asarray(px)[..., :3])
+
+    for mode in ("replace", "dither", "meld"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        native = proc.reduce_streamed(K, band_img, ReduceMode(mode), band_rows=1001).pixels
+        native_s = time.perf_counter() - t0
+        for key, n in mode_counts().items():
+            counts[key] = counts.get(key, 0) + n
+        try:
+            twins()
+            t0 = time.perf_counter()
+            twin = proc.reduce_streamed(K, band_img, ReduceMode(mode), band_rows=1001).pixels
+            twin_s = time.perf_counter() - t0
+        finally:
+            api.unpack_tile_words_gather, api.unpack_rgb24_tile_words, api._host_rgb = saved
+        line = {"phase": "native_vs_twins",
+                "what": f"reduce_streamed 2002x{STREAM_SIZE} bands of 1001 k={K} {mode}",
+                "card": card, "differing_bytes": int(np.count_nonzero(native != twin)),
+                "native_s": native_s, "numpy_twins_s": twin_s}
+        emit(line)
+        if line["differing_bytes"]:
+            failures.append(f"native streamed {mode}: {line}")
+    return failures
+
+
+def _fill(arr, out):
+    if out is None:
+        return arr
+    out[...] = arr
+    return out
+
+
+def _native_png_jpeg(rgba, png: bytes, card: str) -> list:
+    """The PNG and JPEG unit at 4K: decode of `png` (the pure-Python codec's
+    4K PNG) against `png_py`'s, RGBA and palette encodes beside `png_py`'s,
+    JPEG at `JPEG_QUALITY` both ways. Returns the failures."""
+    from kmeans_tpu_torch import ImageProcessor, runtime
+    from kmeans_tpu_torch.utils import imageio, png_py
+
+    failures = []
+    (native, native_s), (plain, plain_s) = (_secs(lambda: runtime.decode_png(png)),
+                                            _secs(lambda: png_py.decode_png(png), 1))
+    equal = native == plain and native[2] == rgba.tobytes()
+    emit({"phase": "codec_slice", "what": f"decode {WIDTH}x{HEIGHT} PNG (filter 0)",
+          "bytes": len(png), "card": card, "native_s": native_s, "png_py_s": plain_s,
+          "rgba_equal_to_png_py": equal})
+    if not equal:
+        failures.append("native PNG decode differs from png_py's")
+    rgba_png, rgba_s = _secs(lambda: runtime.encode_png(WIDTH, HEIGHT, rgba))
+    _, py_s = _secs(lambda: png_py.encode_png(WIDTH, HEIGHT, rgba.tobytes()), 1)
+    quantized = ImageProcessor(device="cuda").reduce(K, rgba)
+    pal_png, pal_s = _secs(lambda: imageio.encode_png_bytes(quantized))
+    _, pal_py_s = _secs(lambda: png_py.encode_png(
+        WIDTH, HEIGHT, np.ascontiguousarray(quantized.pixels).tobytes()), 1)
+    back = imageio.decode_image_bytes(pal_png).pixels
+    ok = (runtime.decode_png(rgba_png)[2] == rgba.tobytes() and pal_png[25] == 3
+          and bool((back == quantized.pixels).all()))
+    emit({"phase": "codec_slice", "what": f"encode {WIDTH}x{HEIGHT} PNG", "card": card,
+          "rgba_native_s": rgba_s, "rgba_png_py_s": py_s, "rgba_bytes": len(rgba_png),
+          f"palette_k{K}_native_s": pal_s, f"palette_k{K}_png_py_rgba_s": pal_py_s,
+          "palette_bytes": len(pal_png), "round_trips": ok})
+    if not ok:
+        failures.append("a native PNG encode did not round-trip")
+    jpeg, jpeg_enc_s = _secs(lambda: runtime.encode_jpeg(WIDTH, HEIGHT, rgba, JPEG_QUALITY))
+    decoded, jpeg_dec_s = _secs(lambda: imageio.decode_image_bytes(jpeg))
+    err = np.abs(decoded.pixels.astype(np.int16) - rgba).max(-1)
+    emit({"phase": "codec_slice", "what": f"JPEG {WIDTH}x{HEIGHT} quality {JPEG_QUALITY}",
+          "card": card, "encode_s": jpeg_enc_s, "decode_s": jpeg_dec_s, "bytes": len(jpeg),
+          "mean_abs_channel_err": float(np.abs(decoded.pixels[..., :3].astype(np.int16)
+                                               - rgba[..., :3]).mean()),
+          "max_channel_err": int(err.max())})
+    if decoded.dimensions != (WIDTH, HEIGHT) or err.max() > 64:
+        failures.append("the JPEG round trip is off")
+    return failures
+
+
+def codec_slice(image, card: str, workdir) -> tuple:
+    """`codec_slice`: the native runtime on the card's host. The 4K image as
+    the PNG `cli_slice` writes (the pure-Python codec's, filter 0): with the
+    PNG and JPEG unit, native decode against `png_py`'s (equal RGBA), RGBA
+    and palette encodes with both codecs, JPEG at quality 90 both ways
+    (without it, where the host lacks libpng's and libjpeg's headers: the
+    PNG through `png_py` both ways and JPEG's refusal); a 24-frame 640x360 GIF from
+    the seed through the CLI's `reduce-gif` (frame and global palettes) and
+    `find-gif`, each output frame against `reduce_images` / `palette_images`
+    + `find_batch` / `find_batch` on the decoded frames (0 differing pixels,
+    delays kept); the CLI's 4K `reduce -c 8` by phase; the fuzz tool at 300
+    mutants, seed 42. Returns `(launches by kernel mode, the GIF's bytes)`."""
+    import contextlib
+    import io
+
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode, cli, runtime
+    from kmeans_tpu_torch.tools.load_serve import FIND_COLORS
+    from kmeans_tpu_torch.utils import imageio, png_py
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    failures = []
+    counts: dict = {}
+    rgba = np.ascontiguousarray(image)
+    src = workdir / "smoke4k.png"
+    png = png_py.encode_png(WIDTH, HEIGHT, rgba.tobytes())
+    src.write_bytes(png)
+    if runtime.codec_available():
+        failures += _native_png_jpeg(rgba, png, card)
+    else:
+        # The reference's own path without its extension: PNG through
+        # png_py, JPEG refused (runtime_probe says why).
+        plain, plain_s = _secs(lambda: imageio.decode_image_bytes(png), 1)
+        encoded, enc_s = _secs(lambda: imageio.encode_png_bytes(plain), 1)
+        try:
+            imageio.decode_image_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
+            refusal = None
+        except RuntimeError as exc:
+            refusal = str(exc)
+        ok = (plain.pixels.tobytes() == rgba.tobytes() and encoded == png
+              and refusal == "JPEG support requires the native runtime")
+        emit({"phase": "codec_slice", "what": f"{WIDTH}x{HEIGHT} PNG through png_py",
+              "card": card, "native": "not built: no png.h / jpeglib.h (runtime_probe)",
+              "bytes": len(png), "png_py_decode_s": plain_s, "png_py_encode_s": enc_s,
+              "round_trips": ok, "jpeg": refusal})
+        if not ok:
+            failures.append("the PNG path without the native unit is off")
+
+    frames, delays = gif_frames()
+    gif = imageio.encode_gif_bytes(frames, delays=delays)
+    gif_path = workdir / "anim.gif"
+    gif_path.write_bytes(gif)
+    decoded_frames, got_delays = imageio.decode_gif_bytes(gif, with_delays=True)
+    same = got_delays == delays and all((a.pixels == b.pixels).all()
+                                        for a, b in zip(decoded_frames, frames))
+    emit({"phase": "codec_slice", "what": f"GIF {GIF_FRAMES}x{GIF_W}x{GIF_H}", "card": card,
+          "bytes": len(gif), "round_trips": bool(same)})
+    if not same:
+        failures.append("the GIF did not round-trip")
+    proc = ImageProcessor(device="cuda")
+    colors = "#" + FIND_COLORS.replace(",", ",#")
+    gif_calls = (
+        ("reduce-gif frame", ["reduce-gif", "-c", str(GIF_K)],
+         lambda: proc.reduce_images(decoded_frames, GIF_K, ReduceMode.REPLACE)),
+        ("reduce-gif global", ["reduce-gif", "-c", str(GIF_K), "--palette-mode", "global"],
+         lambda: proc.find_batch(decoded_frames, proc.palette_images(decoded_frames, GIF_K),
+                                 ReduceMode.REPLACE)),
+        ("find-gif dither", ["find-gif", "-p", colors, "-m", "dither"],
+         lambda: proc.find_batch(decoded_frames, cli.parse_colors(colors), ReduceMode.DITHER)),
+    )
+    for name, argv, direct in gif_calls:
+        out = workdir / f"out-{name.replace(' ', '-')}.gif"
+        phases: dict = {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with collect_phases(phases):
+            rc = cli.main(argv[:1] + ["-i", str(gif_path), "-o", str(out)] + argv[1:])
+        seconds = time.perf_counter() - t0
+        launches = mode_counts()
+        for key, n in launches.items():
+            counts[key] = counts.get(key, 0) + n
+        got, got_delays = imageio.load_gif(str(out), with_delays=True)
+        want = direct()
+        differing = sum(_differing(a.pixels, b.pixels) for a, b in zip(got, want))
+        line = {"phase": "codec_slice", "call": f"cli {name}", "card": card, "rc": rc,
+                "seconds": seconds, "phases_ms": {n: v * 1e3 for n, v in phases.items()
+                                                  if n != "_syncs"},
+                "frames": len(got), "differing_pixels": differing,
+                "delays_kept": got_delays == delays, "launches": launches}
+        emit(line)
+        if rc or len(got) != GIF_FRAMES or differing or got_delays != delays or not launches:
+            failures.append(f"codec_slice {name}: {line}")
+
+    out = workdir / "cli-reduce.png"
+    phases = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with collect_phases(phases), contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["reduce", "-i", str(src), "-c", str(K), "-o", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = mode_counts()
+    for key, n in launches.items():
+        counts[key] = counts.get(key, 0) + n
+    got = imageio.load_image(out).pixels
+    want = ImageProcessor(device="cuda").reduce(K, imageio.load_image(src)).pixels
+    decode_s, encode_s = phases.get("decode", 0.0), phases.get("encode", 0.0)
+    line = {"phase": "codec_slice", "call": f"cli reduce -c {K} {WIDTH}x{HEIGHT}", "card": card,
+            "rc": rc, "seconds": seconds, "decode_s": decode_s, "encode_s": encode_s,
+            "rest_s": seconds - decode_s - encode_s, "output_bytes": out.stat().st_size,
+            "equal_to_api": bool((got == want).all()), "launches": launches}
+    emit(line)
+    if rc or not line["equal_to_api"] or not launches:
+        failures.append(f"codec_slice cli reduce: {line}")
+
+    t0 = time.perf_counter()
+    fuzz = subprocess.run([sys.executable, "-m", "kmeans_tpu_torch.tools.fuzz_codec", "300",
+                           "42"], capture_output=True, text=True, timeout=600)
+    tail = fuzz.stdout.strip().splitlines()[-1:] or [fuzz.stderr[-300:]]
+    emit({"phase": "codec_slice", "what": "fuzz_codec 300 42", "rc": fuzz.returncode,
+          "seconds": time.perf_counter() - t0, "result": tail[0]})
+    if fuzz.returncode != 0:
+        failures.append(f"fuzz_codec: {fuzz.stdout[-500:]} {fuzz.stderr[-500:]}")
+    emit({"phase": "codec_slice", "seconds": time.perf_counter() - t_phase, "launches": counts})
+    if failures:
+        raise AssertionError("codec_slice: " + "; ".join(failures))
+    return counts, gif
+
+
+def _http(addr, method: str, path: str, body: bytes = b"") -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    try:
+        conn.request(method, path, body=body if method == "POST" else None)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _bomb_gif() -> bytes:
+    """A GIF of a 65535x65535 screen in 33 bytes (the reference's test)."""
+    import struct
+
+    h = b"GIF89a" + struct.pack("<HH", 65535, 65535) + bytes([0x00, 0, 0])
+    desc = b"\x2c" + struct.pack("<HHHH", 0, 0, 1, 1) + bytes([0x80])
+    return h + desc[:10] + bytes(6) + desc[10:] + bytes([2, 1, 0x44, 0]) + b"\x3b"
+
+
+def serving_slice(card: str, gif: bytes) -> dict:
+    """`serving_slice`: `kmeans_tpu_torch.serve` in this process on the card,
+    over `ImageProcessor(bucketing=True)` warmed as `--warmup
+    1920x1080,1280x720 --warmup-k 8` does. The `docs/serving.md` traffic
+    through `tools/load_serve.py`: 8 clients x 3 requests of 320x240 at k=8
+    on /reduce, /find (16 colours), /palette and mixed, at windows 0 and 25
+    ms; 4 clients x 2 /reduce of a 1920x1080 PNG and one JPEG; /reduce-gif
+    (frame, global) and /find-gif on the 24-frame GIF; /healthz, /stats and
+    the deep probe; the dimension-bomb GIF (400, "decode limit"); and
+    backpressure at `max_pending=2` with 8 concurrent clients (only 200s and
+    503s, each 503 with Retry-After, none pending after). Every 200 is
+    decoded and held to the processor's direct call on the same image, and
+    each run's launches are counted from 0 just before it. Returns the
+    launches by kernel mode."""
+    import threading
+
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.cli import palette_hex
+    from kmeans_tpu_torch.runtime import codec_available, encode_jpeg
+    from kmeans_tpu_torch.serve import create_server
+    from kmeans_tpu_torch.tools import load_serve
+    from kmeans_tpu_torch.utils.bucketing import bucket_frames
+    from kmeans_tpu_torch.utils.imageio import (
+        decode_gif_bytes,
+        decode_image_bytes,
+        encode_png_bytes,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_sync_debug_mode(0)  # process-wide: off while handler threads run
+    failures = []
+    counts: dict = {}
+
+    def add(launches):
+        for key, n in launches.items():
+            counts[key] = counts.get(key, 0) + n
+
+    proc = ImageProcessor(device="cuda", bucketing=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n_warm = proc.warmup([(1920, 1080), (1280, 720)], [8],
+                         batch_sizes=sorted({bucket_frames(n) for n in range(2, 17)}))
+    emit({"phase": "serving_slice", "what": "warmup 1920x1080,1280x720 k=8 + batch buckets",
+          "card": card, "calls": n_warm, "seconds": time.perf_counter() - t0,
+          "launches": mode_counts()})
+    add(mode_counts())
+
+    def check_png(data, want_pixels):
+        got = decode_image_bytes(data).pixels
+        return _differing(got, want_pixels)
+
+    body = encode_png_bytes(load_serve.workload_image(320, 240))
+    img = decode_image_bytes(body)
+    load_serve.warm(proc, body, "mixed", 8)
+    want = {
+        "/reduce?k=8": proc.reduce(8, img).pixels,
+        f"/find?colors={load_serve.FIND_COLORS}":
+            proc.find(img, load_serve.find_palette(), ReduceMode.REPLACE).pixels,
+        "/palette?k=8": palette_hex(proc.palette(8, img)),
+    }
+    bodies = {}
+    for endpoint in ("reduce", "find", "palette", "mixed"):
+        for window in (0.0, 0.025):
+            responses: list = []
+            reset_launch_counts()
+            result = load_serve.run(proc, window, body, 8, 3, endpoint, 8, responses=responses)
+            launches = mode_counts()
+            add(launches)
+            bad = 0
+            for path, status, _, data in responses:
+                if status != 200:
+                    bad += 1
+                elif path.startswith("/palette"):
+                    bad += json.loads(data)["palette"] != want[path].split(",")
+                else:
+                    bad += check_png(data, want[path]) != 0
+                bodies.setdefault((path, window), set()).add(data)
+            line = {"phase": "serving_slice", "what": f"8 clients x 3 320x240 k=8 /{endpoint}",
+                    "card": card, **result, "responses_unlike_direct_call": bad,
+                    "launches": launches}
+            emit(line)
+            if bad or len(responses) != 24:
+                failures.append(f"serving {endpoint} window {window}: {bad} bad responses")
+    batched_equal = all(bodies[(p, 0.025)] == bodies[(p, 0.0)] for p, w in bodies if w == 0.0)
+    emit({"phase": "serving_slice", "what": "batched responses equal window 0's",
+          "equal": batched_equal})
+    if not batched_equal:
+        failures.append("batched responses differ from window 0's")
+
+    big = synthetic_image(1080, 1920, SEED + 9)
+    big_png = encode_png_bytes(Image((1920, 1080), big))
+    want_big = proc.reduce(8, Image((1920, 1080), big)).pixels
+    responses = []
+    reset_launch_counts()
+    result = load_serve.run(proc, 0.025, big_png, 4, 2, "reduce", 8, responses=responses)
+    launches = mode_counts()
+    add(launches)
+    bad = sum(s != 200 or check_png(d, want_big) != 0 for _, s, _, d in responses)
+    emit({"phase": "serving_slice", "what": "4 clients x 2 1920x1080 k=8 /reduce", "card": card,
+          **result, "body_bytes": len(big_png), "responses_unlike_direct_call": bad,
+          "launches": launches})
+    if bad:
+        failures.append(f"serving 1080p: {bad} bad responses")
+
+    srv = create_server(port=0, processor=proc, batch_window_s=0.025)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    addr = srv.server_address
+    try:
+        if codec_available():
+            jpeg = encode_jpeg(1920, 1080, big, JPEG_QUALITY)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            status, _, data = _http(addr, "POST", "/reduce?k=8&mode=dither", jpeg)
+            seconds = time.perf_counter() - t0
+            launches = mode_counts()
+            add(launches)
+            differing = check_png(data, proc.reduce(8, decode_image_bytes(jpeg),
+                                                    reduce_mode=ReduceMode.DITHER).pixels)
+            emit({"phase": "serving_slice", "card": card, "status": status,
+                  "what": "/reduce?k=8&mode=dither of a 1920x1080 JPEG", "seconds": seconds,
+                  "differing_pixels": differing, "launches": launches})
+            if status != 200 or differing:
+                failures.append(f"serving JPEG: status {status}, {differing} pixels differ")
+        else:
+            # Without the PNG and JPEG unit a JPEG body is refused as the
+            # reference refuses it without its extension.
+            status, _, data = _http(addr, "POST", "/reduce?k=8",
+                                    b"\xff\xd8\xff\xe0" + bytes(64))
+            emit({"phase": "serving_slice", "what": "/reduce?k=8 of a JPEG body", "card": card,
+                  "native": "not built: no png.h / jpeglib.h (runtime_probe)",
+                  "status": status, "body": data.decode().strip()})
+            if status != 400 or b"JPEG support requires the native runtime" not in data:
+                failures.append(f"serving JPEG refusal: {status} {data[:200]}")
+
+        frames, delays = decode_gif_bytes(gif, with_delays=True)
+        gif_calls = (
+            (f"/reduce-gif?k={GIF_K}", lambda: proc.reduce_images(frames, GIF_K)),
+            (f"/reduce-gif?k={GIF_K}&palette_mode=global",
+             lambda: proc.find_batch(frames, proc.palette_images(frames, GIF_K),
+                                     ReduceMode.REPLACE)),
+            (f"/find-gif?colors={load_serve.FIND_COLORS}&mode=dither",
+             lambda: proc.find_batch(frames, load_serve.find_palette(), ReduceMode.DITHER)),
+        )
+        for path, direct in gif_calls:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            status, headers, data = _http(addr, "POST", path, gif)
+            seconds = time.perf_counter() - t0
+            launches = mode_counts()
+            add(launches)
+            got, got_delays = decode_gif_bytes(data, with_delays=True)
+            differing = sum(_differing(a.pixels, b.pixels) for a, b in zip(got, direct()))
+            line = {"phase": "serving_slice", "what": f"{path} {GIF_FRAMES}x{GIF_W}x{GIF_H}",
+                    "card": card, "status": status, "seconds": seconds, "frames": len(got),
+                    "differing_pixels": differing, "delays_kept": got_delays == delays,
+                    "launches": launches}
+            emit(line)
+            if status != 200 or len(got) != GIF_FRAMES or differing or got_delays != delays:
+                failures.append(f"serving {path}: {line}")
+
+        health = _http(addr, "GET", "/healthz")
+        deep = _http(addr, "GET", "/healthz?deep=1")
+        t0 = time.perf_counter()
+        probe = srv.service.deep_health()
+        probe_s = time.perf_counter() - t0
+        bomb = _http(addr, "POST", "/reduce-gif?k=2", _bomb_gif())
+        stats = _http(addr, "GET", "/stats")
+        stats_json = json.loads(stats[2])
+        line = {"phase": "serving_slice", "what": "health, stats, bomb", "card": card,
+                "healthz": [health[0], health[2].decode().strip()],
+                "deep": [deep[0], deep[2].decode().strip()], "deep_health": list(probe),
+                "deep_health_s": probe_s, "bomb": [bomb[0], bomb[2].decode().strip()[:120]],
+                "stats_endpoints": sorted(stats_json["endpoints"])}
+        emit(line)
+        if (health != (200, health[1], b"ok\n") or deep[0] != 200 or probe != (True, "ok")
+                or bomb[0] != 400 or b"decode limit" not in bomb[2] or stats[0] != 200):
+            failures.append(f"serving health/stats/bomb: {line}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+    responses = []
+    reset_launch_counts()
+    result = load_serve.run(proc, 0.025, big_png, 8, 1, "reduce", 8, max_pending=2,
+                            responses=responses)
+    launches = mode_counts()
+    add(launches)
+    statuses = sorted({s for _, s, _, _ in responses})
+    retry = all("Retry-After" in h for _, s, h, _ in responses if s == 503)
+    bad = sum(check_png(d, want_big) != 0 for _, s, _, d in responses if s == 200)
+    line = {"phase": "serving_slice", "what": "backpressure max_pending=2, 8 clients 1920x1080",
+            "card": card, **result, "statuses": statuses, "retry_after_on_503": retry,
+            "responses_unlike_direct_call": bad, "launches": launches}
+    emit(line)
+    if statuses != [200, 503] or not retry or bad or result["pending_after"] != 0:
+        failures.append(f"serving backpressure: {line}")
+    emit({"phase": "serving_slice", "seconds": time.perf_counter() - t_phase, "launches": counts})
+    if failures:
+        raise AssertionError("serving_slice: " + "; ".join(failures))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3326,7 +3879,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
-    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode, runtime
     from kmeans_tpu_torch.api import _lab_palette_to_u8, _unpack_gather
     from kmeans_tpu_torch.models import kmeans as km
     from kmeans_tpu_torch.ops import _build, kernels
@@ -3347,23 +3900,33 @@ def main() -> int:
     # 2. Build: the main library and the experiment tools' library, each
     # source in its own nvcc process, all started together.
     # Beside them, the assign and accumulator sources with `-Xptxas -v`.
+    emit({"phase": "runtime_probe", **runtime_probe()})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
         main_lib = pool.submit(_build.build)
         exp_lib = pool.submit(_exp.build_exp_library)
+        runtime_lib = pool.submit(runtime.build)
+        codec_lib = (pool.submit(runtime.build, "imagio_codec") if runtime.codec_available()
+                     else None)
         reports = {src: pool.submit(sass.ptxas_report, _build.CSRC / src)
                    for src in ("quantize_assign.cu", "quantize_meld.cu", "lloyd_accumulate.cu")}
         scans = [pool.submit(sass.kernel_report, source, LOOP_OPCODES)
                  for source in (_build.CSRC / "dither_threshold.cu",
                                 _build.EXP_CSRC / "exp_mxu.cu")]
-        lib_path, exp_path = main_lib.result(), exp_lib.result()
+        lib_path, exp_path, runtime_path = (main_lib.result(), exp_lib.result(),
+                                            runtime_lib.result())
         ptxas = {src: report.result() for src, report in reports.items()}
         scans = [row for scan in scans for row in scan.result()]
     _build.load_library()
     _exp.load_exp_library()
+    runtime.load()
+    if codec_lib is not None:
+        runtime.load_codec()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
-        "library": lib_path.name, "exp_library": exp_path.name,
+        "library": lib_path.name, "exp_library": exp_path.name, "runtime": runtime_path.name,
+        "runtime_codec": (codec_lib.result().name if codec_lib is not None else
+                          "not built: no png.h / jpeglib.h on this host (runtime_probe)"),
     })
     compiler_report(lib_path, ptxas)
     scan_report(scans)
@@ -3688,6 +4251,15 @@ def main() -> int:
     # 4j. This slice: streaming in row bands at 12288x12288, the band words
     # against the twins, the card against the CPU, and reduce_pipelined.
     stream_counts = streaming_slice(image, card)
+
+    # 4k. This slice: the native host runtime under the main path (its strip
+    # and unpacks against the numpy twins), the codec, and the HTTP service.
+    native_counts: dict = {}
+    native_failures = native_vs_twins(image, card, native_counts)
+    if native_failures:
+        raise AssertionError("native_vs_twins: " + "; ".join(native_failures))
+    codec_counts, gif = codec_slice(image, card, Path("build") / "codec_slice")
+    serve_counts = serving_slice(card, gif)
 
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
@@ -4038,6 +4610,30 @@ def main() -> int:
                 raise AssertionError(f"the bucketing slice never launched {line['name']}")
             line["launches_bucketing_slice"] = bucket_counts[key]
             line["launched_by"] += f"; ImageProcessor(bucketing=True): {entries}"
+    # The kernels of the runtime and service slice: their launches and the
+    # entry points that made them.
+    service_paths = {
+        "assign_packed": ("assign_packed cie94 exact",
+                          "native_vs_twins (reduce_streamed), serve /find, /reduce (window 0)"),
+        "meld_packed": ("meld_packed cie94 exact", "native_vs_twins (reduce_streamed meld)"),
+        "assign_frames_packed": ("assign_frames_packed cie94 exact",
+                                 "cli reduce-gif / find-gif, serve /reduce-gif, /find-gif, "
+                                 "reduce_many / find_many behind /reduce, /find"),
+        "dither_threshold": ("dither_threshold cie94 exact",
+                             "cli find-gif -m dither, serve /reduce?mode=dither, /find-gif"),
+    }
+    for line in kernel_lines:
+        if line["name"] in service_paths:
+            key, entries = service_paths[line["name"]]
+            launched = {"native_vs_twins": native_counts.get(key, 0),
+                        "codec_slice": codec_counts.get(key, 0),
+                        "serving_slice": serve_counts.get(key, 0)}
+            if not any(launched.values()):
+                raise AssertionError(f"the runtime and service slice never launched "
+                                     f"{line['name']}")
+            for name, n in launched.items():
+                line[f"launches_{name}"] = n
+            line["launched_by"] += f"; runtime and service slice: {entries}"
     emit({"kernels": kernel_lines})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -25,8 +25,10 @@ palette and unpacks them into RGBA; past `INDEXED_MAX_K` colours the same
 kernel writes each pixel's RGBA word (`quantize_rgba`), read back as it
 is. For meld the meld pass (`ops/kernels.py::meld_packed`, a CUDA kernel
 on the card) writes the blended pixels as packed RGB bytes, and the host
-unpacks them. `find` runs the same output passes with the caller's
-palette. The frame batches train every frame in one batched Lloyd loop
+unpacks them. The host's alpha strip and unpacks run the native runtime
+(`kmeans_tpu_torch/runtime/`), as the reference's run its extension.
+`find` runs the same output passes with the caller's palette. The frame
+batches train every frame in one batched Lloyd loop
 (`fit_restarts_batched`) and recolour all frames in one launch of the
 kernels' frames mode, each frame with its own palette. `delta_e="2000"`
 puts CIEDE2000 in place of CIE94 in training, dithering and the output
@@ -86,6 +88,7 @@ from enum import Enum
 import numpy as np
 import torch
 
+from kmeans_tpu_torch import runtime
 from kmeans_tpu_torch.image import Image
 from kmeans_tpu_torch.models import kmeans as kmeans_model
 from kmeans_tpu_torch.models.mediancut import extract_palette_mediancut
@@ -194,10 +197,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _host_rgb(pixels: np.ndarray) -> np.ndarray:
+def _host_rgb(pixels: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
     """Contiguous `[..., :3]` copy: alpha is ignored by the whole pipeline,
-    so only RGB is uploaded (kmeans_tpu/api.py:184)."""
-    return np.ascontiguousarray(np.asarray(pixels)[..., :3])
+    so only RGB is uploaded (kmeans_tpu/api.py:184). Contiguous RGBA8 input
+    takes the native one-pass strip (`runtime.strip_alpha`), as in the
+    reference; numpy's strided copy is its twin and serves other input.
+    `out` (a writable C-contiguous uint8 array of the result's shape) takes
+    the bytes in place of a new array."""
+    arr = np.asarray(pixels)
+    if arr.dtype == np.uint8 and arr.ndim >= 1 and arr.shape[-1] == 4 and arr.flags.c_contiguous:
+        return runtime.strip_alpha(arr, out=out)
+    if out is None:
+        return np.ascontiguousarray(arr[..., :3])
+    out[...] = arr[..., :3]
+    return out
 
 
 def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
@@ -269,17 +282,17 @@ def _host_fetch(*tensors) -> tuple:
     return tuple(t.cpu().numpy() for t in tensors)
 
 
-def _unpack_gather(words, h, w, kp, palette_rgba) -> np.ndarray:
+def _unpack_gather(words, h, w, kp, palette_rgba, out=None) -> np.ndarray:
     """`palette_rgba[indices]` from the packed words (kmeans_tpu/api.py:505)."""
     return unpack_tile_words_gather(
-        words, h, w, pack_bits(kp), palette_rgba, tile_rows=quant_tile_rows(kp)
+        words, h, w, pack_bits(kp), palette_rgba, tile_rows=quant_tile_rows(kp), out=out
     )
 
 
-def _unpack_meld(words, h, w, kp) -> np.ndarray:
+def _unpack_meld(words, h, w, kp, out=None) -> np.ndarray:
     """`[h, w, 4]` RGBA from the meld pass's RGB24 words
     (kmeans_tpu/api.py:494)."""
-    return unpack_rgb24_tile_words(words, h, w, tile_rows=quant_tile_rows(kp))
+    return unpack_rgb24_tile_words(words, h, w, tile_rows=quant_tile_rows(kp), out=out)
 
 
 def _palette_readback(centroids: torch.Tensor, k: int) -> np.ndarray:
@@ -292,14 +305,21 @@ def _palette_readback(centroids: torch.Tensor, k: int) -> np.ndarray:
         return rgba[np.argsort(lightness, kind="stable")]
 
 
-def _unpack(kind: str, out: np.ndarray, h: int, w: int, kp: int, palette_rgba) -> np.ndarray:
+def _unpack(kind: str, out: np.ndarray, h: int, w: int, kp: int, palette_rgba,
+            dest=None) -> np.ndarray:
     """`[h, w, 4]` RGBA8 from one image's host copy of an output pass:
-    packed indices and their palette, RGB24 words, or RGBA as it is."""
+    packed indices and their palette, RGB24 words, or RGBA as it is. The
+    output pass may have run on more rows than `h` (a padded band): only
+    its first `h` rows unpack. `dest`, a writable C-contiguous `[h, w, 4]`
+    uint8 array, takes the pixels in place of a new array."""
     if kind == "indexed":
-        return _unpack_gather(out, h, w, kp, palette_rgba)
+        return _unpack_gather(out, h, w, kp, palette_rgba, dest)
     if kind == "meld":
-        return _unpack_meld(out, h, w, kp)
-    return out
+        return _unpack_meld(out, h, w, kp, dest)
+    if dest is None:
+        return out
+    dest[...] = out[:h]
+    return dest
 
 
 def _as_image(image) -> Image:
@@ -354,12 +374,13 @@ def _as_frames(images) -> list:
 
 
 def _stack_rgb(frames, rows: int) -> np.ndarray:
-    """`[B, rows, W, 3]` RGB of the frames in one host copy; rows past a
-    frame's height are zero (kmeans_tpu/api.py:3669-3673)."""
+    """`[B, rows, W, 3]` RGB of the frames, each stripped by `_host_rgb`
+    straight into its slot (kmeans_tpu/api.py:1690, 3669-3673); rows past a
+    frame's height are zero."""
     h, w = frames[0].pixels.shape[:2]
     stack = np.empty((len(frames), rows, w, 3), np.uint8)
     for i, f in enumerate(frames):
-        stack[i, :h] = np.asarray(f.pixels)[..., :3]
+        _host_rgb(f.pixels, out=stack[i, :h])
     stack[:, h:] = 0
     return stack
 
@@ -1280,7 +1301,12 @@ class ImageProcessor:
             with _phase("output_pass"):
                 result = self._output_pass(band, palette_lab, mode, k_active, r0, operands)
                 _phase_sync(result[1])
-            out[r0:r0 + bh] = self._readback(result, band.shape[0], band.shape[1], kp)[:bh, :w]
+            if band.shape[1] == w:
+                # The band's bucket adds rows only: its first bh rows unpack
+                # straight into theirs of the output.
+                self._readback(result, bh, w, kp, dest=out[r0:r0 + bh])
+            else:
+                out[r0:r0 + bh] = self._readback(result, band.shape[0], band.shape[1], kp)[:bh, :w]
             del band, result  # freed before the next band uploads: the card holds one
         return out
 
@@ -1421,23 +1447,26 @@ class ImageProcessor:
                                      self.delta_e, fast)
         return "indexed", words, _lab_palette_to_u8(palettes_lab)[0]
 
-    def _readback(self, out, h: int, w: int, kp: int) -> np.ndarray:
+    def _readback(self, out, h: int, w: int, kp: int, dest=None) -> np.ndarray:
         """Host copy and unpack of `_output_pass`'s result -> `[h, w, 4]`
-        RGBA8 numpy."""
+        RGBA8 numpy (into `dest`, when given: see `_unpack`)."""
         kind, output, palette = out
         return self._readback_frames(
-            (kind, output[None], None if palette is None else palette[None]), h, w, kp)[0]
+            (kind, output[None], None if palette is None else palette[None]), h, w, kp,
+            dest=dest)[0]
 
-    def _readback_frames(self, out, h: int, w: int, kp: int, n: int | None = None) -> list:
+    def _readback_frames(self, out, h: int, w: int, kp: int, n: int | None = None,
+                         dest=None) -> list:
         """`_readback` of `_frames_pass`'s result: one `[h, w, 4]` RGBA8
         array for each of the first `n` frames (default all), each unpacked
-        with its own palette."""
+        with its own palette (`dest`: one frame's output array)."""
         kind, output, palettes = out
         with _phase("readback"):
             fetched = _host_fetch(output, *([] if palettes is None else [palettes]))
         n = fetched[0].shape[0] if n is None else n
         with _phase("unpack"):
-            return [_unpack(kind, fetched[0][i], h, w, kp, fetched[-1][i]) for i in range(n)]
+            return [_unpack(kind, fetched[0][i], h, w, kp, fetched[-1][i], dest)
+                    for i in range(n)]
 
     def _quantize(self, pixels_u8: torch.Tensor, palette_lab: torch.Tensor, mode: str,
                   k_active: int | None = None):

@@ -3,8 +3,13 @@
 Re-implementation of the numpy half of `kmeans_tpu/utils/packing.py`
 (`pack_bits:31`, `unpack_tile_words:67`, `unpack_tile_words_gather:102`,
 `unpack_rgb24_tile_words:135`, `_unpack_rgb24_np:162`); the port cannot
-import that module, because `kmeans_tpu` imports JAX. The port has no
-native codec, so the numpy versions are the only ones.
+import that module, because `kmeans_tpu` imports JAX. As in the reference,
+`unpack_tile_words_gather` and `unpack_rgb24_tile_words` run the native
+runtime's one-pass walks (`kmeans_tpu_torch/runtime/`,
+`unpack_indices_gather` and `unpack_rgb24`); the numpy versions
+(`_unpack_tile_words_gather_np`, `_unpack_rgb24_np`) are the layouts'
+executable spec and the twins the tests hold the native ones to, byte for
+byte. Both native unpacks can write into the caller's array (`out=`).
 
 The assign kernel packs `32 // bits` pixel indices into each int32 word.
 Word `(tile t, row r < blk, lane l)`, with `blk = tile_rows // ppw`, holds
@@ -20,6 +25,8 @@ first: `j = 0`: R0 G0 B0 R1; `j = 1`: G1 B1 R2 G2; `j = 2`: B2 R3 G3 B3.
 from __future__ import annotations
 
 import numpy as np
+
+from kmeans_tpu_torch import runtime
 
 NIBBLE_PACK_MAX_K = 16
 CRUMB_PACK_MAX_K = 4
@@ -67,12 +74,30 @@ def unpack_tile_words_gather(
     palette_rgba: np.ndarray,
     tile_rows: int,
     lanes: int = 128,
+    out: np.ndarray | None = None,
 ) -> np.ndarray:
     """`palette_rgba[unpack_tile_words(...)]`: the `[h, w, 4]` uint8 image
-    for a `[K, 4]` uint8 palette (numpy raises `IndexError` on an index
-    past the palette). The gather moves each pixel as one 32-bit word,
-    which is byte-equal to gathering `[K, 4]` rows and several times
-    faster."""
+    for a `[K, 4]` uint8 palette, unpacked and gathered in one native pass
+    (`runtime.unpack_indices_gather`; an index past the palette raises
+    `ValueError`), written into `out` when given (a writable C-contiguous
+    uint8 array of at least `h * w * 4` bytes)."""
+    return runtime.unpack_indices_gather(words, h, w, bits, tile_rows, lanes, palette_rgba,
+                                         out=out)
+
+
+def _unpack_tile_words_gather_np(
+    words: np.ndarray,
+    h: int,
+    w: int,
+    bits: int,
+    palette_rgba: np.ndarray,
+    tile_rows: int,
+    lanes: int = 128,
+) -> np.ndarray:
+    """Numpy spec of `unpack_tile_words_gather` (numpy raises `IndexError`
+    on an index past the palette). The gather moves each pixel as one
+    32-bit word, which is byte-equal to gathering `[K, 4]` rows and several
+    times faster."""
     idx = unpack_tile_words(words, h, w, bits, tile_rows, lanes)
     pal = np.ascontiguousarray(palette_rgba, dtype=np.uint8).reshape(-1, 4)
     return pal.view(np.uint32).reshape(-1)[idx].view(np.uint8).reshape(h, w, 4)
@@ -84,11 +109,13 @@ def unpack_rgb24_tile_words(
     w: int,
     tile_rows: int,
     lanes: int = 128,
+    out: np.ndarray | None = None,
 ) -> np.ndarray:
     """Invert the meld kernel's RGB byte pack: `[M, lanes]` int32 words ->
-    `[h, w, 4]` uint8 RGBA with alpha 255. `tile_rows` must be
-    `ops.kernels.quant_tile_rows(kp)`."""
-    return _unpack_rgb24_np(words, h, w, tile_rows, lanes)
+    `[h, w, 4]` uint8 RGBA with alpha 255, in one native pass
+    (`runtime.unpack_rgb24`), written into `out` when given. `tile_rows`
+    must be `ops.kernels.quant_tile_rows(kp)`."""
+    return runtime.unpack_rgb24(words, h, w, tile_rows, lanes, out=out)
 
 
 def _unpack_rgb24_np(

@@ -6,10 +6,11 @@ printing give the reference's results, and every subcommand run through
 `cli.main(argv, device="cpu")` writes the same PNG bytes (and prints the
 same palette) as `kmeans_tpu.cli.main(argv)` on the JAX CPU backend
 (meld, which the reference's tests do not run: the same pixels but for 1
-u8 step on at most 1e-3 of them). The
-cases that need a native codec (a JPEG input, the GIF subcommands) raise
-the same `RuntimeError` in both packages, neither having one built here.
-`--band-rows` streams `reduce`, `palette` and `find` in row bands, with
+u8 step on at most 1e-3 of them). The reference runs with its native
+runtime built for these tests and injected (`_torch_reference_runtime.py`),
+so both write palette PNGs through libpng. A JPEG input and the GIF
+subcommands (`reduce-gif` in both palette modes, `find-gif`) give the same
+files in both CLIs; meld and k > 256 GIFs exit in both. `--band-rows` streams `reduce`, `palette` and `find` in row bands, with
 the reference's bytes. The port's refusal: `--pipeline` (ROADMAP A.13)
 exits non-zero naming its item; a `--band-rows` below 4, or beside a host
 algorithm, exits as in the reference. `python -m kmeans_tpu_torch` is this CLI, and on a host
@@ -26,12 +27,17 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_reference_runtime import ref_runtime  # noqa: F401 (fixture)
 from kmeans_tpu import cli as ref_cli
+from kmeans_tpu.utils import imageio as ref_imageio
 from kmeans_tpu_torch import cli
 from kmeans_tpu_torch.image import Image
+from kmeans_tpu_torch.utils import imageio
 from kmeans_tpu_torch.utils.imageio import load_image, save_image
 
 torch.set_num_threads(2)
+
+pytestmark = pytest.mark.usefixtures("ref_runtime")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -234,24 +240,86 @@ def test_cli_band_rows(which, sample_png, tmp_path):
         run(["reduce", "-i", sample_png, "-c", "3", "--band-rows", "2", "-o", out])
 
 
-def test_codec_bound_cases_raise_as_reference(sample_png, tmp_path):
-    """A JPEG input and the GIF subcommands need a native codec: with none
-    built (the port has none yet), both CLIs raise the same error."""
+def _run_both(argv_of):
+    """Run `argv_of(name)` through the port's CLI and the reference's."""
+    assert cli.main(argv_of("port"), device="cpu") == 0
+    assert ref_cli.main(argv_of("ref")) == 0
+
+
+def test_cli_jpg_end_to_end(sample_png, tmp_path):
+    """tests/test_cli.py::test_cli_jpg_end_to_end on both CLIs: the sample
+    saved as a JPEG reduces to the same PNG bytes, and `find` writes a JPEG
+    output (its name keeps the input's extension) with the same bytes."""
+    img = load_image(sample_png)
     jpg = str(tmp_path / "sample.jpg")
-    gif = str(tmp_path / "anim.gif")
-    with open(jpg, "wb") as f:
-        f.write(b"\xff\xd8\xff\xe0" + bytes(32))
-    with open(gif, "wb") as f:
-        f.write(b"GIF89a" + bytes(32))
-    for argv, what in ((["reduce", "-i", jpg, "-c", "3", "-o", str(tmp_path / "o.png")], "JPEG"),
-                       (["reduce-gif", "-i", gif, "-c", "2"], "GIF"),
-                       (["reduce-gif", "-i", gif, "-c", "3", "--palette-mode", "global"], "GIF"),
-                       (["find-gif", "-i", gif, "-p", "#ff0000,#00ff00"], "GIF")):
-        for run in (lambda a: cli.main(a, device="cpu"), ref_cli.main):
-            with pytest.raises(RuntimeError, match=f"{what} support requires the native"):
-                run(argv)
-    for argv in (["reduce-gif", "-i", gif, "-c", "2", "-m", "meld"],
-                 ["reduce-gif", "-i", gif, "-c", "300"]):
+    save_image(img, jpg)
+    with open(jpg, "rb") as f:
+        jpeg = f.read()
+    ref_jpg = str(tmp_path / "ref.jpg")
+    ref_imageio.save_image(img, ref_jpg)
+    with open(ref_jpg, "rb") as f:
+        assert f.read() == jpeg
+    _run_both(lambda who: ["reduce", "-i", jpg, "-c", "3", "-o", str(tmp_path / f"{who}.png")])
+    _run_both(lambda who: ["find", "-i", jpg, "-p", "#ff0000,#00ff00,#0000ff",
+                           "-o", str(tmp_path / f"{who}-find.jpg")])
+    for name in ("{}.png", "{}-find.jpg"):
+        with open(tmp_path / name.format("port"), "rb") as a, \
+                open(tmp_path / name.format("ref"), "rb") as b:
+            assert a.read() == b.read()
+    assert load_image(str(tmp_path / "port.png")).dimensions == img.dimensions
+
+
+@pytest.fixture(scope="module")
+def anim_gif(tmp_path_factory):
+    """tests/test_cli.py::test_cli_gif_subcommands's 3-frame 16x16 GIF, with
+    per-frame delays."""
+    rng = np.random.default_rng(12)
+    base = np.array([[230, 40, 40], [40, 220, 60], [60, 60, 230]], np.int32)
+    frames = []
+    for _ in range(3):
+        idx = rng.integers(0, 3, size=(16, 16))
+        rgb = np.clip(base[idx] + rng.integers(-9, 10, (16, 16, 3)), 0, 255)
+        rgba = np.concatenate([rgb.astype(np.uint8), np.full((16, 16, 1), 255, np.uint8)], -1)
+        frames.append(Image((16, 16), rgba))
+    src = str(tmp_path_factory.mktemp("gif") / "anim.gif")
+    imageio.save_gif(frames, src, delays=[5, 10, 15])
+    return src
+
+
+@pytest.mark.parametrize("argv,count", [
+    (["reduce-gif", "-c", "2"], 2),
+    (["reduce-gif", "-c", "3", "--palette-mode", "global"], 3),
+    (["reduce-gif", "-c", "3", "-m", "dither"], 3),
+    (["find-gif", "-p", "#ff0000,#00ff00"], 2),
+])
+def test_cli_gif_subcommands(argv, count, anim_gif, tmp_path):
+    """tests/test_cli.py::test_cli_gif_subcommands (and the global palette
+    mode of `::test_cli_reduce_gif_global_palette`) on both CLIs: the same
+    GIF bytes, 3 frames of at most `count` colours, the delays kept."""
+    _run_both(lambda who: argv[:1] + ["-i", anim_gif, "-o", str(tmp_path / f"{who}.gif")]
+              + argv[1:])
+    with open(tmp_path / "port.gif", "rb") as a, open(tmp_path / "ref.gif", "rb") as b:
+        assert a.read() == b.read()
+    frames, delays = imageio.load_gif(str(tmp_path / "port.gif"), with_delays=True)
+    assert len(frames) == 3 and delays == [5, 10, 15]
+    for f in frames:
+        assert len(np.unique(f.pixels.reshape(-1, 4), axis=0)) <= count
+
+
+def test_cli_gif_default_output_name(anim_gif):
+    """Without `-o` the GIF subcommands write beside the input under the
+    reference's name."""
+    out = anim_gif.replace("anim.gif", "anim-find-replace.gif")
+    assert cli.main(["find-gif", "-i", anim_gif, "-p", "#ff0000,#00ff00"], device="cpu") == 0
+    assert len(imageio.load_gif(out)) == 3
+    os.remove(out)
+
+
+def test_gif_refusals_as_reference(anim_gif):
+    """Meld GIFs and more than 256 colours exit in both CLIs."""
+    for argv in (["reduce-gif", "-i", anim_gif, "-c", "2", "-m", "meld"],
+                 ["reduce-gif", "-i", anim_gif, "-c", "300"],
+                 ["find-gif", "-i", anim_gif, "-p", "#ff0000", "-m", "meld"]):
         for run in (lambda a: cli.main(a, device="cpu"), ref_cli.main):
             with pytest.raises(SystemExit):
                 run(argv)

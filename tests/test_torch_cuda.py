@@ -1124,3 +1124,125 @@ def test_reduce_pipelined_on_card_matches_reduce(cuda, bucketing):
         for out, frame in zip(outs, frames):
             np.testing.assert_array_equal(out.pixels,
                                           card.reduce(8, frame, reduce_mode=mode).pixels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["replace", "dither", "meld"])
+def test_native_unpack_of_card_words_matches_twins(cuda, mode):
+    """The native strip and unpacks (`kmeans_tpu_torch/runtime/`) on the
+    card's output words: the bytes of the numpy twins, 0 apart; and a
+    streamed reduce 1280 wide (its own width bucket: each band unpacks
+    straight into its rows) equal with the twins in the native paths'
+    place."""
+    from kmeans_tpu_torch import Image, api
+    from kmeans_tpu_torch.utils import packing
+
+    rng = np.random.default_rng(41)
+    px = rng.integers(0, 256, (301, 517, 4), dtype=np.uint8)
+    np.testing.assert_array_equal(api._host_rgb(px), np.ascontiguousarray(px[..., :3]))
+    proc = ImageProcessor(device="cuda")
+    img = Image((517, 301), px)
+    cents = proc.extract_palette_kmeans(img, 8)
+    kind, out, pal = proc._output_pass(proc._upload_image(img), cents, mode)
+    words = out.cpu().numpy()
+    rows = kernels.quant_tile_rows(8)
+    if kind == "indexed":
+        pal_np = pal.cpu().numpy()
+        want = packing._unpack_tile_words_gather_np(words, 301, 517, pack_bits(8), pal_np, rows)
+        got = packing.unpack_tile_words_gather(words, 301, 517, pack_bits(8), pal_np, rows)
+    else:
+        want = packing._unpack_rgb24_np(words, 301, 517, rows)
+        got = unpack_rgb24_tile_words(words, 301, 517, rows)
+    np.testing.assert_array_equal(got, want)
+    big = Image((1280, 300), rng.integers(0, 256, (300, 1280, 4), dtype=np.uint8))
+    native = proc.reduce_streamed(6, big, ReduceMode(mode), band_rows=128).pixels
+    saved = (api.unpack_tile_words_gather, api.unpack_rgb24_tile_words)
+
+    def fill(arr, dest):
+        if dest is None:
+            return arr
+        dest[...] = arr
+        return dest
+
+    try:
+        api.unpack_tile_words_gather = lambda words, h, w, bits, pal, tile_rows, out=None: fill(
+            packing._unpack_tile_words_gather_np(words, h, w, bits, pal, tile_rows), out)
+        api.unpack_rgb24_tile_words = lambda words, h, w, tile_rows, out=None: fill(
+            packing._unpack_rgb24_np(words, h, w, tile_rows), out)
+        twin = proc.reduce_streamed(6, big, ReduceMode(mode), band_rows=128).pixels
+    finally:
+        api.unpack_tile_words_gather, api.unpack_rgb24_tile_words = saved
+    np.testing.assert_array_equal(native, twin)
+
+
+@pytest.mark.cuda
+def test_server_on_card_answers_as_direct_calls(cuda):
+    """`kmeans_tpu_torch.serve` over `ImageProcessor(bucketing=True)` on the
+    card: /reduce (batched), /find, /reduce-gif and the deep probe answer
+    as the processor's direct calls; the dimension-bomb GIF is a 400."""
+    import http.client
+    import threading
+
+    from kmeans_tpu_torch import Image
+    from kmeans_tpu_torch.serve import create_server
+    from kmeans_tpu_torch.utils.imageio import (
+        decode_gif_bytes,
+        decode_image_bytes,
+        encode_gif_bytes,
+        encode_png_bytes,
+    )
+
+    rng = np.random.default_rng(42)
+    px = rng.integers(0, 256, (90, 130, 4), dtype=np.uint8)
+    px[..., 3] = 255
+    img = Image((130, 90), px)
+    frames = [Image((40, 30), np.repeat(np.repeat(rng.integers(0, 256, (3, 4, 4), np.uint8) | 3,
+                                                  10, 0), 10, 1)) for _ in range(3)]
+    for f in frames:
+        f.pixels[..., 3] = 255
+    proc = ImageProcessor(device="cuda", bucketing=True)
+    srv = create_server(port=0, processor=proc, batch_window_s=0.01)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    def post(path, body, method="POST"):
+        conn = http.client.HTTPConnection(*srv.server_address, timeout=300)
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    try:
+        results = [None] * 4
+
+        def client(i):
+            results[i] = post("/reduce?k=5&mode=dither", encode_png_bytes(img))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        want = proc.reduce(5, img, reduce_mode=ReduceMode.DITHER).pixels
+        for status, data in results:
+            assert status == 200
+            np.testing.assert_array_equal(decode_image_bytes(data).pixels, want)
+        status, data = post("/find?colors=ff0000,00ff00,0000ff", encode_png_bytes(img))
+        assert status == 200
+        np.testing.assert_array_equal(
+            decode_image_bytes(data).pixels,
+            proc.find(img, np.array([[255, 0, 0, 255], [0, 255, 0, 255], [0, 0, 255, 255]],
+                                    np.uint8)).pixels)
+        status, data = post("/reduce-gif?k=4", encode_gif_bytes(frames, delays=[3, 4, 5]))
+        got, delays = decode_gif_bytes(data, with_delays=True)
+        assert status == 200 and delays == [3, 4, 5]
+        for a, b in zip(got, proc.reduce_images(frames, 4)):
+            np.testing.assert_array_equal(a.pixels, b.pixels)
+        assert post("/healthz?deep=1", None, "GET") == (200, b"ok\n")
+        bomb = (b"GIF89a\xff\xff\xff\xff\x00\x00\x00\x2c" + bytes(4) + b"\x01\x00\x01\x00"
+                + b"\x80" + bytes(6) + bytes([2, 1, 0x44, 0]) + b"\x3b")
+        status, data = post("/reduce-gif?k=2", bomb)
+        assert status == 400 and b"decode limit" in data
+    finally:
+        srv.shutdown()
+        srv.server_close()

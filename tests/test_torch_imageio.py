@@ -1,13 +1,15 @@
 """PyTorch port vs the JAX package: file IO and the small API leftovers.
 
 `kmeans_tpu_torch/utils/png_py.py` and `utils/imageio.py` against the
-reference's `kmeans_tpu/utils/png_py.py` and `utils/imageio.py` (whose
-native codec is not built here, as in the port): the decode of every PNG
-colour type and bit depth, with and without tRNS, every row through one of
-the five scanline filters, gives the same RGBA bytes; the encode gives the
-same PNG bytes; the decode-pixel cap (set by call and by the environment
-variable at import) refuses dimension bombs; JPEG and GIF raise
-`RuntimeError` where the reference raises without its native codec. Then
+reference's `kmeans_tpu/utils/png_py.py` and `utils/imageio.py` (the
+reference with its native runtime built for these tests and injected,
+`_torch_reference_runtime.py`, where the port's native codec is compared):
+the decode of every PNG colour type and bit depth, with and without tRNS,
+every row through one of the five scanline filters, gives the same RGBA
+bytes; the encode gives the same PNG bytes; the decode-pixel cap (set by
+call and by the environment variable at import) refuses dimension bombs;
+JPEG and GIF go through the native codec in both packages with the same
+bytes (`tests/test_torch_codec.py` has the codec's own cases). Then
 `copied_pixel` / `borrowed_pixel` and the tracing helpers `trace`,
 `annotate` and `Timer` of `utils/profiling.py`.
 """
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 import kmeans_tpu_torch as kt
+from _torch_reference_runtime import ref_runtime  # noqa: F401 (fixture)
 from kmeans_tpu.utils import imageio as ref_imageio
 from kmeans_tpu.utils import png_py as ref_png
 from kmeans_tpu_torch.utils import imageio, png_py
@@ -127,7 +130,7 @@ def test_png_decode_matches_reference(color_type, bit_depth, with_trns):
 
 
 @pytest.mark.parametrize("w,h,seed", [(31, 17, 0), (1, 1, 1), (64, 64, 2)])
-def test_png_encode_bytes_match_reference(w, h, seed):
+def test_png_encode_bytes_match_reference(w, h, seed, ref_runtime):
     rgba = np.random.default_rng(seed).integers(0, 256, (h, w, 4), dtype=np.uint8)
     data = png_py.encode_png(w, h, rgba.tobytes())
     assert data == ref_png.encode_png(w, h, rgba.tobytes())
@@ -138,12 +141,13 @@ def test_png_encode_bytes_match_reference(w, h, seed):
     np.testing.assert_array_equal(back.pixels, rgba)
 
 
-def test_file_roundtrip_and_extensions(tmp_path):
+def test_file_roundtrip_and_extensions(tmp_path, ref_runtime):
     rgba = np.random.default_rng(1).integers(0, 256, (10, 20, 4), dtype=np.uint8)
     path = str(tmp_path / "img.png")
     imageio.save_image(kt.Image((20, 10), rgba), path)
-    with open(path, "rb") as f:
-        assert f.read() == ref_png.encode_png(20, 10, rgba.tobytes())
+    ref_imageio.save_image(kt.Image((20, 10), rgba), str(tmp_path / "ref.png"))
+    with open(path, "rb") as f, open(tmp_path / "ref.png", "rb") as g:
+        assert f.read() == g.read()
     img = imageio.load_image(path)
     assert isinstance(img, kt.Image) and img.dimensions == (20, 10)
     np.testing.assert_array_equal(img.pixels, rgba)
@@ -216,28 +220,72 @@ def test_decode_limit_from_environment(value, ok):
         assert "KMEANS_TPU_MAX_DECODE_PIXELS must be a positive integer" in r.stderr
 
 
-def test_jpeg_and_gif_need_the_native_codec(tmp_path):
-    """Without a native codec (the port has none yet, the reference here is
-    not built) JPEG and GIF raise `RuntimeError` in both packages, before
-    touching their arguments."""
+def test_jpeg_and_gif_through_the_native_codec(tmp_path, ref_runtime):
+    """JPEG and GIF through each package's `utils/imageio.py` with its
+    native runtime: `save_image` to .jpg, `decode_image_bytes` of a JPEG,
+    `save_gif` / `encode_gif_bytes` with per-frame delays and `load_gif` /
+    `decode_gif_bytes` give the same bytes and pixels in both."""
+    assert imageio.HAVE_NATIVE is True and ref_imageio.HAVE_NATIVE is True
+    rng = np.random.default_rng(4)
+    img = kt.Image((24, 16), rng.integers(0, 256, (16, 24, 4), dtype=np.uint8))
+    files = []
+    for module, name in ((imageio, "port"), (ref_imageio, "ref")):
+        module.save_image(img, str(tmp_path / f"{name}.jpg"), quality=75)
+        with open(tmp_path / f"{name}.jpg", "rb") as f:
+            files.append(f.read())
+    assert files[0] == files[1] and files[0][:2] == b"\xff\xd8"
+    got, want = imageio.decode_image_bytes(files[0]), ref_imageio.decode_image_bytes(files[0])
+    assert got.dimensions == want.dimensions == (24, 16)
+    np.testing.assert_array_equal(got.pixels, want.pixels)
+    frames = [kt.Image((6, 5), np.repeat(rng.integers(0, 256, (5, 1, 4), dtype=np.uint8), 6, 1))
+              for _ in range(3)]
+    for f in frames:
+        f.pixels[..., 3] = 255
+    gifs = []
+    for module, name in ((imageio, "port"), (ref_imageio, "ref")):
+        module.save_gif(frames, str(tmp_path / f"{name}.gif"), delays=[3, 30, 300])
+        gifs.append(module.encode_gif_bytes(frames, delay_cs=7, loop=False))
+        with open(tmp_path / f"{name}.gif", "rb") as f:
+            gifs.append(f.read())
+    assert gifs[:2] == gifs[2:]
+    back, delays = imageio.load_gif(str(tmp_path / "port.gif"), with_delays=True)
+    ref_back = ref_imageio.decode_gif_bytes(gifs[1])
+    assert delays == [3, 30, 300] and len(back) == len(ref_back) == 3
+    for a, b, c in zip(back, ref_back, frames):
+        np.testing.assert_array_equal(a.pixels, b.pixels)
+        np.testing.assert_array_equal(a.pixels, c.pixels)
+    assert imageio.decode_gif_bytes(gifs[0], with_delays=True)[1] == [7, 7, 7]
+
+
+def test_without_the_png_jpeg_unit_as_reference_without_its_extension(tmp_path, monkeypatch):
+    """On a host without libpng's and libjpeg's headers (the runtime's PNG
+    and JPEG unit cannot build there), PNG takes the pure-Python codec and
+    JPEG is refused, with the reference's bytes and errors when it runs
+    without its extension; GIF still runs the runtime's core unit, and the
+    fuzz tool fuzzes what is there."""
+    from kmeans_tpu_torch import runtime
+    from kmeans_tpu_torch.tools import fuzz_codec
+
+    monkeypatch.setattr(runtime, "codec_available", lambda: False)
     assert imageio.HAVE_NATIVE is False and ref_imageio.HAVE_NATIVE is False
-    img = kt.Image((4, 4), np.zeros((4, 4, 4), np.uint8))
+    rgba = np.random.default_rng(5).integers(0, 256, (9, 14, 4), dtype=np.uint8)
+    img = kt.Image((14, 9), rgba)
+    data = imageio.encode_png_bytes(img)
+    assert data == ref_imageio.encode_png_bytes(img) == ref_png.encode_png(14, 9, rgba.tobytes())
+    np.testing.assert_array_equal(imageio.decode_image_bytes(data).pixels, rgba)
     jpeg = b"\xff\xd8\xff\xe0" + bytes(16)
-    gif_path = str(tmp_path / "a.gif")
-    with open(gif_path, "wb") as f:
-        f.write(b"GIF89a" + bytes(16))
-    calls = [
-        (lambda m: m.save_image(img, str(tmp_path / "a.jpg")), "JPEG"),
-        (lambda m: m.decode_image_bytes(jpeg), "JPEG"),
-        (lambda m: m.decode_gif_bytes(b"GIF89a"), "GIF"),
-        (lambda m: m.load_gif(gif_path, with_delays=True), "GIF"),
-        (lambda m: m.encode_gif_bytes([img]), "GIF"),
-        (lambda m: m.save_gif([img], str(tmp_path / "b.gif")), "GIF"),
-    ]
-    for call, what in calls:
-        for module in (imageio, ref_imageio):
-            with pytest.raises(RuntimeError, match=f"{what} support requires the native runtime"):
-                call(module)
+    for module in (imageio, ref_imageio):
+        with pytest.raises(RuntimeError, match="JPEG support requires the native runtime"):
+            module.decode_image_bytes(jpeg)
+        with pytest.raises(RuntimeError, match="JPEG support requires the native runtime"):
+            module.save_image(img, str(tmp_path / "a.jpg"))
+    frames = [kt.Image((14, 9), np.full((9, 14, 4), 40 * i, np.uint8)) for i in range(1, 4)]
+    back, delays = imageio.decode_gif_bytes(imageio.encode_gif_bytes(frames, delays=[2, 3, 4]),
+                                            with_delays=True)
+    assert delays == [2, 3, 4]
+    for a, b in zip(back, frames):
+        np.testing.assert_array_equal(a.pixels[..., :3], b.pixels[..., :3])
+    assert fuzz_codec.run(100, 7) == 0
 
 
 def test_copied_and_borrowed_pixel():
