@@ -164,7 +164,25 @@ then:
    `/find`, `/palette` and mixed at windows 0 and 25 ms, 1080p requests,
    a JPEG body, the GIF endpoints, health, stats, the dimension-bomb 400
    and the 503 backpressure at `max_pending=2`; every 200 equal to the
-   processor's direct call, each run's launches counted);
+   processor's direct call, each run's launches counted).
+   Then multi-device sharding (`sharding_slice`) on meshes of 1, 2 and 4
+   shards of the one card (`make_mesh(["cuda:0"] * d)`, and 2x2 data x
+   pixel for the frames): `find_sharded` with 16 colours in three modes,
+   on a 2161-row image and with 2048 colours (colour out a shard), each
+   equal to `find` bit for bit with one launch a shard; the sharded seeds
+   equal to `plusplus_init`'s on the shrunk and the 4K stores;
+   `reduce_sharded` on the shrunk training (three modes), the
+   full-resolution one (the accumulator launched shards x iterations
+   times), `delta_e="2000"`, the k=600 row-chunked route on 640x600 and
+   bucketed on 1080x1350, each against `reduce` (a one-shard mesh bit for
+   bit, more shards at least 0.999 of the pixels), `palette_sharded`
+   within 2 u8 of `palette`, one mesh twice equal; 16 frames of 1920x1080
+   through `reduce_images_sharded` (2x2), `palette_images_sharded` (and
+   its octree fallback) and `find_batch_sharded` in three modes (bit for
+   bit); each shard's words against the twins with its `row_offset`; a
+   2-shard 320x240 `reduce_sharded` on the card against the CPU; 4K k=8
+   `reduce` against `reduce_sharded` on 1, 2 and 4 shards in turns (the
+   shards share one card: the protocol's cost, not scaling);
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
@@ -3872,6 +3890,355 @@ def serving_slice(card: str, gif: bytes) -> dict:
     return counts
 
 
+# --- Multi-device sharding ---------------------------------------------------
+
+SHARD_MESHES = (1, 2, 4)  # pixel-axis shards, each a repeat of the one card
+SHARD_ODD_H = 2161  # rows that pad to the shard count
+SHARD_FIND_K = 16
+SHARD_BIG_K = 2048  # past INDEXED_MAX_K: colour out a shard
+SHARD_PALETTE_STEP = 2  # the reference's own bars (tests/test_distributed.py:680-683, 717)
+SHARD_EQUAL_SHARE = 0.999
+SHARD_OCTREE_FRAMES = 2  # the host octree's fallback: ~0.9 s a 1080p frame
+
+
+def _sharded_call(what, call, counts, card, want=None) -> tuple:
+    """One sharded call with the launch counts set to 0 just before it and
+    read just after (added to `counts`); `want` maps a kernel-mode key to
+    the launches the call must make. Returns `(result, line, failure)`."""
+    import torch
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = mode_counts()
+    for key, n in launches.items():
+        counts[key] = counts.get(key, 0) + n
+    line = {"phase": "sharding_slice", "call": what, "card": card, "seconds": seconds,
+            "launches": launches}
+    bad = {key: (launches.get(key, 0), n) for key, n in (want or {}).items()
+           if launches.get(key, 0) != n}
+    if bad:
+        line["launches_expected"] = want
+    return out, line, (f"{what}: launches (got, want) {bad}" if bad else None)
+
+
+def _palette_step(a: np.ndarray, b: np.ndarray) -> int:
+    if a.shape != b.shape:
+        return 256
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+def sharding_words_vs_twins(image, card: str) -> list:
+    """Each shard's words against the twins on its own rows with its own
+    `row_offset`: the 4K image and its 2161-row crop on 4 shards (dither
+    and meld, 16 colours), and k=2048 colour out on 2 shards. These
+    launches compare kernels with twins and count for no path."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.quantize import dither_threshold
+    from kmeans_tpu_torch.parallel import make_mesh
+    from kmeans_tpu_torch.parallel.sharded_ops import _assign_words, _meld_words, _row_sharded
+
+    failures = []
+    device = torch.device("cuda", 0)
+    odd = synthetic_image(SHARD_ODD_H, WIDTH, seed=SEED + 45)
+    cases = [(image, 4, SHARD_FIND_K, "dither"), (odd, 4, SHARD_FIND_K, "dither"),
+             (odd, 4, SHARD_FIND_K, "meld"), (image, 2, SHARD_BIG_K, "replace")]
+    for img, d, k, mode in cases:
+        mesh = make_mesh([device] * d)
+        pal = random_palette_lab(k, SEED + 40 + k, device)
+        blocks, h, local_h = _row_sharded(mesh, np.ascontiguousarray(img[..., :3]))
+        if mode == "meld":
+            got = _meld_words(blocks, pal, None, "cie94", False)
+            want = [kernels.meld_packed_reference(b, pal) for b in blocks]
+        else:
+            got = _assign_words(blocks, local_h, pal, mode, None, "cie94", False,
+                                colour_out=k > kernels.INDEXED_MAX_K)
+            thr = dither_threshold(pal) if mode == "dither" else 0.0
+            twin = (kernels.quantize_rgba_reference if k > kernels.INDEXED_MAX_K
+                    else kernels.assign_packed_reference)
+            want = [twin(b, pal, thr, mode=mode, row_offset=s * local_h)
+                    for s, b in enumerate(blocks)]
+        torch.cuda.synchronize()
+        mism = [int((g != w).sum()) for g, w in zip(got, want)]
+        line = {"phase": "sharding_words_vs_twins", "h": h, "w": img.shape[1], "shards": d,
+                "local_h": local_h, "k": k, "mode": mode, "card": card,
+                "mismatched_per_shard": mism}
+        emit(line)
+        if any(mism):
+            failures.append(f"sharded words vs twins: {line}")
+    return failures
+
+
+def sharding_outputs(image, card: str, counts: dict) -> list:
+    """`find_sharded` against `find` (bit for bit) on 1, 2 and 4 shards in
+    three modes, on 2161 rows, and at k=2048; `reduce_sharded` on the shrunk
+    and the full-resolution training, CIEDE2000, the k=600 row-chunked
+    route and the bucketed one; `palette_sharded`; the seeds against the
+    single-device seeds. A one-shard mesh must give the single-device
+    pixels; 2 and 4 shards palettes within 2 u8 and 0.999 of the pixels."""
+    import torch
+
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.models import kmeans as km
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.ops.resize import resize_uint8, shrunk_dimensions
+    from kmeans_tpu_torch.parallel import make_mesh
+    from kmeans_tpu_torch.parallel.distributed import seed_sharded
+
+    failures = []
+    device = torch.device("cuda", 0)
+    meshes = {d: make_mesh([device] * d) for d in SHARD_MESHES}
+    proc = ImageProcessor(device="cuda")
+    rng = np.random.default_rng(SEED + 41)
+    colors = rng.integers(0, 256, (SHARD_FIND_K, 4), dtype=np.uint8)
+    colors[:, 3] = 255
+    big = rng.integers(0, 256, (SHARD_BIG_K, 4), dtype=np.uint8)
+    big[:, 3] = 255
+
+    def run(what, call, want=None):
+        out, line, bad = _sharded_call(what, call, counts, card, want)
+        if bad:
+            failures.append(bad)
+        return out, line
+
+    # The output pass: find_sharded against find, bit for bit.
+    odd = synthetic_image(SHARD_ODD_H, WIDTH, seed=SEED + 45)
+    cases = [(image, colors, m, d) for m in ("replace", "dither", "meld") for d in SHARD_MESHES]
+    cases += [(odd, colors, m, 4) for m in ("dither", "meld")]
+    cases += [(image, big, "replace", 2)]
+    singles = {}
+    for img, cols, mode, d in cases:
+        key = (img.shape[0], cols.shape[0], mode)
+        if key not in singles:
+            singles[key] = proc.find(img, cols, ReduceMode(mode)).pixels
+        kernel = ("meld_packed cie94 exact" if mode == "meld" else
+                  "quantize_rgba cie94 exact" if cols.shape[0] > SHARD_FIND_K else
+                  "assign_packed cie94 exact")
+        want = {kernel: d}
+        if mode == "dither":
+            want["dither_threshold cie94 exact"] = 1
+        out, line = run(f"find_sharded {img.shape[0]}x{img.shape[1]} k={cols.shape[0]} {mode} "
+                        f"shards={d}",
+                        lambda: proc.find_sharded(img, cols, ReduceMode(mode), mesh=meshes[d]),
+                        want)
+        line["differing_pixels_vs_find"] = _differing(out.pixels, singles[key])
+        emit(line)
+        if line["differing_pixels_vs_find"]:
+            failures.append(f"find_sharded: {line}")
+
+    # The seeds: the shrunk store and the full-resolution one.
+    sw, sh = shrunk_dimensions(WIDTH, HEIGHT, 256)
+    dev = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to(device)
+    for name, store, first in (
+            ("shrunk", srgb8_to_lab(resize_uint8(dev, sh, sw).reshape(-1, 3)),
+             km.reference_seed_index(sw, sh)),
+            ("full resolution", srgb8_to_lab(dev.reshape(-1, 3)),
+             km.reference_seed_index(WIDTH, HEIGHT))):
+        want = km.plusplus_init(store, K, first)
+        for d in SHARD_MESHES:
+            same = bool(torch.equal(seed_sharded(meshes[d], store, None, K, first), want))
+            emit({"phase": "sharding_seeds", "store": name, "shards": d, "equal": same})
+            if not same:
+                failures.append(f"sharded seeds {name} shards={d} differ")
+
+    # Training: each reduce_sharded against reduce.
+    full = ImageProcessor(device="cuda", train_max_size=None)
+    proc2000 = ImageProcessor(device="cuda", delta_e="2000")
+    bproc = ImageProcessor(device="cuda", bucketing=True)
+    mid = synthetic_image(600, 640, seed=SEED + 33)
+    portrait = synthetic_image(1350, 1080, seed=SEED + 42)
+    runs = [(proc, image, m, d, "shrunk") for m in ("replace", "dither", "meld")
+            for d in SHARD_MESHES]
+    runs += [(full, image, "replace", d, "full resolution") for d in SHARD_MESHES]
+    runs += [(proc2000, image, "replace", 2, "delta_e=2000"),
+             (full, mid, "replace", 2, "k=600 row-chunked"),
+             (bproc, portrait, "replace", 2, "bucketed"), (bproc, portrait, "dither", 4,
+                                                           "bucketed")]
+    singles = {}
+    for p, img, mode, d, what in runs:
+        k = 600 if img is mid else K
+        if (id(p), id(img), mode) not in singles:
+            singles[id(p), id(img), mode] = p.reduce(k, img, reduce_mode=ReduceMode(mode)).pixels
+        metric = "cie2000" if p is proc2000 else "cie94"
+        want = {f"{'meld' if mode == 'meld' else 'assign'}_packed {metric} exact": d}
+        if mode == "dither":
+            want[f"dither_threshold {metric} exact"] = 1
+        out, line = run(f"reduce_sharded {what} {img.shape[0]}x{img.shape[1]} k={k} {mode} "
+                        f"shards={d}",
+                        lambda: p.reduce_sharded(k, img, ReduceMode(mode), mesh=meshes[d]), want)
+        acc = sum(n for key, n in line["launches"].items() if key.startswith("lloyd_accumulate"))
+        line.update(iterations=p.last_iterations, lloyd_accumulate_launches=acc,
+                    equal_share_vs_reduce=_pixels_equal(out.pixels, singles[id(p), id(img), mode]),
+                    differing_pixels_vs_reduce=_differing(out.pixels,
+                                                          singles[id(p), id(img), mode]))
+        emit(line)
+        if acc != (d * p.last_iterations if what == "full resolution" else 0):
+            failures.append(f"{line['call']}: {acc} accumulator launches, "
+                            f"{d} shards x {p.last_iterations} iterations")
+        if d == 1 and line["differing_pixels_vs_reduce"]:
+            failures.append(f"one-shard mesh differs from reduce: {line}")
+        if line["equal_share_vs_reduce"] < SHARD_EQUAL_SHARE:
+            failures.append(f"reduce_sharded below the bar: {line}")
+    # palette_sharded on both trainings; the same mesh twice gives the same bits.
+    for p, d, what in ((proc, 4, "shrunk"), (full, 2, "full resolution"),
+                       (full, 4, "full resolution")):
+        pal, line = run(f"palette_sharded {what} k=8 shards={d}",
+                        lambda: p.palette_sharded(K, image, mesh=meshes[d]))
+        line["max_u8_step_vs_palette"] = _palette_step(pal, p.palette(K, image))
+        emit(line)
+        if line["max_u8_step_vs_palette"] > SHARD_PALETTE_STEP:
+            failures.append(f"palette_sharded: {line}")
+    again = proc.reduce_sharded(K, image, mesh=meshes[4]).pixels
+    twice = proc.reduce_sharded(K, image, mesh=meshes[4]).pixels
+    emit({"phase": "sharding_slice", "call": "reduce_sharded shrunk k=8 shards=4, twice",
+          "equal": bool(np.array_equal(again, twice))})
+    if not np.array_equal(again, twice):
+        failures.append("reduce_sharded on one mesh twice: outputs differ")
+    return failures
+
+
+def sharding_batches(card: str, counts: dict) -> list:
+    """16 frames of 1920x1080: `reduce_images_sharded` at k=8 on 2x2 (data x
+    pixel) against 16 `reduce` calls, `palette_images_sharded` (and its
+    octree fallback) against `palette_images`, `find_batch_sharded` in three
+    modes against `find_batch` (bit for bit)."""
+    import torch
+
+    from kmeans_tpu_torch import Algorithm, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    failures = []
+    device = torch.device("cuda", 0)
+    mesh22 = make_mesh([device] * 4, data=2)
+    mesh4 = make_mesh([device] * 4)
+    proc = ImageProcessor(device="cuda")
+    frames = frames_rgba(SEED + 10)
+    rng = np.random.default_rng(SEED + 43)
+    colors = rng.integers(0, 256, (SHARD_FIND_K, 4), dtype=np.uint8)
+    colors[:, 3] = 255
+
+    def run(what, call, want=None):
+        out, line, bad = _sharded_call(what, call, counts, card, want)
+        if bad:
+            failures.append(bad)
+        return out, line
+
+    outs, line = run("reduce_images_sharded 16x1920x1080 k=8 replace 2x2",
+                     lambda: proc.reduce_images_sharded(frames, K, mesh=mesh22),
+                     {"assign_packed cie94 exact": 2 * len(frames)})
+    singles = [proc.reduce(K, f).pixels for f in frames]
+    line["equal_share_vs_reduce"] = min(_pixels_equal(o.pixels, s)
+                                        for o, s in zip(outs, singles))
+    emit(line)
+    if line["equal_share_vs_reduce"] < SHARD_EQUAL_SHARE:
+        failures.append(f"reduce_images_sharded: {line}")
+    for algo, batch in ((Algorithm.KMEANS, frames),
+                        (Algorithm.OCTREE, frames[:SHARD_OCTREE_FRAMES])):
+        pal, line = run(f"palette_images_sharded {len(batch)}x1920x1080 k=8 {algo.value} "
+                        "shards=4",
+                        lambda: proc.palette_images_sharded(batch, K, algo, mesh=mesh4))
+        line["max_u8_step_vs_palette_images"] = _palette_step(
+            pal, proc.palette_images(batch, K, algo))
+        emit(line)
+        if line["max_u8_step_vs_palette_images"] > (SHARD_PALETTE_STEP
+                                                    if algo is Algorithm.KMEANS else 0):
+            failures.append(f"palette_images_sharded: {line}")
+    for mode in ("replace", "dither", "meld"):
+        kernel = "meld_packed cie94 exact" if mode == "meld" else "assign_packed cie94 exact"
+        want = {kernel: 4, **({"dither_threshold cie94 exact": 1} if mode == "dither" else {})}
+        outs, line = run(f"find_batch_sharded 16x1920x1080 k=16 {mode} shards=4",
+                         lambda: proc.find_batch_sharded(frames, colors, ReduceMode(mode),
+                                                         mesh=mesh4), want)
+        single = proc.find_batch(frames, colors, ReduceMode(mode))
+        line["differing_pixels_vs_find_batch"] = sum(_differing(o.pixels, s.pixels)
+                                                     for o, s in zip(outs, single))
+        emit(line)
+        if line["differing_pixels_vs_find_batch"]:
+            failures.append(f"find_batch_sharded: {line}")
+    return failures
+
+
+def sharding_card_vs_cpu(card: str) -> list:
+    """A 2-shard `reduce_sharded` of 320x240 on the card and on the CPU:
+    the same palette, at most 1e-4 of the pixels apart."""
+    from kmeans_tpu_torch import ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    failures = []
+    small = synthetic_image(240, 320, seed=SEED + 44)
+    on = {dev: ImageProcessor(device=dev) for dev in ("cuda", "cpu")}
+    meshes = {"cuda": make_mesh(["cuda:0"] * 2), "cpu": make_mesh(["cpu"] * 2)}
+    for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+        outs = {dev: p.reduce_sharded(K, small, mode, mesh=meshes[dev]).pixels
+                for dev, p in on.items()}
+        pals = {dev: p.palette_sharded(K, small, mesh=meshes[dev]) for dev, p in on.items()}
+        line = {"phase": "sharding_card_vs_cpu", "mode": mode.value, "pixels": 240 * 320,
+                "differing_pixels": _differing(outs["cuda"], outs["cpu"]),
+                "same_palette": bool(np.array_equal(pals["cuda"], pals["cpu"]))}
+        emit(line)
+        if not line["same_palette"] or line["differing_pixels"] > 240 * 320 // 10000:
+            failures.append(f"sharding card vs cpu: {line}")
+    return failures
+
+
+def time_sharded(image, card: str) -> None:
+    """4K k=8 replace: `reduce` against `reduce_sharded` on 1, 2 and 4
+    shards of the one card, median of 5 warm runs in turns, by phase. The
+    shards share one device, so this is the protocol's cost, not scaling."""
+    from kmeans_tpu_torch import ImageProcessor
+    from kmeans_tpu_torch.parallel import make_mesh
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    proc = ImageProcessor(device="cuda")
+    calls = {"reduce": lambda: proc.reduce(K, image)}
+    for d in SHARD_MESHES:
+        mesh = make_mesh(["cuda:0"] * d)
+        calls[f"reduce_sharded shards={d}"] = lambda mesh=mesh: proc.reduce_sharded(
+            K, image, mesh=mesh)
+    runs = {what: [] for what in calls}
+    for _ in range(6):
+        for what, call in calls.items():
+            phases: dict = {}
+            t0 = time.perf_counter()
+            with collect_phases(phases):
+                call()
+            runs[what].append((time.perf_counter() - t0, phases))
+    for what, rows in runs.items():
+        warm = rows[1:]
+        emit({"phase": "timing", "what": f"{what} 3840x2160 k=8 replace, median of 5 warm, in "
+                                          "turns; shards share one card: protocol cost, "
+                                          "not scaling",
+              "card": card, "e2e_ms": statistics.median(r[0] for r in warm) * 1e3,
+              "e2e_ms_each": [r[0] * 1e3 for r in warm],
+              "phases_ms": {name: statistics.median(r[1].get(name, 0.0) for r in warm) * 1e3
+                            for name in ("host_prep", "upload", "device", "lloyd_sync",
+                                         "readback", "unpack")},
+              "syncs": statistics.median(r[1].get("_syncs", 0) for r in warm)})
+
+
+def sharding_slice(image, card: str) -> dict:
+    """The sharded entry points on meshes of 1, 2 and 4 shards of the one
+    card (and 2x2 for the batches), each call driven with the launch counts
+    set to 0 just before it and read just after; the shards' words against
+    the twins; the card against the CPU; the times. Returns the launches by
+    kernel mode summed over the phase's driven calls."""
+    t0 = time.perf_counter()
+    counts: dict = {}
+    failures = sharding_outputs(image, card, counts)
+    failures += sharding_batches(card, counts)
+    failures += sharding_words_vs_twins(image, card)
+    failures += sharding_card_vs_cpu(card)
+    time_sharded(image, card)
+    emit({"phase": "sharding_slice", "seconds": time.perf_counter() - t0, "launches": counts})
+    if failures:
+        raise AssertionError("sharding_slice: " + "; ".join(failures))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4261,6 +4628,9 @@ def main() -> int:
     codec_counts, gif = codec_slice(image, card, Path("build") / "codec_slice")
     serve_counts = serving_slice(card, gif)
 
+    # 4l. This slice: the sharded entry points on meshes of the one card.
+    shard_counts = sharding_slice(image, card)
+
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
     shrunk_timing, full_timing, meld_timing, timing_2000 = timed_reduces({
@@ -4634,6 +5004,32 @@ def main() -> int:
             for name, n in launched.items():
                 line[f"launches_{name}"] = n
             line["launched_by"] += f"; runtime and service slice: {entries}"
+    # The kernels of the sharding slice: their launches (each call counted
+    # from 0 just before it) and the entry points that made them.
+    shard_paths = {
+        "assign_packed": ("assign_packed cie94 exact",
+                          "find_sharded, reduce_sharded, reduce_images_sharded, "
+                          "find_batch_sharded (replace, dither; 1 a shard)"),
+        "assign_packed[cie2000]": ("assign_packed cie2000 exact",
+                                   "reduce_sharded delta_e=2000 (1 a shard)"),
+        "meld_packed": ("meld_packed cie94 exact",
+                        "find_sharded, reduce_sharded, find_batch_sharded (meld; 1 a shard)"),
+        "quantize_rgba": ("quantize_rgba cie94 exact", "find_sharded past 1024 colours "
+                                                       "(1 a shard)"),
+        "lloyd_accumulate": ("lloyd_accumulate cie94 exact",
+                             "reduce_sharded, palette_sharded with train_max_size=None "
+                             "(1 a shard an iteration)"),
+        "dither_threshold": ("dither_threshold cie94 exact",
+                             "find_sharded, reduce_sharded, find_batch_sharded "
+                             "(dither, once a call)"),
+    }
+    for line in kernel_lines:
+        if line["name"] in shard_paths:
+            key, entries = shard_paths[line["name"]]
+            if shard_counts.get(key, 0) < 1:
+                raise AssertionError(f"the sharding slice never launched {line['name']}")
+            line["launches_sharding_slice"] = shard_counts[key]
+            line["launched_by"] += f"; sharding_slice: {entries}"
     emit({"kernels": kernel_lines})
     print(card, flush=True)
     emit({"ok": True, "device": {

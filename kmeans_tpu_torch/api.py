@@ -73,6 +73,17 @@ images with the next ones' uploads and the last ones' unpacks in worker
 threads beside the training (a side stream, page-locked buffers and
 events on the card).
 
+The `*_sharded` entry points (`find_sharded`, `palette_sharded`,
+`reduce_sharded`, `reduce_images_sharded`, `palette_images_sharded`,
+`find_batch_sharded`; the reference's `api.py:1996-2468`) run over a mesh
+of devices in this one process (`parallel/`): the training's pixels split
+over the mesh's pixel axis, each shard's partial sums added in shard order
+on the first device, and the output pass's rows split likewise, each shard
+launching the same kernels with its own `row_offset`; frames split over the
+data axis. `mesh=` picks the devices (`parallel.make_mesh`; a device may
+repeat, so one card runs the 2- and 4-shard code), `None` every visible
+card (the CPU alone for a CPU processor).
+
 The device is explicit: `ImageProcessor(device=None)` means CUDA and
 raises when there is none. The plain-PyTorch CPU path runs only when the
 caller names `device="cpu"`. Modes and options of the reference that this
@@ -114,6 +125,18 @@ from kmeans_tpu_torch.ops.resize import (
     resize_uint8_eager,
     shrink_columns,
     shrunk_dimensions,
+)
+from kmeans_tpu_torch.parallel.collectives import shard_rows
+from kmeans_tpu_torch.parallel.distributed import fit_frames, fit_sharded
+from kmeans_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
+from kmeans_tpu_torch.parallel.sharded_ops import (
+    _assign_words,
+    _fetch,
+    _meld_words,
+    _row_sharded,
+    quantize_image_sharded,
+    unpack_fused_sharded,
+    unpack_meld_sharded,
 )
 from kmeans_tpu_torch.utils.bucketing import (
     bucket_frames,
@@ -255,6 +278,48 @@ def _plain_fit_route(n_px: int, kp: int) -> bool:
     if kp > 64 and n_px * kp > _CHUNKED_TRAIN_ELEMS:
         return False
     return not (kp <= 64 and n_px > _LARGE_TRAIN_PIXELS)
+
+
+def _sharded_trainer_route(n_px: int, kp: int) -> str:
+    """`fit_sharded`'s trainer for a training of `n_px` (real) pixels at `kp`
+    (padded) clusters (kmeans_tpu/api.py:294): the sharded mirror of
+    `_fit_auto`'s branches, keep the two in step. Past the element budget
+    at k > 64 the accumulator (`"pallas"`) up to `ACCUM_MAX_K`, the
+    row-chunked trainer above; past `_LARGE_TRAIN_PIXELS` at k <= 64 the
+    accumulator; else the one-hot trainer. The reference's route with its
+    `use_pallas` true, as `_fit_auto` reads it (the accumulator runs on
+    both devices: the CUDA kernel on the card, its twin on the CPU, under
+    both metrics), so a one-shard mesh trains as the single-device call
+    does; its `fast` does not change the route."""
+    if kp > 64 and n_px * kp > _CHUNKED_TRAIN_ELEMS:
+        return "pallas" if kp <= ACCUM_MAX_K else "chunked"
+    return "pallas" if kp <= 64 and n_px > _LARGE_TRAIN_PIXELS else "onehot"
+
+
+def _sharded_work(frames_u8: torch.Tensor, sh: int, sw: int, n_pad: int):
+    """The pixel-sharded training store of B same-sized `[B, H, W, 3]`
+    uint8 frames on their device (kmeans_tpu/api.py:576 `_sharded_work_jit`):
+    each frame shrunk to `[sh, sw]` as `_train` shrinks it, Lab, flattened
+    and concatenated (frame 0 first: the seed index addresses it), then
+    zero rows of weight 0 up to `n_pad`. Returns `(work [n_pad, 3],
+    weight [n_pad])`, the weight None when nothing pads (every pixel real,
+    as the single-device trainers read no weight)."""
+    h, w = frames_u8.shape[1], frames_u8.shape[2]
+    shrunk = frames_u8 if (h, w) == (sh, sw) else resize_uint8(frames_u8, sh, sw)
+    return _pad_store(srgb8_to_lab(shrunk.reshape(-1, 3)), None, n_pad)
+
+
+def _pad_store(work: torch.Tensor, weight, n_pad: int):
+    """`work [N, 3]` and `weight [N]` (None: all real) padded with zero rows
+    of weight 0 to `n_pad` rows (kmeans_tpu/api.py:2218-2222)."""
+    n = work.shape[0]
+    if n_pad == n:
+        return work, weight
+    if weight is None:
+        weight = torch.ones(n, dtype=torch.float32, device=work.device)
+    zeros = torch.zeros((n_pad - n, 3), dtype=work.dtype, device=work.device)
+    return (torch.cat([work, zeros]),
+            torch.cat([weight, torch.zeros(n_pad - n, dtype=weight.dtype, device=work.device)]))
 
 
 def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
@@ -460,7 +525,7 @@ class ImageProcessor:
         return torch.from_numpy(array).to(self.device)
 
     def _upload_padded(self, frames, rows: int, cols: int, count: int | None = None,
-                       pinned: bool = False):
+                       pinned: bool = False, device=None):
         """The frames padded on the device into `[count, rows, cols, 3]`
         uint8: each frame at the top left, zero past its edges
         (`pad_to_bucket`, kmeans_tpu/api.py:1166), and frames past the last
@@ -469,14 +534,16 @@ class ImageProcessor:
         array is contiguous), and loses alpha on the device: a host pad
         would be a strided copy of every pixel. `pinned` (CUDA only) copies
         each frame into page-locked memory and uploads it asynchronously
-        on the current stream."""
+        on the current stream. `device` is where they go (default: the
+        processor's device)."""
         count = len(frames) if count is None else count
+        device = self.device if device is None else device
         with _phase("upload"):
-            dev = torch.zeros((count, rows, cols, 3), dtype=torch.uint8, device=self.device)
+            dev = torch.zeros((count, rows, cols, 3), dtype=torch.uint8, device=device)
             for i, f in enumerate(frames):
                 px = _as_tensor(f.pixels)
-                px = (px.pin_memory().to(self.device, non_blocking=True) if pinned
-                      else px.to(self.device))
+                px = (px.pin_memory().to(device, non_blocking=True) if pinned
+                      else px.to(device))
                 dev[i, :px.shape[0], :px.shape[1]] = px[..., :3]
             dev[len(frames):] = dev[0]
             _phase_sync(dev)
@@ -1478,18 +1545,271 @@ class ImageProcessor:
         return self._readback(out, pixels_u8.shape[0], pixels_u8.shape[1],
                               palette_lab.shape[0])
 
+    # --- Multi-device sharding (kmeans_tpu/api.py:1996-2468) -----------------
 
-def _refusal(name: str, item: str, what: str):
-    def method(self, *args, **kwargs):
-        raise _not_ported(f"{name} ({what})", item)
+    def _mesh(self, mesh) -> Mesh:
+        """`mesh`, or for None (kmeans_tpu/api.py:2016) every visible CUDA
+        device on the pixel axis for a CUDA processor, the CPU alone for a
+        CPU one. A mesh of the other device type raises: nothing moves to
+        the CPU quietly."""
+        if mesh is None:
+            mesh = make_mesh(None if self.device.type == "cuda" else [self.device])
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh's devices are {mesh.device_type} and this processor "
+                             f"runs on {self.device}")
+        return mesh
 
-    method.__name__ = method.__qualname__ = name
-    method.__doc__ = f"Not ported yet: {what} (ROADMAP {item})."
-    return method
+    def _mesh_upload(self, mesh: Mesh, image: Image) -> torch.Tensor:
+        """The image's RGB on the mesh's first device."""
+        with _phase("host_prep"):
+            rgb = _host_rgb(image.pixels)
+        with _phase("upload"):
+            dev = torch.from_numpy(rgb).to(mesh.root)
+            _phase_sync(dev)
+        return dev
 
+    def _sharded_output(self, mesh: Mesh, rgb, palette_lab: torch.Tensor, mode: str,
+                        k_active: int | None = None) -> np.ndarray:
+        """The row-sharded output pass of `[H, W, 3]` RGB (host or device)
+        -> `[H, W, 4]` RGBA8 (kmeans_tpu/api.py:2024-2034): meld by
+        `_meld_sharded`, replace and dither up to `INDEXED_MAX_K` colours by
+        `_quantize_indexed_sharded`, past it by `quantize_image_sharded`."""
+        if mode == "meld":
+            return self._meld_sharded(mesh, rgb, palette_lab, k_active)
+        if palette_lab.shape[0] <= INDEXED_MAX_K:
+            return self._quantize_indexed_sharded(mesh, rgb, palette_lab, mode, k_active)
+        with _phase("device"):
+            return quantize_image_sharded(mesh, rgb, palette_lab, mode, k_active,
+                                          self.delta_e, self.fast)
 
-# The reference's sharded entry points, not ported yet: each raises naming
-# ROADMAP A.12 (kmeans_tpu/api.py:1996-2468).
-for _name in ("find_sharded", "palette_sharded", "reduce_sharded", "reduce_images_sharded",
-              "palette_images_sharded", "find_batch_sharded"):
-    setattr(ImageProcessor, _name, _refusal(_name, "A.12", "multi-device sharding"))
+    def _quantize_indexed_sharded(self, mesh: Mesh, rgb, palette_lab: torch.Tensor, mode: str,
+                                  k_active: int | None = None) -> np.ndarray:
+        """Replace or dither, row-sharded (kmeans_tpu/api.py:2037): one
+        `assign_packed` launch a shard with its `row_offset`, the threshold
+        once on the whole palette; the shards' words and the `[k, 4]`
+        palette come back and unpack, gathered, into their rows of the
+        output (`unpack_fused_sharded`)."""
+        with _phase("upload"):
+            blocks, h, local_h = _row_sharded(mesh, rgb)
+        with _phase("device"):
+            words = _assign_words(blocks, local_h, palette_lab, mode, k_active, self.delta_e,
+                                  self.fast)
+            _phase_sync(*words)
+        with _phase("readback"):
+            words = _fetch(words)
+            (palette_rgba,) = _host_fetch(_lab_palette_to_u8(palette_lab)[0])
+        with _phase("unpack"):
+            return unpack_fused_sharded(words, h, blocks[0].shape[1], palette_lab.shape[0],
+                                        len(blocks), palette_rgba)
+
+    def _meld_sharded(self, mesh: Mesh, rgb, palette_lab: torch.Tensor,
+                      k_active: int | None = None) -> np.ndarray:
+        """Meld, row-sharded (kmeans_tpu/api.py:2082): one `meld_packed`
+        launch a shard (any k), its RGB24 words unpacked into its rows
+        (`unpack_meld_sharded`)."""
+        with _phase("upload"):
+            blocks, h, _ = _row_sharded(mesh, rgb)
+        with _phase("device"):
+            words = _meld_words(blocks, palette_lab, k_active, self.delta_e, self.fast)
+            _phase_sync(*words)
+        with _phase("readback"):
+            words = _fetch(words)
+        with _phase("unpack"):
+            return unpack_meld_sharded(words, h, blocks[0].shape[1], palette_lab.shape[0],
+                                       len(blocks))
+
+    def _sharded_fit_kwargs(self, n_px: int, kp: int) -> dict:
+        """Trainer and opt-ins of a sharded fit (kmeans_tpu/api.py:2120):
+        `_sharded_trainer_route` of the real pixel count; `fast` and
+        `train_dtype` reach the accumulator route, as they reach
+        `fit_large`."""
+        trainer = _sharded_trainer_route(n_px, kp)
+        return {"trainer": trainer, "fast": self.fast,
+                "plane_dtype": self.train_dtype if trainer == "pallas" else None}
+
+    def _fit_sharded_work(self, work, weight, k: int, first: int, mesh: Mesh, n: int,
+                          k_active: int | None = None) -> torch.Tensor:
+        """`fit_sharded` of an assembled, shard-padded store routed by its
+        real pixel count `n` (kmeans_tpu/api.py:2136); centroids on the
+        mesh's first device."""
+        with _phase("device"):
+            centroids, self.last_iterations = fit_sharded(
+                mesh, work, weight, k, first, convergence=ColorSpace.LAB.convergence,
+                k_active=k_active, metric=self.delta_e, restarts=self.restarts,
+                **self._sharded_fit_kwargs(n, k))
+            _phase_sync(centroids)
+        return centroids
+
+    def _fit_sharded_centroids(self, image: Image, k: int, mesh: Mesh,
+                               dev: torch.Tensor) -> torch.Tensor:
+        """Shrink the uploaded image `dev` as `_train` does, Lab, pad to the
+        mesh's device count with 0-weight rows, then the pixel-sharded fit
+        (kmeans_tpu/api.py:2153)."""
+        w, h = image.dimensions
+        sw, sh = shrunk_dimensions(w, h, self.train_max_size)
+        n = sh * sw
+        with _phase("device"):
+            work, weight = _sharded_work(dev[None], sh, sw, shard_rows(n, mesh.devices.size)
+                                         * mesh.devices.size)
+        return self._fit_sharded_work(work, weight, k, kmeans_model.reference_seed_index(sw, sh),
+                                      mesh, n)
+
+    def find_sharded(self, image, colors, reduce_mode: ReduceMode = ReduceMode.REPLACE,
+                     mesh=None) -> Image:
+        """`find` with the image's rows split over the mesh's pixel axis
+        (kmeans_tpu/api.py:1996): the same pixels as `find`, bit for bit
+        (the pass is per pixel and the dither phase is the whole image's)."""
+        image = _as_image(image)
+        palette_rgba = _colors_rgba(colors)
+        if palette_rgba.shape[0] == 0:
+            raise ValueError("palette must contain at least one color")
+        mesh = self._mesh(mesh)
+        with _phase("host_prep"):
+            palette_lab = _colors_to_lab(palette_rgba)
+            rgb = _host_rgb(image.pixels)
+        palette = torch.from_numpy(palette_lab).to(mesh.root)
+        return Image(image.dimensions,
+                     self._sharded_output(mesh, rgb, palette, ReduceMode(reduce_mode).value))
+
+    def palette_sharded(self, color_count: int, image, mesh=None) -> np.ndarray:
+        """`palette` trained over the mesh's pixel axis
+        (kmeans_tpu/api.py:2169): `[k, 4]` RGBA8 sorted by L*."""
+        image = _as_image(image)
+        _validate_k(color_count)
+        mesh = self._mesh(mesh)
+        centroids = self._fit_sharded_centroids(image, color_count, mesh,
+                                                self._mesh_upload(mesh, image))
+        return _palette_readback(centroids, color_count)
+
+    def reduce_sharded(self, color_count: int, image,
+                       reduce_mode: ReduceMode = ReduceMode.REPLACE, mesh=None) -> Image:
+        """`reduce` with the training's pixels split over the mesh's pixel
+        axis and the output pass's rows likewise (kmeans_tpu/api.py:2182).
+        The shards' partial sums add in another order than one device's, so
+        palettes may move by float rounding; a one-shard mesh gives
+        `reduce`'s pixels. Under bucketing the image pads to its bucket and
+        trains on its weighted canvas at `bucket_k(k)` clusters with `k`
+        active, and the output pass runs on the padded rows
+        (`:2204-2240`)."""
+        image = _as_image(image)
+        _validate_k(color_count)
+        mode = ReduceMode(reduce_mode).value
+        mesh = self._mesh(mesh)
+        w, h = image.dimensions
+        if not self.bucketing:
+            dev = self._mesh_upload(mesh, image)
+            centroids = self._fit_sharded_centroids(image, color_count, mesh, dev)
+            return Image(image.dimensions, self._sharded_output(mesh, dev, centroids, mode))
+        bh, bw = bucket_shape(h, w)
+        dev = self._upload_padded([image], bh, bw, device=mesh.root)[0]
+        canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
+        with _phase("device"):
+            work, weight = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
+            n, d = work.shape[1], mesh.devices.size
+            work, weight = _pad_store(work[0], weight[0], shard_rows(n, d) * d)
+        centroids = self._fit_sharded_work(work, weight, bucket_k(color_count), first, mesh, n,
+                                           k_active=color_count)
+        out = self._sharded_output(mesh, dev, centroids, mode, color_count)
+        return Image(image.dimensions, out[:h, :w])
+
+    def reduce_images_sharded(self, images, color_count: int,
+                              reduce_mode: ReduceMode = ReduceMode.REPLACE,
+                              mesh=None) -> list[Image]:
+        """`reduce_images` over the mesh (kmeans_tpu/api.py:2264): frames
+        split over the data axis, each frame's training pixels over its
+        data row's pixel axis (`fit_sharded_batch`), then each frame's
+        row-sharded output pass on its row. The batch pads to a multiple of
+        the data axis by repeating frame 0, whose outputs are dropped
+        (`:2299-2302`); under bucketing frames pad to their bucket and k to
+        `bucket_k(k)`, as `reduce_sharded` does."""
+        frames = _as_frames(images)
+        _validate_k(color_count)
+        mode = ReduceMode(reduce_mode).value
+        mesh = self._mesh(mesh)
+        w, h = frames[0].dimensions
+        data = mesh.shape[DATA_AXIS]
+        count = shard_rows(len(frames), data) * data
+        per_row = count // data
+        rows = [Mesh(mesh.devices[r:r + 1]) for r in range(data)]
+        padded = frames + [frames[0]] * (count - len(frames))
+        if self.bucketing:
+            (bh, bw), kp = bucket_shape(h, w), bucket_k(color_count)
+            canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
+        else:
+            sw, sh = shrunk_dimensions(w, h, self.train_max_size)
+            kp, first = color_count, kmeans_model.reference_seed_index(sw, sh)
+        devs, works, weights = [], [], []
+        for i, frame in enumerate(padded):
+            root = rows[i // per_row].root
+            if self.bucketing:
+                dev = self._upload_padded([frame], bh, bw, device=root)[0]
+                with _phase("device"):
+                    work, weight = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
+                work, weight = work[0], weight[0]
+            else:
+                dev = self._mesh_upload(rows[i // per_row], frame)
+                with _phase("device"):
+                    work, weight = _sharded_work(dev[None], sh, sw, sh * sw)
+            devs.append(dev)
+            works.append(work)
+            weights.append(weight)
+        n, p = works[0].shape[0], mesh.devices.shape[1]
+        with _phase("device"):
+            stores = [_pad_store(wk, wt, shard_rows(n, p) * p) for wk, wt in zip(works, weights)]
+            cents, iters = fit_frames(
+                mesh, [s[0] for s in stores], [s[1] for s in stores], kp, first,
+                [color_count] * count, convergence=ColorSpace.LAB.convergence,
+                metric=self.delta_e, restarts=self.restarts, **self._sharded_fit_kwargs(n, kp))
+        self.last_iterations = max(iters)
+        k_active = color_count if self.bucketing else None
+        return [Image(frames[0].dimensions,
+                      self._sharded_output(rows[i // per_row], devs[i], cents[i], mode,
+                                           k_active)[:h, :w])
+                for i in range(len(frames))]
+
+    def palette_images_sharded(self, images, color_count: int,
+                               algo: Algorithm = Algorithm.KMEANS, mesh=None) -> np.ndarray:
+        """`palette_images` with the frames' concatenated training pixels
+        split over the mesh's pixel axis (kmeans_tpu/api.py:2365): one
+        joint fit, routed by the concatenated pixel count; `[k, 4]` RGBA8
+        sorted by L*. A host algorithm runs `palette_images` (`:2391`)."""
+        frames = _as_frames(images)
+        _validate_k(color_count)
+        if algo is not Algorithm.KMEANS:
+            return self.palette_images(frames, color_count, algo)
+        mesh = self._mesh(mesh)
+        w, h = frames[0].dimensions
+        sw, sh = shrunk_dimensions(w, h, self.train_max_size)
+        n, d = len(frames) * sh * sw, mesh.devices.size
+        with _phase("host_prep"):
+            stack = _stack_rgb(frames, h)
+        with _phase("upload"):
+            dev = torch.from_numpy(stack).to(mesh.root)
+        with _phase("device"):
+            work, weight = _sharded_work(dev, sh, sw, shard_rows(n, d) * d)
+        centroids = self._fit_sharded_work(work, weight, color_count,
+                                           kmeans_model.reference_seed_index(sw, sh), mesh, n)
+        return _palette_readback(centroids, color_count)
+
+    def find_batch_sharded(self, images, colors, reduce_mode: ReduceMode = ReduceMode.REPLACE,
+                           mesh=None) -> list[Image]:
+        """`find_batch` over the mesh (kmeans_tpu/api.py:2409): the frames,
+        each padded to a multiple of 4 rows so it keeps `find`'s Bayer phase
+        (`:2444-2449`), stack into one tall image whose rows split over the
+        mesh's pixel axis; one launch a shard for the whole batch. Each
+        frame equals its `find` bit for bit."""
+        frames = _as_frames(images)
+        palette_rgba = _colors_rgba(colors)
+        if palette_rgba.shape[0] == 0:
+            raise ValueError("palette must contain at least one color")
+        mesh = self._mesh(mesh)
+        h = frames[0].pixels.shape[0]
+        h4 = -(-h // 4) * 4
+        with _phase("host_prep"):
+            palette_lab = _colors_to_lab(palette_rgba)
+            stack = _stack_rgb(frames, h4)
+        tall = stack.reshape(-1, *stack.shape[2:])
+        out = self._sharded_output(mesh, tall, torch.from_numpy(palette_lab).to(mesh.root),
+                                   ReduceMode(reduce_mode).value)
+        outs = out.reshape(len(frames), h4, *out.shape[1:])
+        return [Image(f.dimensions, outs[i, :h]) for i, f in enumerate(frames)]

@@ -350,12 +350,7 @@ def main(argv=None, device=None) -> int:
         # surface the API's rejection as a clean CLI error, not a traceback
         raise SystemExit(str(exc)) from exc
 
-    try:
-        _run(args, processor)
-    except NotImplementedError as exc:
-        # an entry point the port does not have yet (ROADMAP A.12's
-        # sharded ones) exits with its refusal
-        raise SystemExit(str(exc)) from exc
+    _run(args, processor)
     return 0
 
 

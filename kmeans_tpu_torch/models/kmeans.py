@@ -140,14 +140,23 @@ def _update_centroids(
     pixel is exact in float64, so the sums are float32 roundings of
     near-exact totals. With `weight[N]` each one-hot row is scaled by its
     pixel's weight first (`:158-171`): a 0-weight row adds exact zeros."""
+    sums, counts = onehot_totals(pixels, assign, k, weight)
+    return sums.to(torch.float32), counts.to(torch.float32)
+
+
+def onehot_totals(
+    pixels: torch.Tensor, assign: torch.Tensor, k: int, weight: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_update_centroids` before its rounding: the float64 `(sums [K, 3],
+    counts [K])` of the one-hot product. The sharded trainer adds the
+    shards' float64 totals and rounds once, so one shard gives this
+    function's bits rounded as `_update_centroids` rounds them."""
     onehot = torch.zeros(
         (pixels.shape[0], k), dtype=torch.float64, device=pixels.device
     ).scatter_(1, assign[:, None], 1.0)
     if weight is not None:
         onehot = onehot * weight.to(torch.float64)[:, None]
-    sums = (onehot.T @ pixels.to(torch.float64)).to(torch.float32)
-    counts = onehot.sum(dim=0).to(torch.float32)
-    return sums, counts
+    return onehot.T @ pixels.to(torch.float64), onehot.sum(dim=0)
 
 
 def _lloyd_loop(centroids, totals, convergence, max_iterations, k_active, metric):

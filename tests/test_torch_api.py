@@ -140,18 +140,31 @@ def test_unported_batch_methods_raise(processors, method, args):
         getattr(processors[1], method)(*args)
 
 
-@pytest.mark.parametrize("method,item", [
-    ("find_sharded", "A.12"), ("palette_sharded", "A.12"),
-    ("reduce_sharded", "A.12"), ("reduce_images_sharded", "A.12"),
-    ("palette_images_sharded", "A.12"), ("find_batch_sharded", "A.12"),
+@pytest.mark.parametrize("method", [
+    "find_sharded", "palette_sharded", "reduce_sharded", "reduce_images_sharded",
+    "palette_images_sharded", "find_batch_sharded",
 ])
-def test_unported_entry_points_raise(processors, method, item):
-    """The reference's sharded entry points exist and raise, naming their
-    ROADMAP item, with or without bucketing (the streamed ones run:
-    tests/test_torch_streaming.py)."""
+def test_sharded_entry_points_run_on_cpu_mesh(processors, method):
+    """The reference's six sharded entry points run on a CPU mesh of two
+    shards and on the default mesh (`mesh=None`: the CPU alone for a CPU
+    processor), with and without bucketing, and give what the processor's
+    single-device call gives on this small image
+    (tests/test_torch_sharded.py holds them to the reference)."""
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    img = _image(8, 8)
+    arg = [img, img] if method in ("reduce_images_sharded", "palette_images_sharded",
+                                   "find_batch_sharded") else img
+    single = method.replace("_sharded", "")
     for port in (processors[1], kt.ImageProcessor(device="cpu", bucketing=True)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            getattr(port, method)(_image(8, 8), 4)
+        call_args = (arg, [[1, 2, 3], [200, 100, 50]]) if method.startswith("find") else (
+            (4, arg) if method in ("palette_sharded", "reduce_sharded") else (arg, 4))
+        want = getattr(port, single)(*call_args)
+        for mesh in (make_mesh(["cpu"] * 2), None):
+            got = getattr(port, method)(*call_args, mesh=mesh)
+            for g, w in zip(got if isinstance(got, list) else [got],
+                            want if isinstance(want, list) else [want]):
+                np.testing.assert_array_equal(getattr(g, "pixels", g), getattr(w, "pixels", w))
 
 
 @pytest.mark.parametrize(
@@ -189,8 +202,8 @@ def test_unported_modes_raise(processors):
         assert port.reduce(4, img, kt.Algorithm[algo]).pixels.shape == (20, 30, 4)
         np.testing.assert_array_equal(port.palette(4, img, kt.Algorithm[algo]),
                                       ref.palette(4, img, kmeans_tpu.Algorithm[algo]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        port.find_sharded(img, [[1, 2, 3]])
+    sharded = port.find_sharded(img, [[1, 2, 3]]).pixels  # A.12 runs (one-shard CPU mesh)
+    assert (sharded.reshape(-1, 4) == [1, 2, 3, 255]).all()
     with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         kt.ImageProcessor(device="cpu", pipeline=True)
     with pytest.raises(ValueError):
@@ -210,16 +223,19 @@ def _imported_modules(path: Path):
 
 def test_port_and_chip_smoke_never_import_jax():
     """Static check (JAX may already be imported in this process): no
-    module of the port, and not chip_smoke.py, imports jax, kmeans_tpu or
-    the reference's experiment tools (`tools/`)."""
+    module of the port (`parallel/` included), and not chip_smoke.py,
+    imports jax, kmeans_tpu, the reference's experiment tools (`tools/`)
+    or `torch.distributed` (the meshes are one process)."""
     files = sorted((ROOT / "kmeans_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert {"delta_e.py", "kernels.py", "quantize.py", "packing.py", "exp_mxu.py",
-            "exp_gather.py", "_exp.py"} <= {f.name for f in files}
+            "exp_gather.py", "_exp.py", "mesh.py", "collectives.py", "distributed.py",
+            "sharded_ops.py"} <= {f.name for f in files}
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "kmeans_tpu", "tools"), (path, name)
+            assert not name.startswith("torch.distributed"), (path, name)
         text = path.read_text()
         assert "__import__" not in text and "import_module" not in text, path
 

@@ -1246,3 +1246,86 @@ def test_server_on_card_answers_as_direct_calls(cuda):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+def _shard_image(h, w, seed):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    rgb = np.stack([x * 255 // w, y * 255 // h, (x + y) * 255 // (w + h)], -1)
+    rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
+    return np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("mode,k", [("replace", 8), ("dither", 17), ("meld", 8),
+                                    ("replace", 1100)])
+def test_sharded_words_match_twins(cuda, shards, mode, k):
+    """Each shard's launch on `["cuda:0"] * shards` against the twin on its
+    rows with its `row_offset` (an odd height, so the rows pad)."""
+    from kmeans_tpu_torch.parallel import make_mesh
+    from kmeans_tpu_torch.parallel.sharded_ops import _assign_words, _meld_words, _row_sharded
+
+    mesh = make_mesh([cuda] * shards)
+    rgb, cents = _case(63, 97, k, 900 + k, cuda)
+    blocks, _, local_h = _row_sharded(mesh, rgb)
+    kernels.LAUNCHES_BY_MODE.clear()
+    if mode == "meld":
+        got = _meld_words(blocks, cents, None, "cie94", False)
+        want = [kernels.meld_packed_reference(b, cents) for b in blocks]
+    else:
+        got = _assign_words(blocks, local_h, cents, mode, None, "cie94", False,
+                            colour_out=k > kernels.INDEXED_MAX_K)
+        thr = dither_threshold(cents) if mode == "dither" else 0.0
+        twin = (kernels.quantize_rgba_reference if k > kernels.INDEXED_MAX_K
+                else kernels.assign_packed_reference)
+        want = [twin(b, cents, thr, mode=mode, row_offset=s * local_h)
+                for s, b in enumerate(blocks)]
+    torch.cuda.synchronize()
+    name = ("meld_packed" if mode == "meld" else
+            "quantize_rgba" if k > kernels.INDEXED_MAX_K else "assign_packed")
+    assert kernels.launches(name) == shards
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_find_sharded_equals_find_on_card(cuda, shards):
+    """`find_sharded` on repeated `cuda:0` shards gives `find`'s pixels in
+    every mode, one launch a shard."""
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(["cuda:0"] * shards)
+    proc = ImageProcessor(device="cuda")
+    img = _shard_image(301, 203, 7)
+    colors = np.random.default_rng(8).integers(0, 256, (12, 3), dtype=np.uint8)
+    for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+        kernels.LAUNCHES_BY_MODE.clear()
+        got = proc.find_sharded(img, colors, mode, mesh=mesh).pixels
+        name = "meld_packed" if mode is ReduceMode.MELD else "assign_packed"
+        assert kernels.launches(name) == shards
+        np.testing.assert_array_equal(got, proc.find(img, colors, mode).pixels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_pallas_route_launches(cuda, shards, monkeypatch):
+    """The full-resolution sharded training launches the accumulator once a
+    shard an iteration; a one-shard mesh gives `reduce`'s pixels, more
+    shards the reference's bars."""
+    from kmeans_tpu_torch import api
+    from kmeans_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(api, "_LARGE_TRAIN_PIXELS", 10_000)
+    proc = ImageProcessor(device="cuda", train_max_size=None)
+    img = _shard_image(200, 300, 9)
+    single = proc.reduce(8, img).pixels
+    for d in (1, shards):
+        kernels.LAUNCHES_BY_MODE.clear()
+        got = proc.reduce_sharded(8, img, mesh=make_mesh(["cuda:0"] * d)).pixels
+        torch.cuda.synchronize()
+        assert kernels.launches("lloyd_accumulate") == d * proc.last_iterations
+        if d == 1:
+            np.testing.assert_array_equal(got, single)
+        assert (got == single).all(-1).mean() >= 0.999
