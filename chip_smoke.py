@@ -182,7 +182,23 @@ then:
    bit); each shard's words against the twins with its `row_offset`; a
    2-shard 320x240 `reduce_sharded` on the card against the CPU; 4K k=8
    `reduce` against `reduce_sharded` on 1, 2 and 4 shards in turns (the
-   shards share one card: the protocol's cost, not scaling);
+   shards share one card: the protocol's cost, not scaling).
+   Then pipeline mode (`pipeline_slice`, `ImageProcessor(pipeline=True)`)
+   on the 4K image at k=8: the host strip against the device shrink (bytes
+   apart, at most one u8 step); the palette against `pipeline=False`
+   (channels apart) and the card's against the CPU's (equal), with the
+   bytes each uploads (the strip's against the image's); the banded
+   `reduce` in replace and dither (5 bands of 512 rows, the last of 112)
+   against the monolithic pass on the same centroids (0 pixels apart),
+   with one assign launch a band and one threshold launch for dither, and
+   each band's words against the plain twin with its `row_offset`; the
+   CLI's `--pipeline reduce` on the 4K PNG against the API and `serve.main
+   --pipeline` answering `/palette` of it as the direct call; then
+   `reduce` (replace, dither) and `palette` at `pipeline=True` against
+   `pipeline=False`, the median of 5 warm runs in turns, their phases from
+   3 more runs, and one profiled call of each (device idle share), and the
+   timeline of one pipelined call (host strip, band strips, training,
+   passes, unpacks);
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
@@ -4239,6 +4255,325 @@ def sharding_slice(image, card: str) -> dict:
     return counts
 
 
+# --- Pipeline mode ----------------------------------------------------------
+
+PIPE_K = 8
+PIPE_ROUNDS = 6  # the first of each contender's runs is its warm-up
+PIPE_PHASES = ("host_prep", "upload", "device", "lloyd_sync", "readback", "unpack")
+
+
+def _upload_bytes(call) -> tuple:
+    """`(result, bytes that ImageProcessor._upload moved)` of one call."""
+    from kmeans_tpu_torch import ImageProcessor
+
+    moved = []
+    inner = ImageProcessor._upload
+
+    def upload(self, array):
+        moved.append(int(np.asarray(array).nbytes))
+        return inner(self, array)
+
+    ImageProcessor._upload = upload
+    try:
+        return call(), sum(moved)
+    finally:
+        ImageProcessor._upload = inner
+
+
+def _in_turns(contenders: dict, rounds: int = PIPE_ROUNDS, phases: bool = False) -> dict:
+    """For each `what -> call`, the host-clock milliseconds of `rounds`
+    runs in turns, each ending in a device sync; with `phases`, each run
+    records the phases of `utils/profiling.py` (whose syncs serialize
+    the bands' overlap). Returns `what -> [(ms, phases)]`."""
+    import torch
+
+    from kmeans_tpu_torch.utils.profiling import collect_phases
+
+    runs = {what: [] for what in contenders}
+    for _ in range(rounds):
+        for what, call in contenders.items():
+            acc: dict = {}
+            t0 = time.perf_counter()
+            if phases:
+                with collect_phases(acc):
+                    call()
+            else:
+                call()
+            torch.cuda.synchronize()
+            runs[what].append(((time.perf_counter() - t0) * 1e3, acc))
+    return runs
+
+
+def pipeline_checks(image, card: str, counts: dict) -> list:
+    """Pipeline mode on the 4K image at k = 8: the host strip against the
+    device shrink (bytes apart); the palette against `pipeline=False`
+    (channels apart) and the card's against the CPU's (equal: the same
+    strip bytes); the banded `reduce` in replace and dither against the
+    monolithic pass on the same centroids (0 pixels apart), against the
+    default `reduce` (pixels apart, reported), with one assign launch a
+    band and one threshold launch for dither; each band's words against
+    the plain twin with its `row_offset`. Returns the failures."""
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.api import PIPELINE_BAND_ROWS
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.ops.resize import resize_uint8, resize_uint8_np, shrunk_dimensions
+
+    failures = []
+    h, w = image.shape[:2]
+    img = Image((w, h), image)
+    piped, plain = ImageProcessor(device="cuda", pipeline=True), ImageProcessor(device="cuda")
+    sw, sh = shrunk_dimensions(w, h, piped.train_max_size)
+    rgb = np.ascontiguousarray(image[..., :3])
+    host_strip = resize_uint8_np(image, sh, sw)[..., :3]
+    dev_strip = resize_uint8(torch.from_numpy(rgb).cuda(), sh, sw).cpu().numpy()
+    step = np.abs(host_strip.astype(np.int16) - dev_strip)
+    line = {"phase": "pipeline_slice", "what": "host strip against the device shrink",
+            "card": card, "strip": [sh, sw], "bytes": host_strip.size,
+            "differing_bytes": int((step > 0).sum()), "max_step": int(step.max())}
+    emit(line)
+    if step.max() > 1:
+        failures.append(f"strip: {line}")
+
+    reset_launch_counts()
+    pal, moved = _upload_bytes(lambda: piped.palette(PIPE_K, img))
+    launches = mode_counts()
+    plain_pal, plain_moved = _upload_bytes(lambda: plain.palette(PIPE_K, img))
+    cpu_pal = ImageProcessor(device="cpu", pipeline=True).palette(PIPE_K, img)
+    line = {"phase": "pipeline_slice", "what": f"palette {w}x{h} k=8", "card": card,
+            "upload_bytes": moved, "upload_bytes_default": plain_moved,
+            "channels_differing_from_default": int((pal != plain_pal).sum()),
+            "max_channel_step_from_default": int(np.abs(pal.astype(np.int16) - plain_pal).max()),
+            "equal_to_cpu": bool((pal == cpu_pal).all()), "launches": launches,
+            "palette": ["#%02X%02X%02X" % tuple(c[:3]) for c in pal]}
+    emit(line)
+    if moved != host_strip.size or plain_moved != rgb.size or not line["equal_to_cpu"]:
+        failures.append(f"palette: {line}")
+
+    dev = torch.from_numpy(rgb).cuda()
+    cents = piped.extract_palette_kmeans(img, PIPE_K)
+    bands = -(-h // PIPELINE_BAND_ROWS)
+    for mode in (ReduceMode.REPLACE, ReduceMode.DITHER):
+        reset_launch_counts()
+        banded = piped.reduce(PIPE_K, img, reduce_mode=mode).pixels
+        torch.cuda.synchronize()
+        launches = mode_counts()
+        for key, n in launches.items():
+            counts[key] = counts.get(key, 0) + n
+        want = {"assign_packed cie94 exact": bands}
+        if mode is ReduceMode.DITHER:
+            want["dither_threshold cie94 exact"] = 1
+        mono = piped._quantize(dev, cents, mode.value)
+        default = plain.reduce(PIPE_K, img, reduce_mode=mode).pixels
+        operands = piped._pass_operands(cents, mode.value)
+        word_diffs = []
+        for r0 in range(0, h, PIPELINE_BAND_ROWS):
+            band = dev[r0:r0 + PIPELINE_BAND_ROWS]
+            _, words, _ = piped._output_pass(band, cents, mode.value, None, r0, operands)
+            twin = kernels.assign_packed_reference(band, cents, operands[0], None, mode.value, r0)
+            word_diffs.append(int((words != twin).sum()) if words.shape == twin.shape else -1)
+        line = {"phase": "pipeline_slice", "what": f"reduce {w}x{h} k=8 {mode.value}",
+                "card": card, "bands": bands, "launches": launches,
+                "differing_from_monolithic_same_centroids": _differing(banded, mono),
+                "differing_from_default_reduce": _differing(banded, default),
+                "band_words_differing_from_twins": word_diffs,
+                "colors": len(unique_rgba(banded))}
+        emit(line)
+        if (launches != want or line["differing_from_monolithic_same_centroids"] or any(word_diffs)
+                or line["colors"] > PIPE_K):
+            failures.append(f"reduce {mode.value}: {line}")
+    return failures
+
+
+def pipeline_times(image, card: str) -> None:
+    """4K k=8 `reduce` at `pipeline=True` against `pipeline=False` in
+    replace and dither, and `palette` both ways: the median of 5 warm runs
+    in turns with phases off (e2e), then 3 more in turns with phases on
+    (the phases' medians), then one profiled call of each (device idle
+    share)."""
+    from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
+
+    h, w = image.shape[:2]
+    img = Image((w, h), image)
+    procs = {True: ImageProcessor(device="cuda", pipeline=True),
+             False: ImageProcessor(device="cuda")}
+    contenders = {}
+    for mode in (ReduceMode.REPLACE, ReduceMode.DITHER):
+        for piped in (True, False):
+            contenders[f"reduce {w}x{h} k=8 {mode.value} pipeline={piped}"] = (
+                lambda p=procs[piped], m=mode: p.reduce(PIPE_K, img, reduce_mode=m))
+    for piped in (True, False):
+        contenders[f"palette {w}x{h} k=8 pipeline={piped}"] = (
+            lambda p=procs[piped]: p.palette(PIPE_K, img))
+    e2e = _in_turns(contenders)
+    phased = _in_turns(contenders, rounds=3, phases=True)
+    for what, call in contenders.items():
+        warm = [ms for ms, _ in e2e[what][1:]]
+        emit({"phase": "timing", "what": f"{what}, median of {len(warm)} warm in turns",
+              "card": card, "e2e_ms": statistics.median(warm), "e2e_ms_each": warm,
+              "phases_ms": {n: statistics.median(acc.get(n, 0.0) for _, acc in phased[what]) * 1e3
+                            for n in PIPE_PHASES},
+              "phased_e2e_ms": statistics.median(ms for ms, _ in phased[what]),
+              "syncs": statistics.median(acc.get("_syncs", 0) for _, acc in phased[what]),
+              "profile": profile_call(call, card, what)})
+
+
+def pipeline_timeline(image, card: str) -> None:
+    """Where one warm pipelined 4K k=8 replace `reduce` spends its wall
+    time: host-clock marks (ms from the call's start) at the ends of the
+    host strip (`_pipeline_strip`), of each band's alpha strip on the
+    upload thread (`_host_rgb`), of the training (`_train`), of each
+    output pass, and of each band's unpack on the host thread (`_unpack`),
+    beside the call's end. The second of two calls is kept."""
+    import threading
+
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor, api
+
+    marks = []
+    t0 = [0.0]
+    names = {"_pipeline_strip": ImageProcessor, "_output_pass": ImageProcessor,
+             "_host_rgb": api, "_train": api, "_unpack": api}
+    saved = {name: getattr(owner, name) for name, owner in names.items()}
+
+    def timed(name, inner):
+        def call(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                marks.append((name, threading.current_thread() is threading.main_thread(),
+                              (start - t0[0]) * 1e3, (time.perf_counter() - t0[0]) * 1e3))
+        return call
+
+    proc = ImageProcessor(device="cuda", pipeline=True)
+    img = Image((image.shape[1], image.shape[0]), image)
+    try:
+        for name, owner in names.items():
+            setattr(owner, name, timed(name, saved[name]))
+        for _ in range(2):
+            marks.clear()
+            t0[0] = time.perf_counter()
+            proc.reduce(PIPE_K, img)
+            torch.cuda.synchronize()
+            end_ms = (time.perf_counter() - t0[0]) * 1e3
+    finally:
+        for name, owner in names.items():
+            setattr(owner, name, saved[name])
+
+    def spans(name, main=None):
+        return [[round(a, 3), round(b, 3)] for n, m, a, b in sorted(marks, key=lambda x: x[2])
+                if n == name and (main is None or m == main)]
+
+    emit({"phase": "timing", "what": f"timeline of one warm pipelined reduce {img.dimensions[0]}x"
+          f"{img.dimensions[1]} k=8 replace, ms from its start", "card": card, "end_ms": end_ms,
+          "host_strip": spans("_pipeline_strip"), "band_alpha_strips": spans("_host_rgb", False),
+          "train": spans("_train"), "output_passes": spans("_output_pass"),
+          "unpacks": spans("_unpack")})
+
+
+def pipeline_entry_points(image, card: str, workdir, counts: dict) -> list:
+    """The command line and the server under `--pipeline`: `cli.main`
+    (`--pipeline reduce -c 8`) on the 4K PNG, equal to the API's call on
+    the decoded image, its launches counted; `serve.main` with `--pipeline`
+    (its server started in this process) answering one `/palette?k=8` of
+    the 4K PNG as the bucketed pipelined processor's direct call does.
+    Returns the failures."""
+    import contextlib
+    import io
+    import signal
+    import threading
+
+    from kmeans_tpu_torch import ImageProcessor, cli, serve
+    from kmeans_tpu_torch.api import PIPELINE_BAND_ROWS
+    from kmeans_tpu_torch.utils import png_py
+    from kmeans_tpu_torch.utils.imageio import load_image
+
+    failures = []
+    workdir.mkdir(parents=True, exist_ok=True)
+    src = workdir / "pipeline4k.png"
+    src.write_bytes(png_py.encode_png(image.shape[1], image.shape[0],
+                                      np.ascontiguousarray(image).tobytes()))
+    decoded = load_image(src)
+    out = workdir / "pipeline-reduce.png"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--pipeline", "reduce", "-i", str(src), "-c", str(PIPE_K), "-o", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = mode_counts()
+    for key, n in launches.items():
+        counts[key] = counts.get(key, 0) + n
+    want = ImageProcessor(device="cuda", pipeline=True).reduce(PIPE_K, decoded).pixels
+    line = {"phase": "pipeline_slice", "what": "cli --pipeline reduce -c 8 of the 4K PNG",
+            "card": card, "rc": rc, "seconds": seconds, "launches": launches,
+            "differing_from_api": _differing(load_image(out).pixels, want)}
+    emit(line)
+    bands = -(-image.shape[0] // PIPELINE_BAND_ROWS)
+    if rc != 0 or line["differing_from_api"] or launches.get("assign_packed cie94 exact") != bands:
+        failures.append(f"cli --pipeline: {line}")
+
+    body = src.read_bytes()
+    answer: dict = {}
+    create = serve.create_server
+
+    def create_and_ask(*args, **kwargs):
+        srv = create(*args, **kwargs)
+        answer["processor"] = srv.service.processor
+
+        def ask():
+            try:
+                t0 = time.perf_counter()
+                answer["response"] = _http(srv.server_address, "POST", f"/palette?k={PIPE_K}",
+                                           body)
+                answer["seconds"] = time.perf_counter() - t0
+            finally:
+                srv.shutdown()
+
+        threading.Thread(target=ask, daemon=True).start()
+        return srv
+
+    term = signal.getsignal(signal.SIGTERM)
+    serve.create_server = create_and_ask
+    try:
+        rc = serve.main(["--port", "0", "--pipeline", "--batch-window-ms", "0"])
+    finally:
+        serve.create_server = create
+        signal.signal(signal.SIGTERM, term)
+    status, _, data = answer.get("response", (None, None, b""))
+    proc = answer.get("processor")
+    want = cli.palette_hex(ImageProcessor(device="cuda", bucketing=True, pipeline=True)
+                           .palette(PIPE_K, decoded)).split(",")
+    got = json.loads(data)["palette"] if status == 200 else None
+    line = {"phase": "pipeline_slice", "what": "serve --pipeline: /palette?k=8 of the 4K PNG",
+            "card": card, "rc": rc, "status": status, "seconds": answer.get("seconds"),
+            "processor_pipeline": getattr(proc, "pipeline", None), "palette": got,
+            "equal_to_direct_call": got == want}
+    emit(line)
+    if rc != 0 or status != 200 or not line["processor_pipeline"] or got != want:
+        failures.append(f"serve --pipeline: {line}")
+    return failures
+
+
+def pipeline_slice(image, card: str, workdir) -> dict:
+    """Pipeline mode (`ImageProcessor(pipeline=True)`, `--pipeline`): the
+    checks, the entry points, then the times. Each call's launches are
+    counted from 0 just before it. Returns the launches by kernel mode of
+    the banded reduces and the CLI call."""
+    t0 = time.perf_counter()
+    counts: dict = {}
+    failures = pipeline_checks(image, card, counts)
+    failures += pipeline_entry_points(image, card, workdir, counts)
+    pipeline_times(image, card)
+    pipeline_timeline(image, card)
+    emit({"phase": "pipeline_slice", "seconds": time.perf_counter() - t0, "launches": counts})
+    if failures:
+        raise AssertionError("pipeline_slice: " + "; ".join(failures))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4630,6 +4965,10 @@ def main() -> int:
 
     # 4l. This slice: the sharded entry points on meshes of the one card.
     shard_counts = sharding_slice(image, card)
+
+    # 4m. This slice: pipeline mode (host-shrunk training strips, the banded
+    # reduce) through the API, the CLI and the server, and its times.
+    pipe_counts = pipeline_slice(image, card, Path("build") / "pipeline_slice")
 
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
@@ -5030,6 +5369,22 @@ def main() -> int:
                 raise AssertionError(f"the sharding slice never launched {line['name']}")
             line["launches_sharding_slice"] = shard_counts[key]
             line["launched_by"] += f"; sharding_slice: {entries}"
+    # The kernels of the pipeline slice: their launches (each call counted
+    # from 0 just before it) and the entry points that made them.
+    pipe_paths = {
+        "assign_packed": ("assign_packed cie94 exact",
+                          "reduce(pipeline=True) replace and dither (1 a band: 5 at 4K), "
+                          "cli --pipeline reduce"),
+        "dither_threshold": ("dither_threshold cie94 exact",
+                             "reduce(pipeline=True) dither (once a call)"),
+    }
+    for line in kernel_lines:
+        if line["name"] in pipe_paths:
+            key, entries = pipe_paths[line["name"]]
+            if pipe_counts.get(key, 0) < 1:
+                raise AssertionError(f"the pipeline slice never launched {line['name']}")
+            line["launches_pipeline_slice"] = pipe_counts[key]
+            line["launched_by"] += f"; pipeline_slice: {entries}"
     emit({"kernels": kernel_lines})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -15,6 +15,8 @@ kmeans_tpu_torch.serve` (`serve.py`).
 from kmeans_tpu_torch.api import Algorithm, ColorSpace, ImageProcessor, ReduceMode
 from kmeans_tpu_torch.image import Image, borrowed_pixel, copied_pixel
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Algorithm",
     "ColorSpace",
@@ -23,4 +25,5 @@ __all__ = [
     "ReduceMode",
     "borrowed_pixel",
     "copied_pixel",
+    "__version__",
 ]

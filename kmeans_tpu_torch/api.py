@@ -84,16 +84,32 @@ data axis. `mesh=` picks the devices (`parallel.make_mesh`; a device may
 repeat, so one card runs the 2- and 4-shard code), `None` every visible
 card (the CPU alone for a CPU processor).
 
+`ImageProcessor(pipeline=True)` is the reference's pipeline mode
+(`kmeans_tpu/api.py:83-91, 984-996`): the k-means trainings of `palette`,
+`palette_images` and `palette_many` upload a training strip shrunk on the
+host (`ops/resize.py::resize_uint8_np`, about 0.1 MB at 4K) instead of the
+image (about 25 MB), the host palette algorithms shrink on the host with no
+transfer, and `reduce` of an image of at least `PIPELINE_BAND_ROWS *
+PIPELINE_MIN_BANDS` rows (replace and dither, up to `INDEXED_MAX_K`
+colours, unbucketed, with a training cap) trains on that strip first, then
+sends the image through the card in bands of `PIPELINE_BAND_ROWS` rows
+(`_reduce_banded`): on the card each band's host strip, upload, output
+pass, readback and unpack overlap the other bands' and the training. The
+host shrink rounds a sample at an exact 0.5 tie one u8 step apart from the
+device shrink now and then, so a palette may move by a step; the output
+pass is per pixel, so the bands give the monolithic pass's pixels for the
+same centroids.
+
 The device is explicit: `ImageProcessor(device=None)` means CUDA and
 raises when there is none. The plain-PyTorch CPU path runs only when the
-caller names `device="cpu"`. Modes and options of the reference that this
-package does not port yet raise `NotImplementedError` naming their
-`ROADMAP.md` item; none of them falls back to another path.
+caller names `device="cpu"`; nothing falls back to another path.
 """
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
+import contextlib
+import contextvars
+from concurrent.futures import Future, ThreadPoolExecutor
 from enum import Enum
 
 import numpy as np
@@ -123,6 +139,7 @@ from kmeans_tpu_torch.ops.resize import (
     resize_to_canvas,
     resize_uint8,
     resize_uint8_eager,
+    resize_uint8_np,
     shrink_columns,
     shrunk_dimensions,
 )
@@ -167,8 +184,14 @@ _LARGE_TRAIN_PIXELS = 1 << 20
 # (kmeans_tpu/api.py:167).
 _CHUNKED_TRAIN_ELEMS = 192 * (1 << 20)
 # Images `reduce_pipelined` uploads ahead of the one it trains
-# (kmeans_tpu/api.py:2693): overlap without holding every image on the card.
+# (kmeans_tpu/api.py:2693), and bands the banded `reduce` uploads ahead of
+# the one it recolours: overlap without holding every image or band on the
+# card.
 _PIPELINE_WINDOW = 4
+# Pipeline mode's banded `reduce` (kmeans_tpu/api.py:83-91): rows a band,
+# and the bands an image must fill before `reduce` goes by bands.
+PIPELINE_BAND_ROWS = 512
+PIPELINE_MIN_BANDS = 4
 
 
 class ColorSpace(Enum):
@@ -212,12 +235,6 @@ def _resolve_device(device) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"device must be cuda or cpu, got {device}")
     return device
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})"
-    )
 
 
 def _host_rgb(pixels: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
@@ -387,6 +404,17 @@ def _unpack(kind: str, out: np.ndarray, h: int, w: int, kp: int, palette_rgba,
     return dest
 
 
+def _submit(pool, fn, *args) -> Future:
+    """`fn(*args)` on `pool`'s thread in a copy of the caller's context
+    (so the phase recorder of `utils/profiling.py` sees it), or, with no
+    pool, run now in this thread."""
+    if pool is not None:
+        return pool.submit(contextvars.copy_context().run, fn, *args)
+    done = Future()
+    done.set_result(fn(*args))
+    return done
+
+
 def _as_image(image) -> Image:
     if isinstance(image, Image):
         return image
@@ -471,8 +499,7 @@ def _validate_k(k) -> None:
 class ImageProcessor:
     """Entry point of the port. `device` is a CUDA device (the default,
     `None`, means `"cuda"` and raises without one) or `"cpu"` for the plain
-    PyTorch path. The other arguments mirror `kmeans_tpu.ImageProcessor`;
-    values this package does not port yet raise `NotImplementedError`.
+    PyTorch path. The other arguments mirror `kmeans_tpu.ImageProcessor`.
     `delta_e` is `"94"` (CIE94) or `"2000"` (CIEDE2000), as in the
     reference. `train_max_size=None` trains on every pixel; past the
     reference's size gates that runs on the tile accumulator. `restarts` and
@@ -480,9 +507,11 @@ class ImageProcessor:
     reference. `fast=True` opts into the fast tiers (module docstring):
     not bit-equal to exact at 16 < k <= 512, equal outside.
     `bucketing=True` is the serving mode (module docstring); with it,
-    `train_dtype` raises, as in the reference. `last_iterations` holds the
-    Lloyd iteration count of the latest training (of a batch: its longest
-    member's)."""
+    `train_dtype` raises, as in the reference. `pipeline=True` is the
+    pipeline mode (module docstring), off by default as in the reference:
+    host-shrunk training strips and the banded `reduce`. `last_iterations`
+    holds the Lloyd iteration count of the latest training (of a batch: its
+    longest member's)."""
 
     def __init__(
         self,
@@ -500,8 +529,6 @@ class ImageProcessor:
             raise ValueError(f"delta_e must be one of {sorted(aliases)}, got {delta_e!r}")
         if int(restarts) < 1:
             raise ValueError("restarts must be >= 1")
-        if pipeline:
-            raise _not_ported("pipeline=True (banded transfer overlap)", "A.13")
         if train_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(
                 f"train_dtype must be 'bfloat16', 'float32' or None, got {train_dtype!r}"
@@ -518,6 +545,7 @@ class ImageProcessor:
         self.bucketing = bool(bucketing)
         self.restarts = int(restarts)
         self.fast = bool(fast)
+        self.pipeline = bool(pipeline)
         self.train_dtype = None if train_dtype == "float32" else train_dtype
         self.last_iterations: int | None = None
 
@@ -553,12 +581,15 @@ class ImageProcessor:
         self, image: Image, k: int, color_space: ColorSpace = ColorSpace.LAB
     ) -> torch.Tensor:
         """Train `k` centroids on the shrunk image; returns `[k, 3]` in the
-        working space, on the processor's device (kmeans_tpu/api.py:1035)."""
+        working space, on the processor's device (kmeans_tpu/api.py:1035).
+        Under pipeline mode only the host-shrunk strip uploads
+        (`_pipeline_strip`), and the training's shrink has nothing left to
+        do."""
         w, h = image.dimensions
         sw, sh = shrunk_dimensions(w, h, self.train_max_size)
         first = kmeans_model.reference_seed_index(sw, sh)
         with _phase("host_prep"):
-            rgb = _host_rgb(image.pixels)
+            rgb = _host_rgb(self._pipeline_strip(image).pixels)
         with _phase("upload"):
             dev = self._upload(rgb)
             _phase_sync(dev)
@@ -570,6 +601,26 @@ class ImageProcessor:
             )
             _phase_sync(centroids)
         return centroids
+
+    def _pipeline_strip_dims(self, w: int, h: int) -> tuple[int, int]:
+        """`(width, height)` of the training strip `_pipeline_strip` makes:
+        the training size under pipeline mode, else the image's
+        (kmeans_tpu/api.py:1121)."""
+        if self.pipeline:
+            return shrunk_dimensions(w, h, self.train_max_size)
+        return w, h
+
+    def _pipeline_strip(self, image: Image) -> Image:
+        """Under pipeline mode, the image shrunk to its training size on the
+        host (`resize_uint8_np`, kmeans_tpu/api.py:1129), alpha shrunk too
+        and ignored like the image's; else, or when no shrink applies, the
+        image itself: a same-size resample is not the identity (the
+        corner-aligned sampler blends neighbours)."""
+        w, h = image.dimensions
+        sw, sh = self._pipeline_strip_dims(w, h)
+        if (sw, sh) == (w, h):
+            return image
+        return Image((sw, sh), resize_uint8_np(image.pixels, sh, sw))
 
     # --- The host palette algorithms (kmeans_tpu/api.py:1085-1125) -----------
 
@@ -587,15 +638,20 @@ class ImageProcessor:
     def _shrunk_pixels(self, image: Image, cap: int, dev=None) -> np.ndarray:
         """`[sh, sw, 3]` host RGB of the image shrunk to `cap`
         (kmeans_tpu/api.py:1093): the image as it is when it fits, else
-        shrunk on the device and read back. Unbucketed, the shrink is the
-        reference's eager one (`resize_uint8_eager`); under bucketing the
-        padded image shrinks into its canvas (`resize_to_canvas`, the
-        reference's `_canvas_shrink_jit:770`) and the host crops."""
+        shrunk. Under pipeline mode the host shrinks it (`resize_uint8_np`,
+        no transfer, `:1104-1111`); else the device does and the bytes come
+        back: unbucketed, the reference's eager shrink
+        (`resize_uint8_eager`); under bucketing the padded image shrinks
+        into its canvas (`resize_to_canvas`, the reference's
+        `_canvas_shrink_jit:770`) and the host crops."""
         w, h = image.dimensions
         sw, sh = shrunk_dimensions(w, h, cap)
         if (sw, sh) == (w, h):
             with _phase("host_prep"):
                 return _host_rgb(image.pixels)
+        if self.pipeline:
+            with _phase("shrink"):
+                return resize_uint8_np(np.asarray(image.pixels)[..., :3], sh, sw)
         dev = self._upload_image(image) if dev is None else dev
         with _phase("shrink"):
             if self.bucketing:
@@ -726,7 +782,11 @@ class ImageProcessor:
         if algo is not Algorithm.KMEANS:
             return self._cpu_palette_u8(image, color_count, algo)
         if self.bucketing:
-            # kmeans_tpu/api.py:1374-1391.
+            # kmeans_tpu/api.py:1374-1391. Under pipeline mode the strip is
+            # the image: it pads to its own bucket, and the canvas shrink to
+            # its own size is the identity.
+            with _phase("host_prep"):
+                image = self._pipeline_strip(image)
             w, h = image.dimensions
             dev = self._upload_padded([image], *bucket_shape(h, w))[0]
             with _phase("device"):
@@ -766,7 +826,12 @@ class ImageProcessor:
         reduce_mode: ReduceMode = ReduceMode.REPLACE,
     ) -> Image:
         """Quantize the image to `color_count` trained colours (k-means) or
-        to a host algorithm's palette."""
+        to a host algorithm's palette. Under pipeline mode an image of at
+        least `PIPELINE_BAND_ROWS * PIPELINE_MIN_BANDS` rows goes by bands
+        (`_reduce_banded`) in replace and dither up to `INDEXED_MAX_K`
+        colours, unbucketed and with a training cap: the reference's gate
+        (kmeans_tpu/api.py:1437-1447), whose fused-path condition always
+        holds here."""
         image = _as_image(image)
         _validate_k(color_count)
         mode = ReduceMode(reduce_mode).value
@@ -774,6 +839,10 @@ class ImageProcessor:
             return Image(image.dimensions, self._reduce_cpu_palette(image, color_count, algo,
                                                                     mode))
         w, h = image.dimensions
+        if (self.pipeline and not self.bucketing and mode != "meld"
+                and color_count <= INDEXED_MAX_K and self.train_max_size is not None
+                and h >= PIPELINE_BAND_ROWS * PIPELINE_MIN_BANDS):
+            return Image(image.dimensions, self._reduce_banded(image, color_count, mode))
         dev = self._upload_image(image)
         with _phase("device"):
             out = self._reduce_device(dev, image, color_count, mode)
@@ -804,6 +873,91 @@ class ImageProcessor:
             metric=self.delta_e, fast=self.fast,
         )
         return self._output_pass(dev, centroids, mode)
+
+    def _reduce_banded(self, image: Image, k: int, mode: str) -> np.ndarray:
+        """Pipeline mode's `reduce` (kmeans_tpu/api.py:1540-1592) -> `[h,
+        w, 4]` RGBA8. It trains on the host-shrunk strip
+        (`extract_palette_kmeans`: the strip is the only upload before
+        training), then sends the image through the output pass in bands of
+        `PIPELINE_BAND_ROWS` rows, the last one short, each with
+        `row_offset` its first row (the Bayer pattern runs on across band
+        edges; the dither threshold and the unpack palette are computed
+        once), and each band's words unpack into its rows of the output. So
+        the pixels are the monolithic pass's on the same centroids.
+
+        On the card the bands overlap, as `reduce_pipelined`'s images do:
+        an upload thread strips each band's alpha into page-locked memory
+        (`_host_rgb`) and uploads it on a side stream behind an event, up
+        to `_PIPELINE_WINDOW` bands ahead, from before the training starts;
+        this thread waits for a band's event on its own stream, launches
+        its pass and an asynchronous readback into page-locked memory
+        behind another event; a host thread waits for that event and
+        unpacks. On the CPU the same steps run in order."""
+        w, h = image.dimensions
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+        starts = range(0, h, PIPELINE_BAND_ROWS)
+        out = np.empty((h, w, 4), np.uint8)
+
+        def upload(r0):
+            """Band `r0` on the device: `(pixels, ready event, host buffer)`."""
+            rows = image.pixels[r0:r0 + PIPELINE_BAND_ROWS]
+            if not cuda:
+                with _phase("host_prep"):
+                    return self._upload(_host_rgb(rows)), None, None
+            with _phase("host_prep"):
+                host = torch.empty(rows.shape[:2] + (3,), dtype=torch.uint8, pin_memory=True)
+                _host_rgb(rows, out=host.numpy())
+            with _phase("upload"), torch.cuda.stream(side):
+                dev = host.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(side)
+                _phase_sync(dev)
+            return dev, ready, host
+
+        def unpack(r0, words, palette, done, *buffers):
+            """Band `r0`'s words into its rows of `out`, once `done` (its
+            readback's event) has passed; `buffers` (its page-locked input)
+            live until then."""
+            if done is not None:
+                done.synchronize()
+            with _phase("unpack"):
+                bh = min(PIPELINE_BAND_ROWS, h - r0)
+                _unpack("indexed", words.numpy(), bh, w, k, palette.numpy(), out[r0:r0 + bh])
+
+        with contextlib.ExitStack() as pools:
+            uploader, host = ((pools.enter_context(ThreadPoolExecutor(1)),
+                               pools.enter_context(ThreadPoolExecutor(1))) if cuda
+                              else (None, None))
+            uploads = [_submit(uploader, upload, r0) for r0 in starts[:_PIPELINE_WINDOW]]
+            centroids = self.extract_palette_kmeans(image, k)
+            stream = torch.cuda.current_stream(self.device) if cuda else None
+            with _phase("device"):
+                operands = self._pass_operands(centroids, mode)
+                palette = operands[1].to("cpu", non_blocking=cuda)
+                _phase_sync(centroids)
+            unpacks = []
+            for i, r0 in enumerate(starts):
+                dev, ready, buffer = uploads[i].result()
+                uploads[i] = None  # the future no longer holds the band
+                if i + _PIPELINE_WINDOW < len(starts):
+                    uploads.append(_submit(uploader, upload, starts[i + _PIPELINE_WINDOW]))
+                done = None
+                if cuda:
+                    stream.wait_event(ready)
+                    dev.record_stream(stream)
+                with _phase("device"):
+                    _, words, _ = self._output_pass(dev, centroids, mode, None, r0, operands)
+                    _phase_sync(words)
+                with _phase("readback"):
+                    words = words.to("cpu", non_blocking=cuda)
+                    if cuda:
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                unpacks.append(_submit(host, unpack, r0, words, palette, done, buffer))
+            for u in unpacks:
+                u.result()
+        return out
 
     def find_batch(
         self, images, colors, reduce_mode: ReduceMode = ReduceMode.REPLACE
@@ -939,12 +1093,17 @@ class ImageProcessor:
         Under bucketing each frame's canvas is weighted, and the frames that
         pad the count to `bucket_frames` weigh 0 (`frame_valid`,
         `:1947-1977`, `_train_frames_bucketed_jit:3581`). A host algorithm
-        runs once over every frame's shrunk pixels (`:1942-1946`)."""
+        runs once over every frame's shrunk pixels (`:1942-1946`). Under
+        pipeline mode the frames' host-shrunk strips stand for the frames
+        (`:1950-1960, 1981-1983`): they upload, and under bucketing pad to
+        their own bucket."""
         frames = _as_frames(images)
         _validate_k(color_count)
         if algo is not Algorithm.KMEANS:
             rgb = np.concatenate([self._cpu_shrunk_rgb(f) for f in frames], axis=0)
             return _cpu_palette_from_rgb(rgb, color_count, algo)
+        with _phase("host_prep"):
+            frames = [self._pipeline_strip(f) for f in frames]
         w, h = frames[0].dimensions
         if self.bucketing:
             bh, bw = bucket_shape(h, w)
@@ -1120,13 +1279,18 @@ class ImageProcessor:
         bucket's images into one batched training (or, for a heavy bucket,
         one after another) (kmeans_tpu/api.py:3026). Without bucketing,
         under `fast`, with a host algorithm (one run per image, `:3052`),
-        or for an image alone in its bucket, each image runs `palette`."""
+        or for an image alone in its bucket, each image runs `palette`.
+        Under pipeline mode each image's host-shrunk strip stands for it,
+        so images group by their strips' buckets (`:3055-3092`), the
+        buckets solo `palette` trains in."""
         frames = [_as_image(im) for im in images]
         if not frames:
             raise ValueError("need at least one image")
         _validate_k(color_count)
         if not self.bucketing or self.fast or algo is not Algorithm.KMEANS:
             return [self.palette(color_count, f, algo) for f in frames]
+        with _phase("host_prep"):
+            frames = [self._pipeline_strip(f) for f in frames]
         results: list[np.ndarray | None] = [None] * len(frames)
         iters = []
         for idxs in self._bucket_groups(frames, lambda f: f.pixels.shape[:2]).values():
@@ -1175,9 +1339,11 @@ class ImageProcessor:
         The port compiles nothing per shape. On the card the first call
         builds the CUDA library (`ops/_build.py`, nvcc, or the cached
         build), and the dummy requests launch every kernel instance those
-        keys reach, so a real request pays neither. Requires
-        `bucketing=True`; raises `ValueError` otherwise, as the reference
-        does."""
+        keys reach, so a real request pays neither. Under pipeline mode a
+        palette trains on the strip's bucket, which follows the image's
+        aspect ratio: the palette dummies are images of the real size, keyed
+        by their strips' buckets (`:1245-1257`). Requires `bucketing=True`;
+        raises `ValueError` otherwise, as the reference does."""
         if not self.bucketing:
             raise ValueError("warmup requires ImageProcessor(bucketing=True)")
         if self.device.type == "cuda":
@@ -1202,16 +1368,29 @@ class ImageProcessor:
                 seen.add(key)
                 fn()
 
+        def palette_key(w, h, bh, bw):
+            """A palette warm's key prefix: its bucket, or under pipeline
+            mode its strip's."""
+            if not self.pipeline:
+                return bh, bw
+            sw, sh = self._pipeline_strip_dims(w, h)
+            return (*bucket_shape(sh, sw), "strip")
+
+        def palette_frames(w, h, frames):
+            """A palette warm's dummies: under pipeline mode of the real size."""
+            return [dummy_image(h, w) for _ in frames] if self.pipeline else frames
+
         modes = [ReduceMode(m) for m in modes]
-        for w, h in sizes:
-            bh, bw = bucket_shape(int(h), int(w))
+        for w, h in ((int(w), int(h)) for w, h in sizes):
+            bh, bw = bucket_shape(h, w)
             img = dummy_image(bh, bw)
             for k in map(int, color_counts):
                 for mode in modes:
                     once((bh, bw, bucket_k(k), mode.value),
                          lambda: self.reduce(k, img, reduce_mode=mode))
                 if palette:
-                    once((bh, bw, bucket_k(k), "palette"), lambda: self.palette(k, img))
+                    once(palette_key(w, h, bh, bw) + (bucket_k(k), "palette"),
+                         lambda: self.palette(k, palette_frames(w, h, [img])[0]))
             for kf in map(int, find_palette_sizes):
                 colors = dummy_colors(kf)
                 for mode in modes:
@@ -1221,8 +1400,8 @@ class ImageProcessor:
                 fb = bucket_frames(int(fc))
                 frames = [dummy_image(bh, bw) for _ in range(fb)]
                 for k in map(int, color_counts):
-                    once((bh, bw, fb, bucket_k(k), "pimg"),
-                         lambda: self.palette_images(frames, k))
+                    once(palette_key(w, h, bh, bw) + (fb, bucket_k(k), "pimg"),
+                         lambda: self.palette_images(palette_frames(w, h, frames), k))
                     for mode in modes:
                         once((bh, bw, fb, bucket_k(k), mode.value, "rimg"),
                              lambda: self.reduce_images(frames, k, mode))
@@ -1241,8 +1420,8 @@ class ImageProcessor:
                         once((bh, bw, fb, bucket_k(k), mode.value, "rmany"),
                              lambda: self.reduce_many(frames, k, mode))
                     if palette:
-                        once((bh, bw, fb, bucket_k(k), "pmany"),
-                             lambda: self.palette_many(frames, k))
+                        once(palette_key(w, h, bh, bw) + (fb, bucket_k(k), "pmany"),
+                             lambda: self.palette_many(palette_frames(w, h, frames), k))
                 for kf in map(int, find_palette_sizes):
                     colors = dummy_colors(kf)
                     for mode in modes:
@@ -1394,7 +1573,8 @@ class ImageProcessor:
         behind another event; a host thread waits for that event and
         unpacks. So on the card one image's upload and another's unpack
         overlap this one's training, whose host syncs wait for this
-        thread's stream alone."""
+        thread's stream alone. As in the reference, pipeline mode's banded
+        path is not taken here: each image takes the monolithic pass."""
         _validate_k(color_count)
         mode = ReduceMode(reduce_mode).value
         frames = [_as_image(im) for im in images]
@@ -1421,12 +1601,12 @@ class ImageProcessor:
 
         results = []
         with ThreadPoolExecutor(1) as uploader, ThreadPoolExecutor(1) as host:
-            uploads = [uploader.submit(upload, f) for f in frames[:_PIPELINE_WINDOW]]
+            uploads = [_submit(uploader, upload, f) for f in frames[:_PIPELINE_WINDOW]]
             for i, image in enumerate(frames):
                 dev, ready = uploads[i].result()
                 uploads[i] = None  # the future no longer holds the image on the card
                 if i + _PIPELINE_WINDOW < len(frames):
-                    uploads.append(uploader.submit(upload, frames[i + _PIPELINE_WINDOW]))
+                    uploads.append(_submit(uploader, upload, frames[i + _PIPELINE_WINDOW]))
                 done = None
                 if cuda:
                     stream = torch.cuda.current_stream(self.device)
@@ -1438,8 +1618,8 @@ class ImageProcessor:
                 if cuda:
                     done = torch.cuda.Event()
                     done.record(stream)
-                results.append(host.submit(unpack, image, kind, fetched, dev.shape[0],
-                                           dev.shape[1], done))
+                results.append(_submit(host, unpack, image, kind, fetched, dev.shape[0],
+                                       dev.shape[1], done))
             return [r.result() for r in results]
 
     # --- Shared passes ------------------------------------------------------

@@ -14,12 +14,13 @@ environment variable moves the command line off the card.
 
 `--band-rows N` streams `reduce`, `palette` and `find` through the card
 in bands of N rows (`ImageProcessor.reduce_streamed`, `palette_streamed`,
-`find_streamed`), so device memory holds one band, not the image. An
-option the port does not have exits non-zero with the refusal that names
-its ROADMAP item: `--pipeline` (A.13, not ported: the reference's banded
-transfer overlap). The reference's compile cache is not ported (A.13):
-the port compiles nothing per shape. Decoding and encoding run under the
-phases `decode` and `encode` of `utils/profiling.py`.
+`find_streamed`), so device memory holds one band, not the image.
+`--pipeline` is `ImageProcessor(pipeline=True)`: `palette` trains on a
+host-shrunk strip, and `reduce` of an image of 2048 rows or more goes
+through the card in bands of 512 rows. The reference's compile cache is
+not ported (ROADMAP A.13): the port compiles nothing per shape. Decoding
+and encoding run under the phases `decode` and `encode` of
+`utils/profiling.py`.
 """
 
 from __future__ import annotations
@@ -219,8 +220,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--pipeline",
         action="store_true",
-        help="the reference's transfer-pipelined paths; not ported "
-        "(exits with the refusal naming ROADMAP A.13)",
+        help="transfer-pipelined paths: palette trains on a host-shrunk "
+        "strip (uploads ~0.1 MB instead of the whole image; with "
+        "--bucketing the strip pads to its own small bucket), reduce "
+        "streams row bands so readbacks overlap uploads; the host shrink "
+        "can round isolated strip pixels one u8 step differently from "
+        "the device sampler",
     )
     parser.add_argument(
         "--train-max-size",
@@ -345,9 +350,9 @@ def main(argv=None, device=None) -> int:
             restarts=args.restarts, pipeline=args.pipeline,
             train_max_size=args.train_max_size, train_dtype=args.train_dtype,
         )
-    except (ValueError, NotImplementedError) as exc:
-        # e.g. --train-dtype with --bucketing, or --pipeline (not ported):
-        # surface the API's rejection as a clean CLI error, not a traceback
+    except ValueError as exc:
+        # e.g. --train-dtype with --bucketing: surface the API's rejection
+        # as a clean CLI error, not a traceback
         raise SystemExit(str(exc)) from exc
 
     _run(args, processor)

@@ -10,6 +10,9 @@ float32 operation order:
   matrix row, a divide by the white point, `pow(t, 1/3)` (not cbrt) with
   the 7.787 linear toe.
 - Lab -> sRGB is the exact inverse, with the 0.0031308 gamma threshold.
+- `srgb_to_lab`, `srgb_to_linear` and `linear_to_srgb` take float sRGB or
+  linear values, as the reference's public functions of those names do;
+  their `pow` is torch's, which may differ from XLA's in the last bit.
 
 Divisions by constants use `ops._math.div` (a true division on CUDA too).
 """
@@ -69,6 +72,31 @@ def lab_from_linear(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     return 116.0 * fy - 16.0, 500.0 * (fx - fy), 200.0 * (fy - fz)
 
 
+def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    """Piecewise sRGB gamma expansion of values in [0, 1]
+    (kmeans_tpu/ops/colorspace.py:59)."""
+    c = torch.as_tensor(c).to(torch.float32)
+    return torch.where(c > 0.04045, div(c + 0.055, 1.055) ** 2.4, div(c, 12.92))
+
+
+def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    """Piecewise sRGB gamma compression (kmeans_tpu/ops/colorspace.py:65),
+    clamped at 0 before the fractional power."""
+    c = torch.as_tensor(c).to(torch.float32)
+    safe = torch.clamp(c, min=0.0)
+    return torch.where(
+        c > 0.0031308, 1.055 * safe ** (1.0 / 2.4) - 0.055, 12.92 * c
+    )
+
+
+def srgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
+    """Float sRGB in [0, 1] `[..., 3]` -> float32 Lab `[..., 3]`
+    (kmeans_tpu/ops/colorspace.py:92): gamma by `srgb_to_linear`, then
+    `lab_from_linear`."""
+    lin = srgb_to_linear(rgb) * 100.0
+    return torch.stack(lab_from_linear(lin[..., 0], lin[..., 1], lin[..., 2]), -1)
+
+
 def srgb8_to_lab(rgb8: torch.Tensor) -> torch.Tensor:
     """uint8 sRGB `[..., 3]` -> float32 Lab `[..., 3]`, gamma by table."""
     lut = gamma_lut(rgb8.device)
@@ -80,13 +108,6 @@ def srgb8_to_lab(rgb8: torch.Tensor) -> torch.Tensor:
 def _lab_f_inv(t: torch.Tensor) -> torch.Tensor:
     t3 = t * t * t
     return torch.where(t3 > _LAB_EPS, t3, div(t - _LAB_OFFSET, _LAB_SLOPE))
-
-
-def _linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
-    safe = torch.clamp(c, min=0.0)
-    return torch.where(
-        c > 0.0031308, 1.055 * safe ** (1.0 / 2.4) - 0.055, 12.92 * c
-    )
 
 
 def lab_to_srgb(lab: torch.Tensor) -> torch.Tensor:
@@ -101,7 +122,7 @@ def lab_to_srgb(lab: torch.Tensor) -> torch.Tensor:
     y = _lab_f_inv(fy) * (WHITE_POINT[1] / 100.0)
     z = _lab_f_inv(fz) * (WHITE_POINT[2] / 100.0)
     lin = torch.stack(_mat3(XYZ_TO_RGB, x, y, z), -1)
-    return torch.clamp(_linear_to_srgb(lin), 0.0, 1.0)
+    return torch.clamp(linear_to_srgb(lin), 0.0, 1.0)
 
 
 def lab_to_srgb8(lab: torch.Tensor) -> torch.Tensor:

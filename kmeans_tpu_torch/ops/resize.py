@@ -26,6 +26,58 @@ def shrunk_dimensions(
     return max(int(width * max_size / height), 1), max_size
 
 
+def resize_uint8_np(image_u8, new_height: int, new_width: int) -> np.ndarray:
+    """uint8 `[H, W, C]` resize on the host in numpy, the pipeline mode's
+    training shrink (kmeans_tpu/ops/resize.py:39, copied expression for
+    expression): the corner-aligned clamp-to-edge sampler in float32,
+    true divides, each product and sum rounded on its own (numpy has no
+    FMA), then `np.round` (half to even) of the clamped unorm times 255.
+    So it gives the reference's bytes, and can round a sample at an exact
+    0.5 tie one u8 step apart from `resize_uint8`, which follows XLA's
+    contractions. Each blend is elementwise, so the four samples of each
+    output pixel are gathered in uint8 first and only they are converted
+    (the same bits as the reference's whole-row blend, which converts
+    every column of the sampled rows): a 4K image shrinks to its 256-px
+    strip through 4 x 36,864 of its pixels, and `image_u8` may be a strided
+    view such as `rgba[..., :3]`, or the RGBA itself (channels are
+    independent)."""
+    image_u8 = np.asarray(image_u8)
+    h, w = image_u8.shape[0], image_u8.shape[1]
+
+    def axis_weights(n_out: int, n_in: int):
+        coord = (
+            np.arange(n_out, dtype=np.float32) / np.float32(n_out) * n_in
+            - np.float32(0.5)
+        )
+        i0 = np.floor(coord)
+        frac = coord - i0
+        lo = np.clip(i0.astype(np.int32), 0, n_in - 1)
+        hi = np.clip(i0.astype(np.int32) + 1, 0, n_in - 1)
+        return lo, hi, frac
+
+    y0, y1, fy = axis_weights(new_height, h)
+    x0, x1, fx = axis_weights(new_width, w)
+    fy = fy[:, None, None]
+    # A C-contiguous RGBA8 image gathers one 32-bit word a sample.
+    words = (image_u8.view(np.uint32)[..., 0]
+             if image_u8.ndim == 3 and image_u8.shape[2] == 4 and image_u8.flags.c_contiguous
+             else None)
+
+    def unorm(y, x):
+        if words is None:
+            samples = image_u8[y[:, None], x[None, :]]
+        else:
+            samples = words[y[:, None], x[None, :]].view(np.uint8).reshape(len(y), len(x), 4)
+        return samples.astype(np.float32) / np.float32(255.0)
+
+    def rows(x):
+        return unorm(y0, x) * (np.float32(1.0) - fy) + unorm(y1, x) * fy
+
+    fx = fx[None, :, None]
+    out = rows(x0) * (np.float32(1.0) - fx) + rows(x1) * fx
+    return np.round(np.clip(out, 0.0, 1.0) * np.float32(255.0)).astype(np.uint8)
+
+
 def _axis_weights(n_out: int, n_in: int, device):
     # Continuous source coordinate of each output sample, in texels.
     pos = torch.arange(n_out, dtype=torch.float32, device=device)

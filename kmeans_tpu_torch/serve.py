@@ -570,8 +570,8 @@ def main(argv=None, device=None) -> int:
     )
     parser.add_argument(
         "--pipeline", action="store_true",
-        help="the reference's transfer-pipelined paths; not ported (exits with the "
-        "refusal naming ROADMAP A.13)",
+        help="transfer-pipelined paths: /palette uploads the host-shrunk training strip "
+        "instead of the full image (~200x fewer bytes at 4K), /reduce streams bands",
     )
     parser.add_argument(
         "--delta-e", choices=["94", "2000"], default="94",
@@ -617,7 +617,7 @@ def main(argv=None, device=None) -> int:
             device=device, bucketing=not args.exact, fast=args.fast, delta_e=args.delta_e,
             restarts=args.restarts, pipeline=args.pipeline, **kwargs,
         )
-    except (ValueError, NotImplementedError) as exc:
+    except ValueError as exc:
         raise SystemExit(str(exc)) from exc
     find_sizes = [int(s) for s in args.warmup_find.split(",")] if args.warmup_find else ()
     if find_sizes and not args.warmup:

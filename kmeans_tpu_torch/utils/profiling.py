@@ -18,7 +18,10 @@ that launched it. Each forced wait is counted under `"_syncs"`; an
 unrecorded call pays none of them.
 
 The accumulator is a context variable, so recording in one thread or task
-does not leak into another.
+does not leak into another; a worker thread run in a copy of the
+recording thread's context (`contextvars.copy_context().run`) adds to the
+same accumulator, under a lock. `recording()` says whether a block is
+open.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import logging
+import threading
 import time
 
 import torch
@@ -74,6 +78,12 @@ class Timer:
 _phase_acc: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
     "kmeans_tpu_torch_phases", default=None
 )
+_phase_lock = threading.Lock()
+
+
+def _add(acc: dict, name: str, value) -> None:
+    with _phase_lock:
+        acc[name] = acc.get(name, 0) + value
 
 
 @contextlib.contextmanager
@@ -87,7 +97,7 @@ def phase(name: str):
     try:
         yield
     finally:
-        acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        _add(acc, name, time.perf_counter() - t0)
 
 
 def phase_sync(*tensors) -> None:
@@ -98,7 +108,7 @@ def phase_sync(*tensors) -> None:
     for t in tensors:
         if isinstance(t, torch.Tensor) and t.is_cuda:
             torch.cuda.synchronize(t.device)
-            acc["_syncs"] = acc.get("_syncs", 0) + 1
+            _add(acc, "_syncs", 1)
 
 
 @contextlib.contextmanager
@@ -109,3 +119,9 @@ def collect_phases(out: dict):
         yield out
     finally:
         _phase_acc.reset(token)
+
+
+def recording() -> bool:
+    """Whether a `collect_phases` block is open in this context
+    (kmeans_tpu/utils/profiling.py:136)."""
+    return _phase_acc.get() is not None

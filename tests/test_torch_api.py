@@ -115,17 +115,21 @@ def test_default_device_needs_cuda(monkeypatch):
         kt.ImageProcessor(device="cuda")
 
 
-@pytest.mark.parametrize(
-    "kwargs,item",
-    [({"pipeline": True}, "A.13"), ({"pipeline": True, "bucketing": True}, "A.13"),
-     ({"fast": True, "pipeline": True}, "A.13")],
-)
-def test_unported_options_raise(kwargs, item):
-    """What stays refused raises and names its ROADMAP item; bucketing runs
-    (tests/test_torch_bucketing.py, tests/test_torch_many.py)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        kt.ImageProcessor(device="cpu", **kwargs)
-    kt.ImageProcessor(device="cpu", **{k: v for k, v in kwargs.items() if k != "pipeline"})
+@pytest.mark.parametrize("kwargs", [
+    pytest.param({"pipeline": True}, id="kwargs0-A.13"),
+    pytest.param({"pipeline": True, "bucketing": True}, id="kwargs1-A.13"),
+    pytest.param({"fast": True, "pipeline": True}, id="kwargs2-A.13"),
+])
+def test_unported_options_raise(kwargs):
+    """The options that were refused until ROADMAP A.13 was ported now
+    construct, and the first palette equals the reference's at the same
+    options, on an image past the training cap: the host-shrunk strip
+    trains (tests/test_torch_pipeline.py holds the rest of pipeline mode)."""
+    port = kt.ImageProcessor(device="cpu", **kwargs)
+    assert port.pipeline is True
+    img = _image()
+    np.testing.assert_array_equal(port.palette(8, img),
+                                  kmeans_tpu.ImageProcessor(**kwargs).palette(8, img))
 
 
 @pytest.mark.parametrize("method,args", [
@@ -189,8 +193,8 @@ def test_unported_modes_raise(processors):
     """Meld runs, and so do replace and dither past 1024 colours (any
     palette size; tests/test_torch_colour_out.py holds them to the
     reference) and the host palette algorithms (their palettes the
-    reference's; tests/test_torch_palette_algos.py holds their routes);
-    what stays refused raises and names its ROADMAP item."""
+    reference's; tests/test_torch_palette_algos.py holds their routes),
+    and so does pipeline mode (ROADMAP A.13); bad arguments raise."""
     ref, port = processors
     img = _image(20, 30)
     assert port.reduce(4, img, reduce_mode=kt.ReduceMode.MELD).pixels.shape == (20, 30, 4)
@@ -204,12 +208,29 @@ def test_unported_modes_raise(processors):
                                       ref.palette(4, img, kmeans_tpu.Algorithm[algo]))
     sharded = port.find_sharded(img, [[1, 2, 3]]).pixels  # A.12 runs (one-shard CPU mesh)
     assert (sharded.reshape(-1, 4) == [1, 2, 3, 255]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        kt.ImageProcessor(device="cpu", pipeline=True)
+    piped = kt.ImageProcessor(device="cpu", pipeline=True)  # A.13 runs
+    np.testing.assert_array_equal(piped.reduce(4, img).pixels, port.reduce(4, img).pixels)
     with pytest.raises(ValueError):
         port.reduce(0, img)
     with pytest.raises(ValueError):
         kt.ImageProcessor(device="cpu", delta_e="76")
+
+
+@pytest.mark.parametrize("module", ["kmeans_tpu", "kmeans_tpu.ops", "kmeans_tpu.utils"])
+def test_public_names_match_reference(module):
+    """Every name in the reference package's `__all__` lists exists in the
+    port's counterpart, and the port's lists hold them, but one:
+    `enable_compilation_cache`, the XLA compile cache (ROADMAP A.13: the
+    port compiles nothing per shape; its CUDA library builds once into a
+    hashed directory)."""
+    import importlib
+
+    ref = importlib.import_module(module)
+    port = importlib.import_module(module.replace("kmeans_tpu", "kmeans_tpu_torch", 1))
+    names = [n for n in ref.__all__ if n != "enable_compilation_cache"]
+    assert [n for n in names if not hasattr(port, n)] == []
+    assert sorted(port.__all__) == sorted(names)
+    assert getattr(port, "__version__", None) == getattr(ref, "__version__", None)
 
 
 def _imported_modules(path: Path):

@@ -11,9 +11,9 @@ runtime built for these tests and injected (`_torch_reference_runtime.py`),
 so both write palette PNGs through libpng. A JPEG input and the GIF
 subcommands (`reduce-gif` in both palette modes, `find-gif`) give the same
 files in both CLIs; meld and k > 256 GIFs exit in both. `--band-rows` streams `reduce`, `palette` and `find` in row bands, with
-the reference's bytes. The port's refusal: `--pipeline` (ROADMAP A.13)
-exits non-zero naming its item; a `--band-rows` below 4, or beside a host
-algorithm, exits as in the reference. `python -m kmeans_tpu_torch` is this CLI, and on a host
+the reference's bytes, and so does `--pipeline` (ROADMAP A.13) write
+them; a `--band-rows` below 4, or beside a host algorithm, exits as in the
+reference. `python -m kmeans_tpu_torch` is this CLI, and on a host
 without CUDA it refuses to run rather than fall back to the CPU, as
 `validate_kernels` does.
 """
@@ -203,11 +203,19 @@ def test_palette_swatch_roundtrip_through_find(sample_png, tmp_path, capsys):
     assert out_colors <= set(map(tuple, load_image(swatch).pixels.reshape(-1, 4)))
 
 
-def test_refusals(sample_png, tmp_path):
+def test_refusals(sample_png, tmp_path, capsys):
     out = str(tmp_path / "x.png")
     base = ["reduce", "-i", sample_png, "-c", "3", "-o", out]
-    with pytest.raises(SystemExit, match="A.13"):
-        cli.main(["--pipeline"] + base, device="cpu")
+    # --pipeline runs (ROADMAP A.13, ported): the reference CLI's bytes and
+    # printed palette (tests/test_cli.py::test_cli_pipeline_flag), the
+    # palette also past a training cap of 32 px, where the host strip trains.
+    got, want, _, _ = _both(["--pipeline", "reduce", "-i", sample_png, "-c", "3", "-o", "{out}"],
+                            tmp_path, capsys)
+    assert got == want
+    got, want, got_out, want_out = _both(
+        ["--pipeline", "--train-max-size", "32", "palette", "-i", sample_png, "-c", "3", "-s",
+         "4", "-o", "{out}"], tmp_path, capsys)
+    assert got == want and got_out == want_out and got_out.startswith("Palette")
     for argv in (base + ["--band-rows", "16", "-a", "octree"],
                  ["palette", "-i", sample_png, "-c", "3", "--band-rows", "16", "-a", "wu"]):
         for run in (lambda a: cli.main(a, device="cpu"), ref_cli.main):

@@ -63,6 +63,25 @@ def test_srgb8_to_lab_np_equal():
     np.testing.assert_array_equal(cs.srgb8_to_lab_np(rgb), ref_cs.srgb8_to_lab_np(rgb))
 
 
+@pytest.mark.parametrize("name", ["srgb_to_linear", "linear_to_srgb", "srgb_to_lab"])
+def test_float_conversions_match_reference(name):
+    """The float public functions (`kmeans_tpu.ops.__all__`) on seeded
+    values: [0, 1] colours, and for `linear_to_srgb` also the small
+    negatives the XYZ->RGB matrix gives out-of-gamut Lab. torch's float32
+    `pow` may differ from XLA's by an ulp, hence the tolerance."""
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0, 1, (20_000, 3)).astype(np.float32)
+    if name == "linear_to_srgb":
+        x[:100] -= 1.01
+    want = np.asarray(getattr(ref_cs, name)(jnp.asarray(x)))
+    got = getattr(cs, name)(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    if name == "srgb_to_lab":  # the bar of test_srgb8_to_lab_on_a_strided_grid
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
 def test_cie94_golden():
     """d(lab(255, 0, 0), lab(255, 128, 0)) == 19.094658 within the 0.01 of
     the reference's own golden test (tests/test_delta_e.py), and equal to

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from kmeans_tpu_torch import ImageProcessor, ReduceMode
+from kmeans_tpu_torch import Image, ImageProcessor, ReduceMode
 from kmeans_tpu_torch.ops import kernels
 from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
 from kmeans_tpu_torch.ops.delta_e import distance_cie2000_sq
@@ -1329,3 +1329,36 @@ def test_sharded_pallas_route_launches(cuda, shards, monkeypatch):
         if d == 1:
             np.testing.assert_array_equal(got, single)
         assert (got == single).all(-1).mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [ReduceMode.REPLACE, ReduceMode.DITHER])
+def test_banded_reduce_on_card_equals_monolithic_pass(cuda, mode):
+    """Pipeline mode's banded `reduce` (side stream, pinned band buffers,
+    events; 5 bands of a 2100-row image, the last of 52 rows) gives the
+    monolithic output pass's pixels on the same centroids, with one assign
+    launch a band (and one threshold launch for dither)."""
+    from kmeans_tpu_torch.api import PIPELINE_BAND_ROWS
+
+    card = ImageProcessor(pipeline=True)
+    img = _gradient_frames(1, 2100, 333, 45)[0]
+    kernels.LAUNCHES_BY_MODE.clear()
+    got = card.reduce(8, img, reduce_mode=mode).pixels
+    assert kernels.launches("assign_packed") == -(-2100 // PIPELINE_BAND_ROWS) == 5
+    assert kernels.launches("dither_threshold") == int(mode is ReduceMode.DITHER)
+    cents = card.extract_palette_kmeans(Image((333, 2100), img), 8)
+    dev = torch.from_numpy(np.ascontiguousarray(img[..., :3])).to(cuda)
+    np.testing.assert_array_equal(got, card._quantize(dev, cents, mode.value))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucketing", [False, True])
+def test_pipelined_palette_on_card_matches_cpu(cuda, bucketing):
+    """The pipelined palettes train on the same host strip bytes on both
+    devices: the card's equal the CPU's."""
+    img = _gradient_frames(1, 700, 520, 46)[0]
+    frames = [img, img[::-1].copy()]
+    card = ImageProcessor(pipeline=True, bucketing=bucketing)
+    cpu = ImageProcessor(device="cpu", pipeline=True, bucketing=bucketing)
+    np.testing.assert_array_equal(card.palette(8, img), cpu.palette(8, img))
+    np.testing.assert_array_equal(card.palette_images(frames, 8), cpu.palette_images(frames, 8))

@@ -271,9 +271,11 @@ def test_main_flags_parsing(monkeypatch):
     assert p.train_max_size == 128 and p.bucketing is True
     assert captured["window"] == 0.0075
     assert captured["max_pending"] == 64  # default reaches create_server
-    # The reference's --pipeline is not ported: it exits naming its item.
-    with pytest.raises(SystemExit, match="A.13"):
-        serve_mod.main(["--port", "0", "--pipeline"], device="cpu")
+    assert p.pipeline is False
+    # --pipeline (ROADMAP A.13, ported) reaches ImageProcessor(pipeline=True).
+    assert serve_mod.main(["--port", "0", "--pipeline"], device="cpu") == 0
+    p = captured["proc"]
+    assert p.pipeline is True and p.bucketing is True and p.device.type == "cpu"
 
 
 def test_dimension_bomb_request_is_400(server):
