@@ -198,7 +198,21 @@ then:
    `pipeline=False`, the median of 5 warm runs in turns, their phases from
    3 more runs, and one profiled call of each (device idle share), and the
    timeline of one pipelined call (host strip, band strips, training,
-   passes, unpacks);
+   passes, unpacks).
+   Then `seed_ties` (farthest-point seeding at exact ties): the 2x2
+   two-colour image at k=8 and six flat regions at k=16, both metrics,
+   palette and reduce in three modes on the card against the CPU (0
+   apart; the 2x2 palette 6 red rows and 2 blue, as the JAX package
+   seeds), and the CUDA kernel launches of one seeding of the 4K k=8
+   training shrink with the compiled-form seed side and on stored Lab
+   alone; `examples_slice` (each of `kmeans_tpu_torch/examples/` once on
+   the card on a PNG written from a seeded 256x192 image: 14 GIF frames of
+   at most k colours each from `gif` and `batched`, every `serving` output
+   equal to the processor's direct call, the `sharded` example's output
+   on a one-shard mesh equal to `reduce_sharded`'s bit for bit and its
+   4-shard run with the 2x2 frames mesh); and `soak_slice`
+   (`kmeans_tpu_torch/tools/soak.py` with a fixed seed and a 60 s budget:
+   its trials and launches by section, no failure);
 5. times: the median of 5 warm 4K k=8 reduces with their phases (shrunk
    and full-resolution CIE94 replace, meld, CIEDE2000 replace, in turns),
    and each kernel alone against its plain version alone (CUDA events),
@@ -282,7 +296,14 @@ def centroid_ops(metric: str, tier: str, kp: int, k_active: int) -> int:
     return SCREEN_OPS * k_active + min(m, k_active) * (2 * m + METRIC_OPS["cie2000"])
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries `t_s`, the seconds since
+    the script started (the script must end within the card call's limit)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2556,7 +2577,7 @@ def bucketing_reduce(device) -> dict:
     bh, bw = bucket_shape(h, w)
     dev = full._upload_padded([Image((w, h), img)], bh, bw)[0]
     cents = full._train_bucketed(dev, K, w, h, K)
-    work, weight = full._canvas_lab(dev[None], (bh, bw), [h], [w], [h], [w])
+    work, weight, _ = full._canvas_lab(dev[None], (bh, bw), [h], [w], [h], [w])
     planes, n_valid = kernels.pack_lab_planes(work[0])
     wplane = _weight_plane(weight[0])
     got = kernels.lloyd_accumulate(planes, cents, n_valid, weight_planes=wplane)
@@ -4574,6 +4595,221 @@ def pipeline_slice(image, card: str, workdir) -> dict:
     return counts
 
 
+TIE_RED, TIE_BLUE = (200, 30, 40), (10, 120, 220)
+TIE_SIX = ((200, 30, 40), (10, 120, 220), (250, 250, 250), (30, 30, 30), (90, 200, 60),
+           (240, 200, 20))
+TIE_CASES = (("2x2 two colours", 2, 2, 8), ("48x32 six flat regions", 32, 48, 16))
+
+
+def tie_image(h: int, w: int) -> np.ndarray:
+    """The C.7 images: a 2x2 of red over blue, or six flat regions."""
+    img = np.full((h, w, 4), 255, np.uint8)
+    if (h, w) == (2, 2):
+        img[0, :, :3], img[1, :, :3] = TIE_RED, TIE_BLUE
+        return img
+    for i, col in enumerate(TIE_SIX):
+        r, c = divmod(i, 3)
+        img[r * h // 2:(r + 1) * h // 2, c * w // 3:(c + 1) * w // 3, :3] = col
+    return img
+
+
+def _kernel_launches(call) -> tuple:
+    """`(kernel launches, copies)` of one `call()` as torch.profiler records
+    them on the card, or "not measured" twice where it records nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        return "not measured", "not measured"
+    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
+    return len(names) - copies, copies
+
+
+def seed_ties(image, card: str) -> None:
+    """ROADMAP C.7 on the card: the tie images seed, train and recolour as
+    on the CPU (whose seeds the JAX package's, `tests/test_torch_seed_ties.py`),
+    and the launches of the main path's seeding with and without the
+    compiled-form seed side (`models/kmeans.py::seed_lab`)."""
+    import torch
+
+    from kmeans_tpu_torch import Algorithm, ImageProcessor, ReduceMode
+    from kmeans_tpu_torch.models import kmeans as km
+    from kmeans_tpu_torch.ops.colorspace import srgb8_to_lab
+    from kmeans_tpu_torch.ops.resize import resize_uint8, shrunk_dimensions
+
+    t0 = time.perf_counter()
+    failures = []
+    for delta_e in ("94", "2000"):
+        on_card = ImageProcessor(device="cuda", delta_e=delta_e)
+        on_cpu = ImageProcessor(device="cpu", delta_e=delta_e)
+        for name, h, w, k in TIE_CASES:
+            img = tie_image(h, w)
+            pal_card, pal_cpu = on_card.palette(k, img), on_cpu.palette(k, img)
+            apart = {"palette_rows": int((pal_card != pal_cpu).any(1).sum())}
+            for mode in (ReduceMode.REPLACE, ReduceMode.DITHER, ReduceMode.MELD):
+                a = on_card.reduce(k, img, Algorithm.KMEANS, mode).pixels
+                b = on_cpu.reduce(k, img, Algorithm.KMEANS, mode).pixels
+                apart[mode.value] = int((a != b).any(-1).sum())
+            rows = [tuple(int(v) for v in r[:3]) for r in pal_card]
+            line = {"phase": "seed_ties", "image": name, "k": k, "delta_e": delta_e,
+                    "card": card, "card_vs_cpu_apart": apart,
+                    "palette_colours": {str(c): rows.count(c) for c in sorted(set(rows))}}
+            emit(line)
+            if any(apart.values()):
+                failures.append(f"{name} delta_e={delta_e}: {apart}")
+            if (h, w) == (2, 2) and delta_e == "94" and (
+                    rows.count(TIE_RED), rows.count(TIE_BLUE)) != (6, 2):
+                failures.append(f"2x2 palette {rows}: the JAX package has 6 red, 2 blue")
+    dev = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to("cuda")
+    sw, sh = shrunk_dimensions(WIDTH, HEIGHT, 256)
+    rgb = resize_uint8(dev, sh, sw).reshape(-1, 3)
+    work, first = srgb8_to_lab(rgb), km.reference_seed_index(sw, sh)
+    calls = {
+        "with_seed_side": lambda: km.plusplus_init(work, K, first, seed=km.seed_lab(rgb)),
+        "stored_lab_only": lambda: km.plusplus_init(work, K, first),
+    }
+    line = {"phase": "seed_ties", "what": f"plusplus_init of the 4K training shrink "
+                                          f"({sw}x{sh}) at k={K}", "card": card}
+    for key, call in calls.items():
+        call()
+        launches, copies = _kernel_launches(call)
+        line[f"kernel_launches_{key}"], line[f"copies_{key}"] = launches, copies
+        line[f"ms_{key}"] = statistics.median(_events_ms(call) for _ in range(9))
+    same = torch.equal(calls["with_seed_side"](), calls["stored_lab_only"]())
+    line["same_seeds"] = same
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if failures:
+        raise AssertionError("seed_ties: " + "; ".join(failures))
+
+
+EXAMPLE_H, EXAMPLE_W = 192, 256  # within the 256-px training cap
+
+
+def examples_slice(card: str, workdir) -> dict:
+    """Each example of `kmeans_tpu_torch/examples/` once on the card, on a
+    PNG written from a seeded image, its launches counted from 0 just
+    before it. Returns the launches by kernel mode, summed."""
+    import torch
+
+    from kmeans_tpu_torch import Image, ImageProcessor
+    from kmeans_tpu_torch.examples import batched, gif, serving, sharded
+    from kmeans_tpu_torch.parallel import make_mesh
+    from kmeans_tpu_torch.utils.imageio import load_gif, load_image, save_image
+
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    png = workdir / "example.png"
+    pixels = synthetic_image(EXAMPLE_H, EXAMPLE_W, SEED + 16)
+    save_image(Image((EXAMPLE_W, EXAMPLE_H), pixels), png)
+    counts: dict = {}
+    failures = []
+
+    def run(call):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for key, n in mode_counts().items():
+            counts[key] = counts.get(key, 0) + n
+        return out, seconds, mode_counts()
+
+    for name, module in (("gif", gif), ("batched", batched)):
+        out = workdir / f"{name}.gif"
+        rc, seconds, launched = run(lambda: module.main([str(png), str(out)]))
+        frames = load_gif(out) if rc == 0 else []
+        colours = [len(np.unique(f.pixels.reshape(-1, 4), axis=0)) for f in frames]
+        ok = rc == 0 and len(frames) == 14 and all(c <= k for c, k in zip(colours, range(2, 16)))
+        emit({"phase": "examples_slice", "example": name, "card": card, "rc": rc,
+              "seconds": seconds, "frames": len(frames), "colours_per_frame": colours,
+              "launches": launched, "ok": ok})
+        if not ok:
+            failures.append(f"{name}: rc {rc}, {len(frames)} frames, colours {colours}")
+
+    proc = ImageProcessor(device="cuda", bucketing=True)
+    res, seconds, launched = run(lambda: serving.run(proc))
+    apart = {
+        "reduce": sum(int((o.pixels != proc.reduce(serving.K, im).pixels).any(-1).sum())
+                      for o, im in zip(res["reduce"], res["requests"])),
+        "reduce_many": sum(int((o.pixels != proc.reduce(serving.K, im).pixels).any(-1).sum())
+                           for o, im in zip(res["reduce_many"], res["frames"])),
+        "palette_many": sum(int((p != proc.palette(serving.K, im)).any(1).sum())
+                            for p, im in zip(res["palette_many"], res["frames"])),
+    }
+    emit({"phase": "examples_slice", "example": "serving", "card": card, "seconds": seconds,
+          "requests": len(res["reduce"]), "apart_from_direct_calls": apart,
+          "launches": launched, "ok": not any(apart.values())})
+    if any(apart.values()):
+        failures.append(f"serving: apart from the direct calls {apart}")
+
+    image = load_image(png)
+    for shards in (1, 4):
+        out = workdir / f"sharded{shards}.png"
+        rc, seconds, launched = run(lambda: sharded.main(
+            [str(png), str(K), str(out), "--shards", str(shards)]))
+        got = load_image(out).pixels if rc == 0 else None
+        line = {"phase": "examples_slice", "example": f"sharded --shards {shards}",
+                "card": card, "rc": rc, "seconds": seconds, "launches": launched,
+                "colours": None if got is None else len(np.unique(got.reshape(-1, 4), axis=0))}
+        ok = rc == 0 and line["colours"] <= K
+        if shards == 1 and ok:
+            mesh = make_mesh([torch.device("cuda", 0)])
+            want = ImageProcessor(device="cuda").reduce_sharded(K, image, mesh=mesh).pixels
+            line["pixels_apart_from_reduce_sharded"] = int((got != want).any(-1).sum())
+            line["pixels_apart_from_reduce"] = int(
+                (got != ImageProcessor(device="cuda").reduce(K, image).pixels).any(-1).sum())
+            ok = line["pixels_apart_from_reduce_sharded"] == 0
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            failures.append(f"sharded --shards {shards}: {line}")
+    emit({"phase": "examples_slice", "seconds": time.perf_counter() - t_phase,
+          "launches": counts})
+    if failures:
+        raise AssertionError("examples_slice: " + "; ".join(failures))
+    return counts
+
+
+SOAK_SEED, SOAK_TRIALS, SOAK_BUDGET_S = 16, 400, 60.0
+
+
+def soak_slice(card: str) -> dict:
+    """`kmeans_tpu_torch/tools/soak.py` on the card with a fixed seed and a
+    60 s budget. Returns its launches by kernel mode, summed over the
+    sections."""
+    from kmeans_tpu_torch.tools import soak
+
+    out = soak.run(SOAK_TRIALS, SOAK_SEED, SOAK_BUDGET_S, "cuda")
+    counts: dict = {}
+    for launched in out["launches"].values():
+        for key, n in launched.items():
+            counts[key] = counts.get(key, 0) + n
+    emit({"phase": "soak_slice", "card": card, "seed": SOAK_SEED, "trials": out["trials"],
+          "failures": out["failures"], "launches_by_section": out["launches"],
+          "seconds": out["seconds"], "messages": out["messages"][:20]})
+    if any(out["failures"].values()):
+        raise AssertionError(f"soak_slice: {out['failures']}")
+    return counts
+
+
+def kernel_mode_key(name: str) -> str:
+    """The `mode_counts` key of a kernel line's name: "assign_packed[fast
+    cie2000, pruned]" -> "assign_packed cie2000 prune"."""
+    wrapper, _, variant = name.partition("[")
+    variant = variant.rstrip("]")
+    metric = "cie2000" if "cie2000" in variant else "cie94"
+    tiers = {"factorized": "factor", "algebraic": "algebraic", "pruned": "prune",
+             "chunked": "exact-chunked"}
+    tier = next((t for word, t in tiers.items() if word in variant), "exact")
+    return f"{wrapper} {metric} {tier}"
+
+
 def main() -> int:
     import torch
 
@@ -4589,6 +4825,7 @@ def main() -> int:
     from kmeans_tpu_torch.ops.quantize import dither_threshold
     from kmeans_tpu_torch.tools import _exp, sass
 
+    script_t0 = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
 
@@ -4969,6 +5206,11 @@ def main() -> int:
     # 4m. This slice: pipeline mode (host-shrunk training strips, the banded
     # reduce) through the API, the CLI and the server, and its times.
     pipe_counts = pipeline_slice(image, card, Path("build") / "pipeline_slice")
+
+    # 4n. This slice: seeding at exact ties (C.7), the examples and the soak.
+    seed_ties(image, card)
+    example_counts = examples_slice(card, Path("build") / "examples_slice")
+    soak_counts = soak_slice(card)
 
     # 5. Times: the shrunk and the full-resolution reduce, meld and
     # CIEDE2000 in turns.
@@ -5385,6 +5627,18 @@ def main() -> int:
                 raise AssertionError(f"the pipeline slice never launched {line['name']}")
             line["launches_pipeline_slice"] = pipe_counts[key]
             line["launched_by"] += f"; pipeline_slice: {entries}"
+    # The launches of the examples and the soak (each example counted from
+    # 0 just before it, each soak section by its own difference), by the
+    # kernel mode each line names; the threshold kernel's of both metrics.
+    for line in kernel_lines:
+        key = kernel_mode_key(line["name"])
+        for name, counts in (("examples_slice", example_counts), ("soak_slice", soak_counts)):
+            if line["name"] == "dither_threshold":
+                line[f"launches_{name}"] = sum(n for m, n in counts.items()
+                                               if m.startswith("dither_threshold "))
+            else:
+                line[f"launches_{name}"] = counts.get(key, 0)
+    emit({"phase": "total", "card": card, "seconds": time.perf_counter() - script_t0})
     emit({"kernels": kernel_lines})
     print(card, flush=True)
     emit({"ok": True, "device": {

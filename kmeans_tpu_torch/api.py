@@ -118,6 +118,7 @@ import torch
 from kmeans_tpu_torch import runtime
 from kmeans_tpu_torch.image import Image
 from kmeans_tpu_torch.models import kmeans as kmeans_model
+from kmeans_tpu_torch.models.kmeans import SeedLab
 from kmeans_tpu_torch.models.mediancut import extract_palette_mediancut
 from kmeans_tpu_torch.models.octree import extract_palette_octree
 from kmeans_tpu_torch.models.wu import extract_palette_wu
@@ -254,19 +255,19 @@ def _host_rgb(pixels: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
 
 
 def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
-              metric="cie94", fast=False, weight=None, k_active=None):
+              metric="cie94", fast=False, weight=None, k_active=None, seed=None):
     """Pick the trainer as the reference does (kmeans_tpu/api.py:205), with
     its `pallas_ok` read as "the accumulator route": the CUDA kernel on the
     card, its plain twin on the CPU, so both devices run one algorithm.
     Both metrics take that route, as both are in the reference's
     `PALLAS_METRICS`. `plane_dtype` and `fast` reach only the accumulator
-    route; `weight` (the bucketed canvas's) and `k_active` reach every
-    route."""
+    route; `weight` (the bucketed canvas's), `k_active` and `seed`
+    (`models/kmeans.py::plusplus_init`) reach every route."""
     def fit_accumulated():
         return kmeans_model.fit_large_restarts(
             work, k, first_index, restarts=restarts, convergence=convergence,
             k_active=k_active, metric=metric, plane_dtype=plane_dtype, fast=fast,
-            weight=weight,
+            weight=weight, seed=seed,
         )
 
     if k > 64 and work.shape[0] * k > _CHUNKED_TRAIN_ELEMS:
@@ -274,13 +275,13 @@ def _fit_auto(work, k, first_index, convergence, restarts=1, plane_dtype=None,
             return fit_accumulated()
         return kmeans_model.fit_chunked(
             work, k, first_index, restarts=restarts, convergence=convergence,
-            k_active=k_active, metric=metric, weight=weight,
+            k_active=k_active, metric=metric, weight=weight, seed=seed,
         )
     if k <= 64 and work.shape[0] > _LARGE_TRAIN_PIXELS:
         return fit_accumulated()
     return kmeans_model.fit_restarts(
         work, k, first_index, restarts=restarts, convergence=convergence,
-        k_active=k_active, metric=metric, weight=weight,
+        k_active=k_active, metric=metric, weight=weight, seed=seed,
     )
 
 
@@ -348,7 +349,8 @@ def _train(pixels_u8, k, train_shape, first_index, convergence, lab=True,
         pixels_u8 = resize_uint8(pixels_u8, sh, sw)
     rgb = pixels_u8[..., :3].reshape(-1, 3)
     work = srgb8_to_lab(rgb) if lab else div(rgb.to(torch.float32), 255.0)
-    return _fit_auto(work, k, first_index, convergence, restarts, train_dtype, metric, fast)
+    return _fit_auto(work, k, first_index, convergence, restarts, train_dtype, metric, fast,
+                     seed=kmeans_model.seed_lab(rgb, lab))
 
 
 def _lab_palette_to_u8(centroids: torch.Tensor):
@@ -715,12 +717,15 @@ class ImageProcessor:
         y, x = divmod(kmeans_model.reference_seed_index(sw, sh), sw)
         return canvas, (sw, sh), y * canvas[1] + x
 
-    def _canvas_lab(self, padded_u8, canvas, src_hs, src_ws, out_hs, out_ws):
+    def _canvas_lab(self, padded_u8, canvas, src_hs, src_ws, out_hs, out_ws, inline=True):
         """Canvas shrink of padded frames, then Lab: `([B, N, 3]` Lab, `[B,
-        N]` weights) (kmeans_tpu/api.py:630-633)."""
+        N]` weights, the `SeedLab` of an executable that converts and
+        seeds, with `inline` where it fuses the conversion into the first
+        map) (kmeans_tpu/api.py:630-633)."""
         canv, weight = resize_to_canvas(padded_u8, *canvas, src_hs, src_ws, out_hs, out_ws)
         b = padded_u8.shape[0]
-        return srgb8_to_lab(canv.reshape(b, -1, 3)), weight.reshape(b, -1)
+        rgb = canv.reshape(b, -1, 3)
+        return srgb8_to_lab(rgb), weight.reshape(b, -1), kmeans_model.seed_lab(rgb, inline=inline)
 
     def _train_bucketed(self, padded_u8, kp, w, h, k_active, out=None):
         """`_train_bucketed_jit` (kmeans_tpu/api.py:606) of one `[bh, bw, 3]`
@@ -730,10 +735,10 @@ class ImageProcessor:
         Returns the `[kp, 3]` centroids."""
         bh, bw = padded_u8.shape[0], padded_u8.shape[1]
         canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh, out)
-        work, weight = self._canvas_lab(padded_u8[None], canvas, [h], [w], [sh], [sw])
+        work, weight, seed = self._canvas_lab(padded_u8[None], canvas, [h], [w], [sh], [sw])
         centroids, self.last_iterations = _fit_auto(
             work[0], kp, first, ColorSpace.LAB.convergence, self.restarts, None,
-            self.delta_e, self.fast, weight[0], k_active,
+            self.delta_e, self.fast, weight[0], k_active, SeedLab(*(t[0] for t in seed)),
         )
         return centroids
 
@@ -745,13 +750,14 @@ class ImageProcessor:
         `fit_restarts` protocol. Returns `[B, kp, 3]` centroids."""
         bh, bw = stack.shape[1], stack.shape[2]
         args = [self._bucket_train_args(w, h, bw, bh) for w, h in dims]
-        work, weight = self._canvas_lab(
+        # The reference's vmapped executables seed on their stored Lab.
+        work, weight, seed = self._canvas_lab(
             stack, args[0][0], [h for _, h in dims], [w for w, _ in dims],
-            [a[1][1] for a in args], [a[1][0] for a in args])
+            [a[1][1] for a in args], [a[1][0] for a in args], inline=False)
         cents, iters = kmeans_model.fit_restarts_batched(
             work, kp, [a[2] for a in args], restarts=self.restarts,
             convergence=ColorSpace.LAB.convergence, k_actives=[k_active] * len(dims),
-            metric=self.delta_e, weights=weight,
+            metric=self.delta_e, weights=weight, seed=seed,
         )
         self.last_iterations = max(iters)
         return cents
@@ -1111,13 +1117,14 @@ class ImageProcessor:
             canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
             dev = self._upload_padded(frames, bh, bw, count)
             with _phase("device"):
-                work, weight = self._canvas_lab(dev, canvas, [h] * count, [w] * count,
-                                                [sh] * count, [sw] * count)
+                work, weight, seed = self._canvas_lab(dev, canvas, [h] * count, [w] * count,
+                                                      [sh] * count, [sw] * count)
                 weight[len(frames):] = 0.0
                 centroids, self.last_iterations = kmeans_model.fit_restarts(
                     work.reshape(-1, 3), bucket_k(color_count), first,
                     restarts=self.restarts, convergence=ColorSpace.LAB.convergence,
                     k_active=color_count, metric=self.delta_e, weight=weight.reshape(-1),
+                    seed=SeedLab(*(t.reshape(-1, 3) for t in seed)),
                 )
                 _phase_sync(centroids)
             return _palette_readback(centroids, color_count)
@@ -1129,10 +1136,12 @@ class ImageProcessor:
             _phase_sync(dev)
         with _phase("device"):
             shrunk = dev if (h, w) == (sh, sw) else resize_uint8(dev, sh, sw)
+            rgb = shrunk.reshape(-1, 3)
             centroids, self.last_iterations = kmeans_model.fit_restarts(
-                srgb8_to_lab(shrunk.reshape(-1, 3)), color_count,
+                srgb8_to_lab(rgb), color_count,
                 kmeans_model.reference_seed_index(sw, sh), restarts=self.restarts,
                 convergence=ColorSpace.LAB.convergence, metric=self.delta_e,
+                seed=kmeans_model.seed_lab(rgb),
             )
             _phase_sync(centroids)
         return _palette_readback(centroids, color_count)
@@ -1166,11 +1175,11 @@ class ImageProcessor:
             canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
             dev = self._upload_padded([image], bh, bw)[0]
             with _phase("device"):
-                work, weight = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
+                work, weight, seed = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
                 cents, iters = kmeans_model.fit_restarts_batched(
                     work[0], kmax, first, restarts=self.restarts,
                     convergence=ColorSpace.LAB.convergence, k_actives=ks_padded,
-                    metric=self.delta_e, weights=weight[0],
+                    metric=self.delta_e, weights=weight[0], seed=SeedLab(*(t[0] for t in seed)),
                 )
                 self.last_iterations = max(iters)
                 frames = dev[None].expand(len(ks_padded), bh, bw, 3)
@@ -1631,11 +1640,15 @@ class ImageProcessor:
         `[B, k, 3]` centroids."""
         sw, sh = shrunk_dimensions(w, h, self.train_max_size)
         shrunk = pixels_u8 if (h, w) == (sh, sw) else resize_uint8(pixels_u8, sh, sw)
-        work = srgb8_to_lab(shrunk.reshape(*shrunk.shape[:-3], -1, 3))
+        rgb = shrunk.reshape(*shrunk.shape[:-3], -1, 3)
+        # The reference's vmapped frames executable seeds on its stored Lab;
+        # the one over k values fuses the shared image's Lab into the first
+        # map as a solo training does.
+        seed = kmeans_model.seed_lab(rgb, inline=k_actives is not None)
         centroids, iterations = kmeans_model.fit_restarts_batched(
-            work, k, kmeans_model.reference_seed_index(sw, sh), restarts=self.restarts,
-            convergence=ColorSpace.LAB.convergence, k_actives=k_actives,
-            metric=self.delta_e,
+            srgb8_to_lab(rgb), k, kmeans_model.reference_seed_index(sw, sh),
+            restarts=self.restarts, convergence=ColorSpace.LAB.convergence,
+            k_actives=k_actives, metric=self.delta_e, seed=seed,
         )
         self.last_iterations = max(iterations)
         return centroids
@@ -1884,7 +1897,7 @@ class ImageProcessor:
         dev = self._upload_padded([image], bh, bw, device=mesh.root)[0]
         canvas, (sw, sh), first = self._bucket_train_args(w, h, bw, bh)
         with _phase("device"):
-            work, weight = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
+            work, weight, _ = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
             n, d = work.shape[1], mesh.devices.size
             work, weight = _pad_store(work[0], weight[0], shard_rows(n, d) * d)
         centroids = self._fit_sharded_work(work, weight, bucket_k(color_count), first, mesh, n,
@@ -1924,7 +1937,7 @@ class ImageProcessor:
             if self.bucketing:
                 dev = self._upload_padded([frame], bh, bw, device=root)[0]
                 with _phase("device"):
-                    work, weight = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
+                    work, weight, _ = self._canvas_lab(dev[None], canvas, [h], [w], [sh], [sw])
                 work, weight = work[0], weight[0]
             else:
                 dev = self._mesh_upload(rows[i // per_row], frame)

@@ -38,10 +38,12 @@ vector and one first seed index per member.
 from __future__ import annotations
 
 from itertools import repeat
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from kmeans_tpu_torch.ops.colorspace import fma, srgb8_to_lab_compiled
 from kmeans_tpu_torch.ops.delta_e import metric_fns
 from kmeans_tpu_torch.ops.kernels import lloyd_accumulate, pack_lab_planes, pack_plane
 from kmeans_tpu_torch.utils.profiling import phase
@@ -51,6 +53,10 @@ CONVERGENCE_CHECK_EVERY = 8
 LAB_CONVERGENCE = 1.0
 
 _BIG = 3.4e38  # above any CIE94^2
+# CIE94's k1 and k2 as the float32 constants XLA folds them to.
+_F32_K1 = float(np.float32(0.045))
+_F32_K2 = float(np.float32(0.015))
+_F32_INV_255 = float(np.float32(1.0) / np.float32(255.0))
 # Row-chunk size of the memory-bounded trainer: `[CHUNK, K]` float32
 # intermediates stay <= 256 MB at k = 256 (kmeans_tpu/models/kmeans.py:555).
 _CHUNK_PIXELS = 1 << 18
@@ -96,6 +102,63 @@ def assign_clusters(
     return torch.argmin(_masked_d2(pixels, centroids, valid, metric), dim=1)
 
 
+class SeedLab(NamedTuple):
+    """The colours the reference's compiled seeding reads, for a call site
+    where it converts the pixels in the executable that seeds: `lab [...,
+    N, 3]`, what its distance maps take on both sides; `inline [..., N,
+    3]` (float64) or None, the unrounded channels its first map fuses on
+    the pixel side where it recomputes them there (`_first_map_compiled`).
+    The seeds' values stay the trainer's own `pixels`; only the picks
+    follow this."""
+
+    lab: torch.Tensor
+    inline: torch.Tensor | None = None
+
+
+def seed_lab(rgb8: torch.Tensor, lab: bool = True, inline: bool = True) -> SeedLab:
+    """`SeedLab` of uint8 sRGB `[..., N, 3]`: Lab as
+    `ops/colorspace.py::srgb8_to_lab_compiled` computes it, or with
+    `lab=False` the unorm RGB the reference trains on in its RGB colour
+    space, `x * f32(1 / 255)` (its `/ 255` folded), each channel exact in
+    float64 on the inline side."""
+    if lab:
+        out = srgb8_to_lab_compiled(rgb8, inline)
+        return SeedLab(*out) if inline else SeedLab(out)
+    x = rgb8.to(torch.float32)
+    return SeedLab(x * _F32_INV_255, x.double() * _F32_INV_255 if inline else None)
+
+
+def _first_map_compiled(space, inline, c0):
+    """The first seeding map under CIE94 as XLA-CPU compiles it with the
+    colour conversion fused in (kmeans_tpu/models/kmeans.py:136 in the
+    optimised HLO of `kmeans_tpu/api.py::_train_jit`): each channel
+    difference is `inline - c0` rounded once (for a* that is `fma(fx - fy,
+    500, -a_c)`), and the sums contract into multiply-adds. `space [...,
+    N, 3]`, `c0 [..., 3]` -> `[..., N]`."""
+    c0 = c0[..., None, :]
+    la, lb = space[..., 1], space[..., 2]
+    ca, cb = c0[..., 1], c0[..., 2]
+    c1 = torch.sqrt(fma(la, la, lb * lb))
+    c2 = torch.sqrt(fma(ca, ca, cb * cb))
+    dl, da, db = (inline - c0.double()).float().unbind(-1)
+    dc = c1 - c2
+    s_c = fma(c1, _F32_K1, 1.0)
+    s_h = fma(c1, _F32_K2, 1.0)
+    dh2 = torch.clamp(fma(-dc, dc, fma(da, da, db * db)), min=0.0)
+    q = dc / s_c
+    return fma(q, q, dl * dl) + dh2 / (s_h * s_h)
+
+
+def _first_map(space, first_rows, metric, seed):
+    """The distance map to the first seed: `_first_map_compiled` where the
+    reference fuses the Lab conversion in under CIE94, else the metric
+    against `first_rows` (the seed's row repeated, laid out as `space`)."""
+    if seed is not None and seed.inline is not None and metric == "cie94":
+        return _first_map_compiled(space, seed.inline, first_rows[..., 0, :])
+    _, dist_sq = metric_fns(metric)
+    return dist_sq(space, first_rows)
+
+
 def plusplus_init(
     pixels: torch.Tensor,
     k: int,
@@ -103,6 +166,7 @@ def plusplus_init(
     k_active: int | None = None,
     metric: str = "cie94",
     weight: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> torch.Tensor:
     """Farthest-point seeding: `pixels[N, 3]` Lab -> `[k, 3]` centroids.
     Centroid 0 is `pixels[first_index]`; each next one is the pixel with the
@@ -110,20 +174,33 @@ def plusplus_init(
     `k_active < k` the trailing rows stay zero and must stay masked. With
     `weight[N]`, a pixel of weight <= 0 never seeds: its distance-map
     entry is pinned to -1, below every real pixel's, and the running
-    minimum keeps it there (kmeans_tpu/models/kmeans.py:113-139)."""
-    k_active = k if k_active is None else k_active
+    minimum keeps it there (kmeans_tpu/models/kmeans.py:113-139).
+
+    With `seed`, the distance maps are taken on `seed.lab` (and the first
+    one on `seed.inline`), as the reference's executable computes them
+    where it converts and seeds together; the picked pixels' values come
+    from `pixels`. Each map is taken against the picked pixel's row
+    repeated N times, so both sides of the metric have one layout: the
+    CPU's vectorized and scalar `atan2` differ in the last bit, which
+    would leave a pixel at a CIEDE2000 distance above 0 from its own
+    colour and move the picks at exact ties."""
+    k_active = min(k, k if k_active is None else k_active)
     _, dist_sq = metric_fns(metric)
-    centroids = torch.zeros((k, 3), dtype=torch.float32, device=pixels.device)
-    c0 = pixels[first_index]
-    centroids[0] = c0
-    dmap = dist_sq(pixels, c0[None, :])
+    space = pixels if seed is None else seed.lab
+    n = space.shape[0]
+    m = max(k_active, 1)
+    picks = torch.zeros(m, dtype=torch.int64, device=pixels.device)
+    picks[0] = first_index
+    dmap = _first_map(space, torch.index_select(space, 0, picks[:1].expand(n)), metric, seed)
     if weight is not None:
         dmap = torch.where(weight > 0, dmap, torch.full_like(dmap, -1.0))
-    for j in range(1, min(k, k_active)):
-        # index_select keeps the pick on the device (no host round trip).
-        new_c = torch.index_select(pixels, 0, torch.argmax(dmap).reshape(1))
-        centroids[j] = new_c[0]
-        dmap = torch.minimum(dmap, dist_sq(pixels, new_c))
+    for j in range(1, k_active):
+        # The pick stays on the device (no host round trip).
+        idx = torch.argmax(dmap).reshape(1)
+        picks[j:j + 1] = idx
+        dmap = torch.minimum(dmap, dist_sq(space, torch.index_select(space, 0, idx.expand(n))))
+    centroids = torch.zeros((k, 3), dtype=torch.float32, device=pixels.device)
+    centroids[:m] = torch.index_select(pixels, 0, picks)
     return centroids
 
 
@@ -308,10 +385,11 @@ def fit(
     k_active: int | None = None,
     metric: str = "cie94",
     weight: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Seed + Lloyd: `pixels[N, 3]` -> `(centroids [k, 3], iterations)`
-    (kmeans_tpu/models/kmeans.py:719)."""
-    centroids = plusplus_init(pixels, k, first_index, k_active, metric, weight)
+    (kmeans_tpu/models/kmeans.py:719); `seed` as `plusplus_init` takes it."""
+    centroids = plusplus_init(pixels, k, first_index, k_active, metric, weight, seed)
     return lloyd(pixels, centroids, convergence, max_iterations, k_active, metric, weight)
 
 
@@ -326,10 +404,11 @@ def fit_large(
     plane_dtype: str | None = None,
     fast: bool = False,
     weight: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> tuple[torch.Tensor, int]:
     """`fit` for large pixel counts: float32 seeding (always exact), then
     `lloyd_accumulated` (kmeans_tpu/models/kmeans.py:431)."""
-    centroids = plusplus_init(pixels, k, first_index, k_active, metric, weight)
+    centroids = plusplus_init(pixels, k, first_index, k_active, metric, weight, seed)
     return lloyd_accumulated(
         pixels, centroids, convergence, max_iterations, k_active, metric, plane_dtype, fast,
         weight,
@@ -390,14 +469,16 @@ def fit_restarts(
     k_active: int | None = None,
     metric: str = "cie94",
     weight: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> tuple[torch.Tensor, int]:
     """`fit` with `restarts` seedings from `derive_restart_seeds`; the run
     with the lowest within-cluster inertia wins
     (kmeans_tpu/models/kmeans.py:368). The reference trains the restarts
     in one vmapped loop that freezes converged runs, so each run equals a
     single `fit` from its seed; here they run one after another."""
-    def one(seed):
-        return fit(pixels, k, seed, convergence, max_iterations, k_active, metric, weight)
+    def one(first):
+        return fit(pixels, k, first, convergence, max_iterations, k_active, metric, weight,
+                   seed)
 
     if restarts <= 1:
         return one(first_index)
@@ -420,6 +501,7 @@ def fit_large_restarts(
     plane_dtype: str | None = None,
     fast: bool = False,
     weight: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> tuple[torch.Tensor, int]:
     """`fit_large` with `restarts` seedings (kmeans_tpu/models/kmeans.py:477).
     Each run's inertia is one extra accumulator pass with
@@ -429,9 +511,9 @@ def fit_large_restarts(
     keeps the pruned tier for CIEDE2000, whose winning distance is exact
     (`:534-543`). With `weight`, the pass reads the weight plane, so each
     distance counts times its pixel's weight."""
-    def one(seed):
-        return fit_large(pixels, k, seed, convergence, max_iterations,
-                         k_active, metric, plane_dtype, fast, weight)
+    def one(first):
+        return fit_large(pixels, k, first, convergence, max_iterations,
+                         k_active, metric, plane_dtype, fast, weight, seed)
 
     if restarts <= 1:
         return one(first_index)
@@ -457,11 +539,12 @@ def fit_chunked(
     k_active: int | None = None,
     metric: str = "cie94",
     weight: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Memory-bounded fit: seeding + `lloyd_chunked`; restarts run one
     after another with a chunked inertia (kmeans_tpu/models/kmeans.py:652)."""
-    def one(seed):
-        cents = plusplus_init(pixels, k, seed, k_active, metric, weight)
+    def one(first):
+        cents = plusplus_init(pixels, k, first, k_active, metric, weight, seed)
         return lloyd_chunked(pixels, cents, convergence, max_iterations, k_active, metric,
                              weight)
 
@@ -489,30 +572,34 @@ def plusplus_init_batched(
     k_actives,
     metric: str = "cie94",
     weights: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> torch.Tensor:
     """`plusplus_init` of M members at once: `pixels[M, N, 3]` (one image
     expanded along M shares its pixels), member `i` seeded at flat index
     `first_indices[i]` with `k_actives[i]` centroids and, with
-    `weights[M, N]`, never at a pixel of weight <= 0 -> `[M, k, 3]`. The
-    same elementwise operations per member; members past their `k_active`
-    keep zero rows."""
-    m = pixels.shape[0]
+    `weights[M, N]`, never at a pixel of weight <= 0 -> `[M, k, 3]`; `seed`
+    laid out as `pixels`. The same elementwise operations per member;
+    members past their `k_active` keep zero rows."""
+    m, n = pixels.shape[0], pixels.shape[1]
     _, dist_sq = metric_fns(metric)
-    rows = torch.arange(m, device=pixels.device)
+    space = pixels if seed is None else seed.lab
+    rows = torch.arange(m, device=pixels.device)[:, None]
     ka = torch.tensor(k_actives, dtype=torch.int64).to(pixels.device)
-    centroids = torch.zeros((m, k, 3), dtype=torch.float32, device=pixels.device)
-    c0 = pixels[rows, torch.tensor(first_indices, dtype=torch.int64).to(pixels.device)]
-    centroids[:, 0] = c0
-    dmap = dist_sq(pixels, c0[:, None, :])
+    picks = torch.zeros((m, k), dtype=torch.int64, device=pixels.device)
+    picks[:, 0] = torch.tensor(first_indices, dtype=torch.int64).to(pixels.device)
+    dmap = _first_map(space, space[rows, picks[:, :1].expand(m, n)], metric, seed)
     if weights is not None:
         dmap = torch.where(weights > 0, dmap, torch.full_like(dmap, -1.0))
     for j in range(1, min(k, max(k_actives))):
-        new_c = pixels[rows, torch.argmax(dmap, dim=1)]
+        idx = torch.argmax(dmap, dim=1, keepdim=True)
         take = j < ka
-        centroids[:, j] = torch.where(take[:, None], new_c, centroids[:, j])
-        dmap = torch.where(take[:, None], torch.minimum(dmap, dist_sq(pixels, new_c[:, None, :])),
+        picks[:, j] = idx[:, 0]
+        dmap = torch.where(take[:, None],
+                           torch.minimum(dmap, dist_sq(space, space[rows, idx.expand(m, n)])),
                            dmap)
-    return centroids
+    centroids = pixels[rows, picks]
+    kept = torch.arange(k, device=pixels.device)[None, :] < torch.clamp(ka, min=1)[:, None]
+    return torch.where(kept[..., None], centroids, torch.zeros_like(centroids))
 
 
 def _assign_batched(pixels, centroids, valid, metric):
@@ -588,6 +675,7 @@ def fit_restarts_batched(
     k_actives=None,
     metric: str = "cie94",
     weights: torch.Tensor | None = None,
+    seed: SeedLab | None = None,
 ) -> tuple[torch.Tensor, list]:
     """`fit_restarts` of B members in one loop, the counterpart of the
     reference's `jax.vmap(fit_restarts)` (kmeans_tpu/api.py:3294, 3771):
@@ -600,8 +688,9 @@ def fit_restarts_batched(
     index (restart r at `derive_restart_seeds`'s r-th index, walked off
     its 0-weight pixels) and all B x restarts runs share one
     `lloyd_batched` loop; each member keeps its run of least weighted
-    inertia, the first on a tie. Returns `(centroids [B, k, 3], iterations
-    of each member's winner)`."""
+    inertia, the first on a tie. `seed` as `plusplus_init` takes it, laid
+    out as `pixels`. Returns `(centroids [B, k, 3], iterations of each
+    member's winner)`."""
     n = pixels.shape[-2]
     if pixels.dim() == 2:
         if k_actives is None:
@@ -629,8 +718,13 @@ def fit_restarts_batched(
     run_w = None if weights is None else (weights.repeat_interleave(r, dim=0) if r > 1
                                           else weights)
     run_ka = [ka for ka in k_actives for _ in range(r)]
+    run_seed = None
+    if seed is not None:
+        run_seed = SeedLab(*(None if t is None else
+                             t.expand(b * r, *t.shape) if pixels.dim() == 2 else
+                             t.repeat_interleave(r, dim=0) if r > 1 else t for t in seed))
     cents = plusplus_init_batched(runs_px, k, [s for member in seeds for s in member], run_ka,
-                                  metric, run_w)
+                                  metric, run_w, run_seed)
     cents, iters = lloyd_batched(runs_px, cents, run_ka, convergence, max_iterations, metric,
                                  run_w)
     iters = iters.tolist()

@@ -19,11 +19,13 @@ Divisions by constants use `ops._math.div` (a true division on CUDA too).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from kmeans_tpu_torch.ops._math import div
-from kmeans_tpu_torch.ops.gamma_lut import gamma_lut
+from kmeans_tpu_torch.ops.gamma_lut import compiled_gamma_lut, gamma_lut
 
 # Lindbloom sRGB D65 matrices (kmeans_tpu/ops/colorspace.py:32-43).
 RGB_TO_XYZ = (
@@ -104,6 +106,78 @@ def srgb8_to_lab(rgb8: torch.Tensor) -> torch.Tensor:
     lin = lut[idx]
     return torch.stack(lab_from_linear(lin[..., 0], lin[..., 1], lin[..., 2]), -1)
 
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """`a * b + c` with one rounding to float32, as XLA-CPU contracts a
+    product and a sum into a fused multiply-add: the product of two
+    float32 values is exact in float64. `b` and `c` may be floats that
+    are float32 values. The sum rounds once in float64 first only when
+    its exact value spans more than 53 bits; that moves the float32 result
+    on the rare exact halfway case."""
+    a = a.double()
+    if not isinstance(c, torch.Tensor):
+        return (a * (b.double() if isinstance(b, torch.Tensor) else b)).add_(c).float()
+    if isinstance(b, torch.Tensor):
+        return torch.addcmul(c.double(), a, b.double()).float()
+    return torch.add(c.double(), a, alpha=b).float()
+
+
+def _f32(value: float) -> float:
+    return float(np.float32(value))
+
+
+# The constants XLA folds `x / white`, `7.787 * (x / white)` and `1 / 3`
+# into (kmeans_tpu/ops/colorspace.py:92-106, compiled on the CPU).
+_INV_WHITE = tuple(_f32(np.float32(1.0) / np.float32(w)) for w in WHITE_POINT)
+_TOE_SLOPE = tuple(_f32(np.float32(_LAB_SLOPE) * np.float32(inv)) for inv in _INV_WHITE)
+_THIRD = _f32(1.0 / 3.0)
+
+
+def srgb8_to_lab_compiled(rgb8: torch.Tensor, inline: bool = False):
+    """uint8 sRGB `[..., 3]` -> float32 Lab `[..., 3]` as the reference's
+    training executables compute it, jitted on the CPU
+    (kmeans_tpu/api.py:150 `_train_jit`, and every executable that runs
+    `srgb8_to_lab` and the seeding together): the gamma from
+    `compiled_gamma_lut`; each matrix row `fma(b, m2, fma(r, m0, g *
+    m1))`; the white point and the toe's slope folded into multiplies
+    (`_INV_WHITE`, `_TOE_SLOPE`), the toe `fma(x, slope, 16 / 116)`; `L =
+    fma(fy, 116, -16)`. The cube root is the correctly rounded
+    `t ** f32(1 / 3)` (through float64): XLA's own `pow` differs from it on
+    about 0.07% of inputs, so about 0.2% of the 2^24 colours are an ulp or
+    more apart from the reference's; every other colour has its bits.
+
+    With `inline`, also returns `[..., 3]` float64: L* (whose last step
+    is an add, so nothing contracts it further), `500 * (fx - fy)` and
+    `200 * (fy - fz)` unrounded. The reference's first seeding map
+    recomputes a pixel's Lab inline and contracts `500 * (fx - fy) - a_c`
+    into one fused multiply-add, so its distance from a pixel to its own
+    colour is the rounding residue of a* and b*, not 0
+    (`models/kmeans.py::_first_map_compiled`)."""
+    lin = compiled_gamma_lut(rgb8.device)[rgb8.to(torch.int64)]
+    r, g, b = lin[..., 0:1], lin[..., 1:2], lin[..., 2:3]
+    m0, m1, m2, inv, slope = _compiled_constants(lin.device)
+    # The three rows at once, `[..., 3]`: X, Y, Z in the last axis.
+    x = fma(b, m2, fma(r, m0, g * m1))
+    t = x * inv
+    cube = torch.pow(torch.clamp(t, min=0.0).double(), _THIRD).float()
+    fx, fy, fz = torch.where(t > _LAB_EPS, cube, fma(x, slope, _f32(_LAB_OFFSET))).unbind(-1)
+    dxy, dyz = fx - fy, fy - fz
+    lab = torch.stack([fma(fy, 116.0, -16.0), dxy * 500.0, dyz * 200.0], -1)
+    if not inline:
+        return lab
+    return lab, torch.stack([lab[..., 0].double(), dxy.double() * 500.0,
+                             dyz.double() * 200.0], -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled_constants(device: torch.device):
+    """`srgb8_to_lab_compiled`'s per-row constants on `device`, uploaded
+    once: the matrix's columns (the first and last as float64 factors of
+    the multiply-adds), `_INV_WHITE` and `_TOE_SLOPE`."""
+    cols = [[_f32(row[i]) for row in RGB_TO_XYZ] for i in range(3)]
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=device)
+    f64 = functools.partial(torch.tensor, dtype=torch.float64, device=device)
+    return f64(cols[0]), f32(cols[1]), f64(cols[2]), f32(_INV_WHITE), f64(_TOE_SLOPE)
 
 def _lab_f_inv(t: torch.Tensor) -> torch.Tensor:
     t3 = t * t * t

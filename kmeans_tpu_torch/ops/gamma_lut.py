@@ -87,3 +87,61 @@ def gamma_lut(device) -> torch.Tensor:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return _gamma_lut_on(device)
+
+
+# The same table as the JAX package's training executables compute it,
+# jitted on the CPU (`kmeans_tpu/api.py::_train_jit` and its batched and
+# bucketed siblings): XLA folds `/ 255`, `/ 1.055` and `/ 12.92` into
+# multiplies by reciprocals and contracts `x * (1 / 255) + 0.055` into a
+# fused multiply-add, so 115 of the 256 entries move by 1 to 5 ulps. The
+# entries that differ from `GAMMA_LUT_BITS`, by code. Regenerate by
+# printing the bits of `jax.jit(lambda c: srgb_to_linear(c / 255.0) *
+# 100.0)` over `arange(256, dtype=float32)`.
+COMPILED_GAMMA_LUT_DIFF = {
+    7: 0x3E599173, 9: 0x3E8BDD80, 16: 0x3F04A595, 19: 0x3F26B5A2,
+    32: 0x3FB8E194, 38: 0x3FF8181C, 39: 0x4001D8C6, 45: 0x4027F19D,
+    46: 0x402EDA8B, 48: 0x403D29EE, 49: 0x404490EB, 50: 0x404C2279,
+    51: 0x4053DEDC, 52: 0x405BC659, 53: 0x4063D933, 54: 0x406C17AE,
+    55: 0x4074820D, 58: 0x40876584, 59: 0x408BF3BF, 60: 0x4090988C,
+    61: 0x4095540C, 62: 0x409A265E, 63: 0x409F0FA0, 70: 0x40C3FCC5,
+    71: 0x40C9A1CF, 84: 0x410DD954, 85: 0x411158C4, 96: 0x413B2732,
+    97: 0x413F42F3, 101: 0x415037EB, 102: 0x415496E2, 103: 0x4159036D,
+    104: 0x415D7D9B, 105: 0x41620575, 106: 0x41669B09, 107: 0x416B3E62,
+    108: 0x416FEF8B, 109: 0x4174AE90, 110: 0x41797B7E, 114: 0x41869D94,
+    115: 0x41892726, 116: 0x418BB7CC, 117: 0x418E4F8F, 118: 0x4190EE73,
+    119: 0x4193947D, 120: 0x419641B4, 121: 0x4198F61D, 122: 0x419BB1BD,
+    123: 0x419E749A, 124: 0x41A13EBB, 125: 0x41A41022, 126: 0x41A6E8D6,
+    127: 0x41A9C8DD, 133: 0x41BBA3F6, 134: 0x41BEB7D3, 135: 0x41C1D32D,
+    160: 0x420C9CF1, 161: 0x420E8F60, 162: 0x421085D1, 163: 0x42128044,
+    188: 0x42492793, 189: 0x424B8D73, 190: 0x424DF792, 191: 0x425065F4,
+    194: 0x4257CAB8, 195: 0x425A4A35, 196: 0x425CCDFD, 197: 0x425F5614,
+    198: 0x4261E27A, 199: 0x42647334, 200: 0x42670842, 201: 0x4269A1A6,
+    202: 0x426C3F63, 203: 0x426EE17C, 204: 0x427187F1, 205: 0x427432C4,
+    206: 0x4276E1F9, 207: 0x42799590, 208: 0x427C4D8D, 209: 0x427F09EF,
+    210: 0x4280E55F, 211: 0x428247FA, 212: 0x4283ACCC, 213: 0x428513D6,
+    214: 0x42867D19, 215: 0x4287E895, 222: 0x4292179A, 223: 0x42939507,
+    224: 0x429514B6, 225: 0x429696A7, 226: 0x42981ADE, 227: 0x4299A15A,
+    228: 0x429B2A1C, 229: 0x429CB526, 230: 0x429E4277, 231: 0x429FD212,
+    232: 0x42A163F8, 233: 0x42A2F828, 234: 0x42A48EA4, 235: 0x42A6276E,
+    236: 0x42A7C285, 237: 0x42A95FEC, 238: 0x42AAFFA2, 239: 0x42ACA1A9,
+    240: 0x42AE4602, 241: 0x42AFECAD, 243: 0x42B34100, 244: 0x42B4EEA8,
+    245: 0x42B69EA9, 246: 0x42B850FF, 247: 0x42BA05B0, 248: 0x42BBBCB6,
+    249: 0x42BD761A, 251: 0x42C0EFF4, 253: 0x42C4733F,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled_gamma_lut_on(device: torch.device) -> torch.Tensor:
+    bits = np.array(GAMMA_LUT_BITS, dtype=np.uint32)
+    for code, value in COMPILED_GAMMA_LUT_DIFF.items():
+        bits[code] = value
+    return torch.from_numpy(bits.view(np.float32)).to(device)
+
+
+def compiled_gamma_lut(device) -> torch.Tensor:
+    """`gamma_lut` with `COMPILED_GAMMA_LUT_DIFF` applied: the linear light
+    (x100) of each u8 code as the reference's compiled training reads it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _compiled_gamma_lut_on(device)

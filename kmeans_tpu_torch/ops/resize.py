@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from kmeans_tpu_torch.ops._math import const, div
+from kmeans_tpu_torch.ops.colorspace import fma
 
 
 def shrunk_dimensions(
@@ -145,7 +146,7 @@ _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 def _fma_blend(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """`fma(a, 1 - f, b * f)` in float32: `a * (1 - f) + b * f` with the
     first product and the sum rounded once."""
-    return (a.double() * (1.0 - f).double() + (b * f).double()).float()
+    return fma(a, 1.0 - f, b * f)
 
 
 def _compiled_axis(n_out: int, n_in: int, device):

@@ -114,7 +114,11 @@ def _seed(shards: _Shards, k: int, first_index: int, k_active=None, metric="cie9
     s0, i0 = divmod(int(first_index), shards.n_local)
     c0 = to_device(shards.pixels[s0][i0:i0 + 1], root)
     centroids[0] = c0[0]
-    dmaps = [dist_sq(px, c) for px, c in zip(shards.pixels, replicate(c0, shards.devices))]
+    # Each map against the pick's row repeated, laid out as the shard, as
+    # `plusplus_init` takes it: the CPU's vectorized and scalar `atan2`
+    # differ in the last bit, which would leave an exact tie above 0.
+    dmaps = [dist_sq(px, c.expand_as(px).contiguous())
+             for px, c in zip(shards.pixels, replicate(c0, shards.devices))]
     if shards.weight is not None:
         dmaps = [torch.where(w > 0, d, torch.full_like(d, -1.0))
                  for d, w in zip(dmaps, shards.weight)]
@@ -122,7 +126,7 @@ def _seed(shards: _Shards, k: int, first_index: int, k_active=None, metric="cie9
         _, index = _global_argmax(dmaps, shards.n_local, root)
         new_c = _take_global(shards.pixels, index, shards.n_local, root)
         centroids[j] = new_c[0]
-        dmaps = [torch.minimum(d, dist_sq(px, c))
+        dmaps = [torch.minimum(d, dist_sq(px, c.expand_as(px).contiguous()))
                  for d, px, c in zip(dmaps, shards.pixels, replicate(new_c, shards.devices))]
     return centroids
 
