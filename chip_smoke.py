@@ -2101,14 +2101,18 @@ def update_cost(image, device, card) -> None:
 # visits, to turn the loop's length into instructions a pair: the pixels
 # of the register tiles of the exact and factorized tiers (`tile_pixels`
 # in csrc/quantize_assign.cu and csrc/quantize_meld.cu, `kTilePixels` in
-# csrc/lloyd_accumulate.cu; CIEDE2000 one pixel at a time), and the two
-# centroids an iteration of the pruned screen takes past its first m (one
-# pixel; its loop found by its warp vote, `SCREEN_LOOPS`; the count holds
-# the insertions a warp skips unless a lane needs one).
+# csrc/lloyd_accumulate.cu for both; CIEDE2000 one pixel at a time), and
+# the two centroids an iteration of the pruned screen takes past its first
+# m (one pixel; its loop found by its warp vote, `SCREEN_LOOPS`; the count
+# holds the insertions a warp skips unless a lane needs one).
 LOOP_PAIRS = {"assign_kernel<0,0,0,": 2, "assign_kernel<1,0,0,": 1, "assign_kernel<0,1,0,": 2,
               "assign_kernel<1,3,": 2, "meld_kernel<0,0,0,0": 1, "meld_kernel<0,0,0,1": 4,
               "meld_kernel<1,0,0,": 1, "meld_kernel<0,1,0,": 4, "meld_kernel<1,3,": 2,
-              "lloyd_tile_kernel<0,0": 8, "lloyd_tile_kernel<1,0": 1, "lloyd_tile_kernel<1,3,": 2}
+              "lloyd_tile_kernel<0,0": 8, "lloyd_tile_kernel<0,1": 8, "lloyd_tile_kernel<1,0": 1,
+              "lloyd_tile_kernel<1,3,": 2}
+# The pruned accumulator's blocks an SM must hold (`kPruneMinBlocks` in
+# csrc/lloyd_accumulate.cu, its `__launch_bounds__`).
+LLOYD_PRUNE_MIN_BLOCKS = 4
 SCREEN_LOOPS = {"assign_kernel<1,3,": "VOTE", "meld_kernel<1,3,": "VOTE",
                 "lloyd_tile_kernel<1,3,": "VOTE"}
 ADVERSARIAL = ("duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_active")
@@ -2118,7 +2122,8 @@ ADVERSARIAL = ("duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_acti
 # output mode) and the meld kernel scan a register tile of pixels against
 # 16-byte centroid loads, CIE94 dividing through hoisted reciprocals
 # (CIEDE2000 one pixel at a time), the pruned tier screening by packed
-# keys; the accumulator's tiers all sum by warp groups.
+# keys; the accumulator's tiers all sum by warp groups, its exact CIE94
+# and factorized tiers once a register tile.
 def design_of(name: str) -> str:
     if name.startswith("meld"):
         if "chunked" in name:
@@ -2138,9 +2143,14 @@ def design_of(name: str) -> str:
         return "register tile, hoisted reciprocals"
     if name == "lloyd_accumulate":
         return "register tile, hoisted reciprocals, warp-group sums"
+    if name == "lloyd_accumulate[fast cie94, factorized]":
+        return (f"register tile of {LOOP_PAIRS['lloyd_tile_kernel<0,1']} pixels, padded "
+                "feature rows, one warp-group sum a tile")
+    if name == "lloyd_accumulate[fast cie2000, pruned]":
+        return (f"one pixel at a time, keyed screen, warp-group sums, {LLOYD_PRUNE_MIN_BLOCKS} "
+                "blocks an SM (64 registers): the grid resident at once")
     if name.startswith("lloyd_accumulate"):
-        return "one pixel at a time, warp-group sums" + (
-            ", keyed screen" if "pruned" in name else "")
+        return "one pixel at a time, warp-group sums"
     if name.startswith("exp_"):
         return "experiment tool"
     if name == "dither_threshold":

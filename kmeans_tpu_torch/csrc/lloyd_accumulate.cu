@@ -21,20 +21,26 @@
 //   pixel p of channel c lies at c * n_pix + p. Pixels p >= n_valid are
 //   padding and drop out by their index, never by their (zero) value.
 // - A fixed grid of at most kMaxBlocks blocks walks the tiles (block b
-//   takes tiles b, b + grid, ...): under exact CIE94 of kThreads *
-//   kTilePixels pixels, which a thread reads as runs of 4 with one 16-byte
-//   load a plane (8 bytes of bfloat16) and keeps in registers; otherwise
-//   of kThreads * kPixPerThread pixels, taken one at a time.
+//   takes tiles b, b + grid, ...). Under exact CIE94 and the factorized
+//   tier a tile is kThreads register tiles of `tile_pixels` pixels, which
+//   a thread reads as runs of 4 with one 16-byte load a plane (8 bytes of
+//   bfloat16), keeps in registers and adds to the accumulator by one
+//   reduction a tile; otherwise a tile is kThreads * kPixPerThread pixels,
+//   taken one at a time.
 // - The exact CIE94 assignment is screen.cuh::scan_exact_tile: the
 //   centroid loop outermost over the thread's pixels, one 16-byte shared
 //   load of (L, a, b, chroma) a centroid, and the divides through the
 //   pixel's hoisted reciprocals (delta_e.cuh::div_by_recip; a tile out of
 //   its range is rescanned with IEEE divides), so every assignment is the
 //   twin's. Exact CIEDE2000 takes the same loop one pixel at a time (its
-//   library calls leave no registers for a tile); the fast tiers take
-//   screen.cuh::scan_centroids one pixel at a time, one instance per
-//   (metric, tier, m), the pruned one with the keyed screen
-//   (screen.cuh::prune_screen).
+//   library calls leave no registers for a tile). The factorized tier is
+//   screen.cuh::scan_factor_tile: the centroid loop outermost, two 16-byte
+//   loads of a padded feature row serve the tile's pixels. The algebraic
+//   and pruned tiers take screen.cuh::scan_centroids one pixel at a time,
+//   the pruned one with the keyed screen (screen.cuh::prune_screen); its
+//   candidate list and CIEDE2000 calls leave no registers for a tile, and
+//   it is bound to 64 registers (kPruneMinBlocks), so that an SM holds
+//   all of its share of the grid at kp <= 256.
 // - The reduction is deterministic, uses no atomics and costs O(1) a
 //   pixel (`warp_group_add`): each warp owns an accumulator [kp, stats] in
 //   shared memory; for each pixel slot the lanes with the same cluster
@@ -50,9 +56,10 @@
 //   partial and the total are exact integers below 2^24 pixels.
 // - The centroids live in shared memory (16 B each, 8 KB at kp = 512);
 //   every pixel visits them in index order with strict `<`, so the first
-//   minimum wins. Shared memory at kp = 512 with the inertia column is
-//   88 KB a block (the eight warp accumulators), and 104 KB with the fast
-//   tiers' feature table (padded to 8 columns).
+//   minimum wins (the pruned tier: its survivors in screening-rank order,
+//   up to its first unfilled slot). Shared memory at kp = 512 with the
+//   inertia column is 88 KB a block (the eight warp accumulators), and
+//   104 KB with the fast tiers' feature table (padded to 8 columns).
 //
 // Float rounding: each float operation is one IEEE float32 operation in the
 // twin's order, written with the _rn intrinsics so that none is fused into
@@ -73,7 +80,14 @@
 // loads) and the reduction rescanned the staged tile once per owned
 // cluster; now a pair costs about 29, at the card's full instruction
 // rate, and the reduction a few dozen a pixel, which weighs most at small
-// k.
+// k. The fast tiers: the factorized score and compare is 13 operations a
+// pair (16 instructions in the 8-pixel tile, the score's order fixed by
+// exactness: each product rounded before its add), so what the tile cuts
+// is the shared loads of the feature rows a pixel, the global loads and the
+// reduction a pixel. The pruned tier's time is in the screen's score a centroid
+// and the m exact CIEDE2000 distances of each pixel (library calls, IEEE
+// divides and square roots, each with a slow-path branch); at m = 16 its
+// registers decide how many of the grid's blocks an SM holds at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,12 +103,29 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPixPerThread = 4;  // pixels a thread takes one at a time
 constexpr int kTile = kThreads * kPixPerThread;
-// Pixels a thread keeps in registers under exact CIE94 (a multiple of 4:
-// runs of one 16-byte load). Its tiles are kTilePixels / kPixPerThread
-// times as large; the grid is sized on kTile, so a block may find none.
+// Pixels a thread keeps in registers under exact CIE94 and under the
+// factorized tier (a multiple of 4: runs of one 16-byte load). Their tiles
+// are kThreads times as many pixels; the grid is sized on kTile, so a
+// block may find none.
 constexpr int kTilePixels = 8;
-constexpr int kMinBlocks = 2;  // blocks an SM must hold (`__launch_bounds__`)
+// Blocks an SM must hold (`__launch_bounds__`): 2, and under the pruned
+// tier 4, which holds its instances to 64 registers: at kp <= 256, where
+// shared memory leaves room for 4, an SM then holds its whole share of the
+// grid at once and no block waits for another to end.
+constexpr int kMinBlocks = 2;
+constexpr int kPruneMinBlocks = 4;
 constexpr int kMaxBlocks = 528;  // 4 blocks on each of the H100's 132 SMs
+
+// The register tile of (metric, tier), or 0 where pixels go one at a time
+// (exact CIEDE2000, whose library calls leave no registers for a tile, the
+// algebraic tier and the pruned tier, whose screen leaves none either).
+__host__ __device__ constexpr int tile_pixels(int metric, int tier) {
+  return tier == kTierFactor || (tier == kTierExact && metric == kMetricCie94) ? kTilePixels
+                                                                                : 0;
+}
+__host__ __device__ constexpr int min_blocks(int tier) {
+  return tier == kTierPrune ? kPruneMinBlocks : kMinBlocks;
+}
 
 // Four consecutive pixels of a plane from element i (a multiple of 4): one
 // 16-byte load of float32, one 8-byte load of bfloat16 widened by a 16-bit
@@ -181,12 +212,12 @@ __device__ __forceinline__ void warp_group_add(float* acc, int stats, const int 
 }
 
 template <int Metric, int Tier, int M>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) lloyd_tile_kernel(
+__global__ void __launch_bounds__(kThreads, min_blocks(Tier)) lloyd_tile_kernel(
     const void* __restrict__ planes, int bf16, int64_t n_pix, int64_t n_valid,
     const float* __restrict__ centroids, int kp, int k_active,
     const float* __restrict__ gtab_in, const float* __restrict__ weight, int stats,
     float* __restrict__ partials) {
-  constexpr bool kExact = Tier == kTierExact;
+  constexpr int P = tile_pixels(Metric, Tier);
   extern __shared__ float4 smem4[];
   // cent4 [kp] (L, a, b, chroma); the factorized and pruned tiers' padded
   // feature table g [2 kp]; then each warp's accumulator [kp * stats].
@@ -200,14 +231,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lloyd_tile_kernel(
   const bool cents_ok = __syncthreads_and(staged_ok);
 
   float* warp_acc = acc + (threadIdx.x / 32) * kp * stats;
-  if constexpr (kExact && Metric == kMetricCie94) {
-    // The register tile: kTilePixels pixels a thread, as runs of 4
-    // consecutive pixels (run q at p0 + q * 4 * kThreads), each run one
-    // 16-byte load a plane.
-    constexpr int kRuns = kTilePixels / 4;
-    const int64_t n_tiles = n_pix / (kThreads * kTilePixels);
+  if constexpr (P > 0) {
+    // The register tile: P pixels a thread, as runs of 4 consecutive
+    // pixels (run q at p0 + q * 4 * kThreads), each run one 16-byte load
+    // a plane, and one reduction a tile.
+    constexpr int kRuns = P / 4;
+    const int64_t n_tiles = n_pix / (kThreads * P);
     for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int64_t p0 = tile * kThreads * kTilePixels + 4 * threadIdx.x;
+      const int64_t p0 = tile * kThreads * P + 4 * threadIdx.x;
       float4 l4[kRuns], a4[kRuns], b4[kRuns], w4[kRuns];
 #pragma unroll
       for (int q = 0; q < kRuns; ++q) {
@@ -218,32 +249,47 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lloyd_tile_kernel(
         w4[q] = weight ? *reinterpret_cast<const float4*>(weight + p)
                        : make_float4(1.0f, 1.0f, 1.0f, 1.0f);
       }
-      Cie94Pixel px[kTilePixels];
-      Closest best[kTilePixels];
+      float l[P], a[P], b[P];
 #pragma unroll
-      for (int s = 0; s < kTilePixels; ++s) {
-        const float a = lane_of(a4[s / 4], s % 4), b = lane_of(b4[s / 4], s % 4);
-        px[s] = cie94_pixel(lane_of(l4[s / 4], s % 4), a, b, kmeans::chroma(a, b));
+      for (int s = 0; s < P; ++s) {
+        l[s] = lane_of(l4[s / 4], s % 4);
+        a[s] = lane_of(a4[s / 4], s % 4);
+        b[s] = lane_of(b4[s / 4], s % 4);
       }
-      scan_exact_tile<Metric, kTilePixels>(px, best, cent4, k_active, 0, cents_ok);
-      int best_k[kTilePixels];
-      float v[kTilePixels][5];
+      Closest best[P];
+      if constexpr (Tier == kTierExact) {
+        Cie94Pixel px[P];
 #pragma unroll
-      for (int s = 0; s < kTilePixels; ++s) {
+        for (int s = 0; s < P; ++s) {
+          px[s] = cie94_pixel(l[s], a[s], b[s], kmeans::chroma(a[s], b[s]));
+        }
+        scan_exact_tile<Metric, P>(px, best, cent4, k_active, 0, cents_ok);
+      } else {
+        static_assert(Tier == kTierFactor, "the tiled tiers: exact CIE94, factorized");
+        ScreenFactors f[P];
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+          f[s] = screen_factors(l[s], a[s], b[s], kmeans::chroma(a[s], b[s]));
+        }
+        scan_factor_tile<P>(f, best, g, k_active);
+      }
+      int best_k[P];
+      float v[P][5];
+#pragma unroll
+      for (int s = 0; s < P; ++s) {
         const float w = lane_of(w4[s / 4], s % 4);
         const int64_t p = p0 + (s / 4) * 4 * kThreads + s % 4;
         best_k[s] = p >= n_valid ? -1 : best[s].k;
-        v[s][0] = __fmul_rn(px[s].l, w);
-        v[s][1] = __fmul_rn(px[s].a, w);
-        v[s][2] = __fmul_rn(px[s].b, w);
+        v[s][0] = __fmul_rn(l[s], w);
+        v[s][1] = __fmul_rn(a[s], w);
+        v[s][2] = __fmul_rn(b[s], w);
         v[s][3] = w;
         v[s][4] = __fmul_rn(best[s].d, w);
       }
-      warp_group_add<kTilePixels>(warp_acc, stats, best_k, v);
+      warp_group_add<P>(warp_acc, stats, best_k, v);
     }
   } else {
-    // One pixel at a time: exact CIEDE2000 (its library calls leave no
-    // registers for a tile; `scan_exact_tile` with P = 1) and the fast
+    // One pixel at a time: exact CIEDE2000, the algebraic and the pruned
     // tiers. Pixel j of a thread lies at threadIdx.x + j * kThreads.
     const int64_t n_tiles = n_pix / kTile;
     for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -255,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lloyd_tile_kernel(
         const float b = load_plane(planes, bf16, 2 * n_pix + p);
         const float w = weight ? weight[p] : 1.0f;
         Closest best[1];
-        if constexpr (kExact) {
+        if constexpr (Tier == kTierExact) {
           const Cie94Pixel px[1] = {cie94_pixel(l, a, b, kmeans::chroma(a, b))};
           scan_exact_tile<Metric, 1>(px, best, cent4, k_active, 0, cents_ok);
         } else {
@@ -306,7 +352,8 @@ int kmeans_lloyd_grid_blocks(int64_t n_pix) {
 
 // Launches both kernels on `stream` and returns the first launch error
 // (0 on success). All pointers are device pointers: planes [3 * n_pix]
-// f32 (bf16 = 0) or bf16 bits (bf16 = 1), n_pix a multiple of 1024;
+// f32 (bf16 = 0) or bf16 bits (bf16 = 1), n_pix a multiple of 1024 and of
+// kThreads times the tier's register tile (`pack_lab_planes` pads to 16384);
 // centroids [kp * 3] f32; metric 0 (CIE94) or 1 (CIEDE2000); tier 0
 // (exact), 1 (factorized, CIE94, stats 4 only: its best distance is a
 // rank), 2 (algebraic, CIE94) or 3 (pruned, CIEDE2000, prune_m 8 or 16);
@@ -322,7 +369,9 @@ int kmeans_lloyd_accumulate(const void* planes, int bf16, int64_t n_pix,
                             void* partials, int n_blocks, void* out,
                             void* stream) {
   using namespace kmeans;
-  if (n_pix % kTile != 0 || (stats != 4 && stats != 5) ||
+  const int tile = tile_pixels(metric, tier);
+  if (n_pix % kTile != 0 || (tile > 0 && n_pix % (kThreads * tile) != 0) ||
+      (stats != 4 && stats != 5) ||
       n_blocks != kmeans_lloyd_grid_blocks(n_pix) ||
       !tier_args_valid(metric, tier, gtab, prune_m, /*algebraic_ok=*/true) ||
       (tier == kTierFactor && stats != 4)) {

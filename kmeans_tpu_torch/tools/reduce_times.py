@@ -1,7 +1,7 @@
 """Time the port's main path, end to end, for one or more checkouts on a
 card, in turns.
 
-    python3 kmeans_tpu_torch/tools/reduce_times.py [--rounds N] [CHECKOUT ...]
+    python3 kmeans_tpu_torch/tools/reduce_times.py [--rounds N] [--fast-palette] [CHECKOUT ...]
 
 runs, for each CHECKOUT in the order given (default: this file's
 checkout), a fresh Python process that imports that checkout's
@@ -17,6 +17,11 @@ both in turns, `PARENT . . PARENT`: host time moves between calls and
 machines, so only turns inside one call compare. Each turn prints one
 JSON line per mode: the checkout, the card's name and power limit, the
 median milliseconds and each call's, and the median of each phase.
+
+`--fast-palette` times instead the fast slice's heaviest full-resolution
+call, `ImageProcessor(device="cuda", fast=True, train_max_size=None,
+delta_e="2000").palette(256, image)` (one pruned-CIEDE2000 accumulator
+launch a Lloyd iteration), with its launches and iterations.
 """
 
 import argparse
@@ -45,7 +50,7 @@ def synthetic_image(height: int, width: int, seed: int = 0):
     return np.concatenate([rgb, np.full((height, width, 1), 255, np.uint8)], axis=-1)
 
 
-def one_turn(checkout: str, rounds: int, card: str) -> None:
+def one_turn(checkout: str, rounds: int, card: str, fast_palette: bool = False) -> None:
     """Time one checkout (an absolute path) in this process, its package
     first on the path."""
     sys.path.insert(0, checkout)
@@ -53,6 +58,9 @@ def one_turn(checkout: str, rounds: int, card: str) -> None:
     from kmeans_tpu_torch.utils.profiling import collect_phases
 
     image = synthetic_image(2160, 3840)
+    if fast_palette:
+        time_fast_palette(checkout, rounds, card, image)
+        return
     proc = ImageProcessor(device="cuda")
     modes = {"replace": ReduceMode.REPLACE, "meld": ReduceMode.MELD}
     runs = {mode: [] for mode in modes}
@@ -75,15 +83,42 @@ def one_turn(checkout: str, rounds: int, card: str) -> None:
         }), flush=True)
 
 
+def time_fast_palette(checkout: str, rounds: int, card: str, image) -> None:
+    """The full-resolution `palette(256)` under `delta_e="2000"` and
+    `fast=True`: median host milliseconds of the warm calls (each ends in
+    its readback), its accumulator launches and Lloyd iterations."""
+    from kmeans_tpu_torch import ImageProcessor
+    from kmeans_tpu_torch.ops import kernels
+
+    proc = ImageProcessor(device="cuda", fast=True, train_max_size=None, delta_e="2000")
+    runs = []
+    for _ in range(rounds):
+        before = kernels.launches("lloyd_accumulate")
+        t0 = time.perf_counter()
+        proc.palette(256, image)
+        runs.append(((time.perf_counter() - t0) * 1e3,
+                     kernels.launches("lloyd_accumulate") - before))
+    warm = runs[1:]
+    print(json.dumps({
+        "checkout": checkout, "card": card,
+        "what": f"palette(256) 3840x2160 fast, delta_e=2000, full resolution, median of "
+                f"{len(warm)} warm",
+        "e2e_ms": statistics.median(r[0] for r in warm), "e2e_ms_each": [r[0] for r in warm],
+        "lloyd_launches_each": [r[1] for r in warm], "iterations": proc.last_iterations,
+    }), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("checkouts", nargs="*", default=[str(ROOT)])
     parser.add_argument("--rounds", type=int, default=8)
+    parser.add_argument("--fast-palette", action="store_true",
+                        help="time the full-resolution fast palette(256) under CIEDE2000")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     parser.add_argument("--card", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:
-        one_turn(args.one, args.rounds, args.card)
+        one_turn(args.one, args.rounds, args.card, args.fast_palette)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -92,7 +127,8 @@ def main() -> int:
     for checkout in args.checkouts:
         path = str(Path(checkout).resolve())
         subprocess.run([sys.executable, __file__, "--one", path, "--rounds",
-                        str(args.rounds), "--card", card], check=True, cwd=path)
+                        str(args.rounds), "--card", card]
+                       + (["--fast-palette"] if args.fast_palette else []), check=True, cwd=path)
     return 0
 
 

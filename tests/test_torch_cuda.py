@@ -903,6 +903,75 @@ def test_fast_accumulator_adversarial(cuda, k, case, metric):
         assert (err[finite] <= bound[finite]).all()
 
 
+# The fast accumulator tiers on register tiles: metric, inertia column.
+FAST_TIERS = {"factor": ("cie94", False), "prune": ("cie2000", True)}
+
+
+def _fast_tile_case(tier, planes, cents, n_valid, k_active=None, weight=None):
+    """One fast accumulator launch twice against the twin: counts equal, the
+    other columns within 1e-5 * (|twin| + 128 * count), equal totals."""
+    metric, inertia = FAST_TIERS[tier]
+    args = (planes, cents, n_valid, k_active, weight, metric, inertia)
+    before = kernels.LAUNCHES_BY_MODE["lloyd_accumulate", metric, tier]
+    got = kernels.lloyd_accumulate(*args, fast=True)
+    again = kernels.lloyd_accumulate(*args, fast=True)
+    want = kernels.lloyd_accumulate_reference(*args, fast=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES_BY_MODE["lloyd_accumulate", metric, tier] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, 3], want[:, 3])
+    bound = 1e-5 * (want.double().abs() + 128.0 * want[:, 3:4].double())
+    assert ((got.double() - want.double()).abs() <= bound).all()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residue", range(8))
+@pytest.mark.parametrize("tier", sorted(FAST_TIERS))
+def test_fast_accumulator_tile_residues(cuda, tier, residue):
+    """The register tiles' edges: `n_valid` at every residue of an 8-pixel
+    tile (a 4-pixel one twice), mid-block, over planes whose pixels past
+    it are real colours, so that padding drops out by its index alone."""
+    planes, cents, _ = _planes(3 * 16384, 64 if tier == "prune" else 40, 4100 + residue, cuda)
+    n_valid = 16384 + 4 * 256 * 3 + 8 * 17 + residue
+    got = _fast_tile_case(tier, planes, cents, n_valid)
+    assert got[:, 3].sum() == n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,k_active,weighted,bf16", [
+    (17, 5, True, False), (129, None, False, True), (256, 12, True, True),
+    (512, None, True, False)])
+@pytest.mark.parametrize("tier", sorted(FAST_TIERS))
+def test_fast_accumulator_tiles_across_palettes(cuda, tier, k, k_active, weighted, bf16):
+    """kp = 17, 129, 256 and 512 (m = 8 and 16 under prune), `k_active`
+    below m (slots never filled), a weight plane, bfloat16 planes."""
+    planes, cents, n = _planes(70_001, k, 4200 + k, cuda, bf16)
+    rng = np.random.default_rng(4300 + k)
+    w = (kernels.pack_plane(torch.from_numpy(rng.integers(0, 4, n).astype(np.float32)).to(cuda))
+         if weighted else None)
+    _fast_tile_case(tier, planes, cents, n, k_active, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(FAST_TIERS))
+def test_fast_accumulator_tiles_on_two_streams(cuda, tier):
+    """kp = 256, a weight plane: two launches on two streams give equal
+    bits, counts equal to the twin's, sums within the bar."""
+    metric, inertia = FAST_TIERS[tier]
+    planes, cents, n = _planes(300_001, 256, 4400, cuda)
+    rng = np.random.default_rng(4401)
+    w = kernels.pack_plane(torch.from_numpy(rng.integers(0, 4, n).astype(np.float32)).to(cuda))
+    args = (planes, cents, n, None, w, metric, inertia)
+    outs = []
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            outs.append(kernels.lloyd_accumulate(*args, fast=True))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], _fast_tile_case(tier, planes, cents, n, None, w))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["cie94", "cie2000"])
 def test_meld_and_fast_assign_same_words_on_two_streams(cuda, metric):

@@ -135,8 +135,9 @@ def test_chip_smoke_tile_sizes_match_the_sources():
     """`chip_smoke.py` divides a centroid loop's length by the pixel-
     centroid pairs an iteration visits: its table must hold the sources'
     constants (the assign and meld kernels' `tile_pixels`, the
-    accumulator's `kTilePixels`; the pruned screen's two centroids of one
-    pixel a step of `screen.cuh::prune_screen`'s loop)."""
+    accumulator's `kTilePixels`, its exact CIE94 and factorized tiles; the
+    pruned screen's two centroids of one pixel a step of
+    `screen.cuh::prune_screen`'s loop)."""
     import re
     from pathlib import Path
 
@@ -162,4 +163,5 @@ def test_chip_smoke_tile_sizes_match_the_sources():
         "assign_kernel<0,0,0,": a94, "assign_kernel<1,0,0,": a2000, "assign_kernel<0,1,0,": a94,
         "assign_kernel<1,3,": step, "meld_kernel<0,0,0,0": m_exact, "meld_kernel<0,0,0,1": c94,
         "meld_kernel<1,0,0,": m_exact, "meld_kernel<0,1,0,": mf, "meld_kernel<1,3,": step,
-        "lloyd_tile_kernel<0,0": tile, "lloyd_tile_kernel<1,0": 1, "lloyd_tile_kernel<1,3,": step}
+        "lloyd_tile_kernel<0,0": tile, "lloyd_tile_kernel<0,1": tile, "lloyd_tile_kernel<1,0": 1,
+        "lloyd_tile_kernel<1,3,": step}
