@@ -270,7 +270,8 @@ METRIC_OPS = {"cie94": 18, "cie2000": 105}
 # accumulator's algebraic distance 13 (4 subtractions, 6 multiplies, 3
 # adds) and its compare: 14. Their pixel side is 20 operations (chroma 4;
 # `screen_factors` 16: S_C 2, S_H 2, rsh2 2, q 3, f0 1, f2, f4, f5 2 each)
-# where the exact forms have 9. The pruned tier needs at least
+# where the exact forms have 9; the algebraic distance reads only rsh2 and
+# q of them: 13. The pruned tier needs at least
 # the score and one compare against the list for every centroid (13), and
 # for each of its min(m, k_active) survivors one walk into the list (2 m
 # selects) and one exact CIEDE2000 distance (105). The reference's
@@ -279,7 +280,7 @@ METRIC_OPS = {"cie94": 18, "cie2000": 105}
 # counts only the walks that the result needs.
 SCREEN_OPS = 13
 ALGEBRAIC_OPS = 14
-PIXEL_OPS = {"exact": 9, "factor": 20, "algebraic": 20, "prune": 20}
+PIXEL_OPS = {"exact": 9, "factor": 20, "algebraic": 13, "prune": 20}
 
 
 def centroid_ops(metric: str, tier: str, kp: int, k_active: int) -> int:
@@ -829,7 +830,8 @@ def drive_fast(image, dev, device, lab_4k) -> dict:
     reduce, find and palette at k = 64 and 256 under both metrics, on the
     shrunk and the full-resolution training. Each path is driven with the
     launch counts set to 0 just before it and read just after; then each
-    output is held against the plain version's for the same palette.
+    output is held against the plain version's for the same palette, and
+    the algebraic accumulator against its twin at its tile's edges.
     Returns the launches of each path by kernel mode and the trained
     centroids."""
     import torch
@@ -912,6 +914,19 @@ def drive_fast(image, dev, device, lab_4k) -> dict:
         raise AssertionError(f"fast palette(256): shape {pal_256.shape}")
     if not 0.999 <= float(inertia_fast[:, 4].sum() / inertia_exact[:, 4].sum()) <= 1.001:
         raise AssertionError("the algebraic inertia is not the exact one to 1e-3")
+    # The algebraic register tile against its twin at its edges: n_valid
+    # off the tile (100,003 pixels), a weight plane, bf16 and float32
+    # planes, k_active < kp, kp = 512. Equal counts (the assignments'
+    # tallies) and the sums, the assigned distances' among them, within
+    # 1e-5 of scale.
+    edge_lab = random_lab(ACCUM_PIXELS, SEED + 1800, device)
+    for k, k_active, bf16 in ((512, 300, True), (64, 40, False)):
+        line = accum_case(edge_lab, k, device, k_active=k_active, weighted=True, inertia=True,
+                          bf16=bf16, fast=True)
+        emit({**line, "phase": "fast_slice_algebraic_vs_plain"})
+        if not (line["tier"] == "algebraic" and line["counts_equal"] and line["deterministic"]
+                and line["max_err_over_scale"] <= 1e-5):
+            raise AssertionError(f"the algebraic tile disagrees with its twin: {line}")
 
     find_lab = torch.from_numpy(_colors_to_lab(colors)).to(device)
     for mode, out in out94[0].items():
@@ -1638,6 +1653,12 @@ THRESHOLD_EVERY_STEP_KS = (8, 2048, 16384)
 THRESHOLD_FRAMES = 16
 GRID_FRAMES = 65_537  # past the 65,535 frames one grid's y extent holds
 MXU_RAGGED = (61, 97, 100)
+# factor-vpu's register tile (`kVpuTilePixels` in tools/csrc/exp_mxu.cu)
+# and the sizes that leave pixels past its last whole tile: 61x97 =
+# 5,917 pixels, 1x2053 = 8 x 256 + 5, 7x3 below one tile. The row slice
+# [1:] of the odd-width 61x97 image starts 4-byte, not 16-byte, aligned.
+VPU_TILE_PIXELS = 8
+VPU_RAGGED = ((61, 97), (1, 2053), (7, 3))
 # Float32 operations of one pixel into the factorized features: 33 into
 # Lab (as `assign_bound`) and `PIXEL_OPS["factor"]`.
 FEATURE_OPS = 33 + PIXEL_OPS["factor"]
@@ -1898,13 +1919,16 @@ def exp_mxu_vs_plain(device, card) -> dict:
     on the same data and on a ragged 61x97 k=100 case, factor-vpu against
     its twin (0 differing indices) and `assign_u8(fast=True)`, factor-mxu
     against its TF32 twin (each flip a near-tie); the kernels' and the
-    twins' times beside `argmin(feats @ G)` with TF32 off and on; then the
-    tool's own timing lines. Returns the k=64 figures for the kernels
-    line."""
+    twins' times beside `argmin(feats @ G)` with TF32 off and on; factor-vpu
+    against its twin at k = 64 and 256 on sizes past its last whole tile
+    (`VPU_RAGGED`) and on row slices that start off a 16-byte boundary,
+    and its launcher's refusal of such words; then the tool's own timing
+    lines. Returns the k=64 figures for the kernels line."""
     import torch
 
     from kmeans_tpu_torch.ops import kernels
-    from kmeans_tpu_torch.tools import exp_mxu
+    from kmeans_tpu_torch.ops.gamma_lut import gamma_lut
+    from kmeans_tpu_torch.tools import _exp, exp_mxu
 
     reset_launch_counts()
     tool_lines = exp_mxu.measure(device, smoke=False, reps=0)
@@ -1982,6 +2006,40 @@ def exp_mxu_vs_plain(device, card) -> dict:
         emit(line)
         if line["vpu_differing_vs_twin"] or line["vpu_differing_vs_assign_u8_fast"] or not near:
             failures.append(f"exp_mxu {h}x{w} k={kp}: {line}")
+    # factor-vpu alone at sizes that leave a tail past its last whole
+    # tile, and on a view that starts off a 16-byte boundary (the wrapper
+    # takes it through an aligned copy; the launcher refuses it).
+    rng = np.random.default_rng(SEED + 71)
+    for h, w in VPU_RAGGED:
+        img_r = torch.from_numpy(exp_mxu.random_image(h, w, rng)).to(device)
+        for kp in ks:
+            cents = torch.from_numpy(exp_mxu.random_centroids(kp, rng)).to(device)
+            views = [("whole", img_r)] + ([("rows [1:]", img_r[1:])] if h > 1 else [])
+            for what, view in views:
+                vpu = exp_mxu.factor_vpu(view, cents)
+                line = {"phase": "exp_mxu_vs_plain", "kernel": "factor_vpu", "h": h, "w": w,
+                        "k": kp, "view": what, "pixels": view.shape[0] * view.shape[1],
+                        "tail_pixels": view.shape[0] * view.shape[1] % (256 * VPU_TILE_PIXELS),
+                        "address_mod_16": view.data_ptr() % 16,
+                        "vpu_differing_vs_twin": int(
+                            (vpu != exp_mxu.factor_vpu_reference(view, cents)).sum())}
+                emit(line)
+                if line["vpu_differing_vs_twin"]:
+                    failures.append(f"exp_mxu factor_vpu: {line}")
+    h, w = VPU_RAGGED[0]
+    words = torch.from_numpy(exp_mxu.random_image(h, w, rng)).to(device)[1:].reshape(-1, 4)
+    words = words.view(torch.int32)
+    cents = torch.from_numpy(exp_mxu.random_centroids(ks[0], rng)).to(device)
+    out_r = torch.empty(words.shape[0], dtype=torch.uint8, device=device)
+    lib = _exp.load_exp_library()
+    refused = lib.exp_factor_vpu(words.data_ptr(), words.shape[0],
+                                 kernels.factor_g_table(cents).data_ptr(), cents.shape[0],
+                                 gamma_lut(device).data_ptr(), out_r.data_ptr(),
+                                 _exp.stream_of(out_r))
+    emit({"phase": "exp_mxu_vs_plain", "kernel": "factor_vpu",
+          "launcher_on_misaligned_words": lib.exp_error_string(refused).decode()})
+    if refused != exp_mxu.CUDA_ERROR_MISALIGNED_ADDRESS:
+        failures.append(f"factor_vpu's launcher took a misaligned image: {refused}")
     if failures:
         raise AssertionError("; ".join(failures))
     del flush
@@ -2101,15 +2159,15 @@ def update_cost(image, device, card) -> None:
 # visits, to turn the loop's length into instructions a pair: the pixels
 # of the register tiles of the exact and factorized tiers (`tile_pixels`
 # in csrc/quantize_assign.cu and csrc/quantize_meld.cu, `kTilePixels` in
-# csrc/lloyd_accumulate.cu for both; CIEDE2000 one pixel at a time), and
+# csrc/lloyd_accumulate.cu for all three; CIEDE2000 one pixel at a time), and
 # the two centroids an iteration of the pruned screen takes past its first
 # m (one pixel; its loop found by its warp vote, `SCREEN_LOOPS`; the count
 # holds the insertions a warp skips unless a lane needs one).
 LOOP_PAIRS = {"assign_kernel<0,0,0,": 2, "assign_kernel<1,0,0,": 1, "assign_kernel<0,1,0,": 2,
               "assign_kernel<1,3,": 2, "meld_kernel<0,0,0,0": 1, "meld_kernel<0,0,0,1": 4,
               "meld_kernel<1,0,0,": 1, "meld_kernel<0,1,0,": 4, "meld_kernel<1,3,": 2,
-              "lloyd_tile_kernel<0,0": 8, "lloyd_tile_kernel<0,1": 8, "lloyd_tile_kernel<1,0": 1,
-              "lloyd_tile_kernel<1,3,": 2}
+              "lloyd_tile_kernel<0,0": 8, "lloyd_tile_kernel<0,1": 8, "lloyd_tile_kernel<0,2": 8,
+              "lloyd_tile_kernel<1,0": 1, "lloyd_tile_kernel<1,3,": 2}
 # The pruned accumulator's blocks an SM must hold (`kPruneMinBlocks` in
 # csrc/lloyd_accumulate.cu, its `__launch_bounds__`).
 LLOYD_PRUNE_MIN_BLOCKS = 4
@@ -2122,8 +2180,9 @@ ADVERSARIAL = ("duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_acti
 # output mode) and the meld kernel scan a register tile of pixels against
 # 16-byte centroid loads, CIE94 dividing through hoisted reciprocals
 # (CIEDE2000 one pixel at a time), the pruned tier screening by packed
-# keys; the accumulator's tiers all sum by warp groups, its exact CIE94
-# and factorized tiers once a register tile.
+# keys; the accumulator's tiers all sum by warp groups, its exact CIE94,
+# factorized and algebraic tiers once a register tile; factor-vpu scores a
+# register tile against padded feature rows.
 def design_of(name: str) -> str:
     if name.startswith("meld"):
         if "chunked" in name:
@@ -2146,11 +2205,17 @@ def design_of(name: str) -> str:
     if name == "lloyd_accumulate[fast cie94, factorized]":
         return (f"register tile of {LOOP_PAIRS['lloyd_tile_kernel<0,1']} pixels, padded "
                 "feature rows, one warp-group sum a tile")
+    if name == "lloyd_accumulate[fast cie94, algebraic]":
+        return (f"register tile of {LOOP_PAIRS['lloyd_tile_kernel<0,2']} pixels, 16-byte "
+                "centroid loads, one warp-group sum a tile")
     if name == "lloyd_accumulate[fast cie2000, pruned]":
         return (f"one pixel at a time, keyed screen, warp-group sums, {LLOYD_PRUNE_MIN_BLOCKS} "
                 "blocks an SM (64 registers): the grid resident at once")
     if name.startswith("lloyd_accumulate"):
         return "one pixel at a time, warp-group sums"
+    if name == "exp_factor_vpu":
+        return (f"experiment tool: register tile of {VPU_TILE_PIXELS} pixels, padded "
+                "feature rows, one 32-bit store a run")
     if name.startswith("exp_"):
         return "experiment tool"
     if name == "dither_threshold":
@@ -2186,23 +2251,33 @@ def compiler_report(lib_path, ptxas) -> None:
 
 # The loop each kernel below is read by: the threshold's round loop of one
 # warp by its vote and the five square roots of its two distances (three
-# chromas, two distances), factor-mxu's step loop by its warpgroup MMA.
-LOOP_OPCODES = {"dither_threshold_kernel": "VOTE+MUFU.RSQ*5", "factor_mxu_kernel": "HGMMA"}
+# chromas, two distances), factor-mxu's step loop by its warpgroup MMA,
+# factor-vpu's centroid loop by its feature-row load and the six products
+# of each pixel of its tile (the tail's one-pixel loop has six).
+LOOP_OPCODES = {"dither_threshold_kernel": "VOTE+MUFU.RSQ*5", "factor_mxu_kernel": "HGMMA",
+                "factor_vpu_kernel": f"LDS.128+FMUL*{6 * VPU_TILE_PIXELS}"}
 
 
 def scan_report(rows) -> None:
     """`sass` lines of the threshold and factor-mxu kernels (compiled
     alone): `ptxas` resources and warnings, every opcode's count, and the
-    round loop. Fails unless factor-mxu issues `HGMMA` (Hopper's
-    `wgmma.mma_async`) and the threshold's round loop votes."""
+    round loop; factor-vpu's centroid loop and its instructions a pair.
+    Fails unless factor-mxu issues `HGMMA` (Hopper's `wgmma.mma_async`)
+    and the threshold's round loop votes, or if factor-vpu spills."""
     found = set()
     for row in rows:
+        if row["kernel"].startswith("factor_vpu_kernel") and row["loop"]:
+            row = {**row, "pairs_per_iteration": VPU_TILE_PIXELS,
+                   "instructions_per_pair": row["loop"]["instructions"] / VPU_TILE_PIXELS}
         emit({"phase": "sass", **row})
         if row["kernel"].startswith("factor_mxu_kernel") and any(
                 op.startswith("HGMMA") for op in row["kernel_opcodes"]):
             found.add("HGMMA")
         if row["kernel"].startswith("dither_threshold_kernel") and row["loop"]:
             found.add("VOTE")
+        if row["kernel"].startswith("factor_vpu_kernel") and (
+                row.get("spill_store_bytes") or row.get("spill_load_bytes")):
+            raise AssertionError(f"factor_vpu_kernel spills: {row}")
     if found != {"HGMMA", "VOTE"}:
         raise AssertionError(f"sass: found {sorted(found)} of HGMMA (factor-mxu) and VOTE "
                              f"(the threshold's round loop)")

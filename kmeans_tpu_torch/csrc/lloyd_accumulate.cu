@@ -21,12 +21,13 @@
 //   pixel p of channel c lies at c * n_pix + p. Pixels p >= n_valid are
 //   padding and drop out by their index, never by their (zero) value.
 // - A fixed grid of at most kMaxBlocks blocks walks the tiles (block b
-//   takes tiles b, b + grid, ...). Under exact CIE94 and the factorized
-//   tier a tile is kThreads register tiles of `tile_pixels` pixels, which
-//   a thread reads as runs of 4 with one 16-byte load a plane (8 bytes of
-//   bfloat16), keeps in registers and adds to the accumulator by one
-//   reduction a tile; otherwise a tile is kThreads * kPixPerThread pixels,
-//   taken one at a time.
+//   takes tiles b, b + grid, ...). Under exact CIE94, the factorized and
+//   the algebraic tier a tile is kThreads register tiles of `tile_pixels`
+//   pixels, which a thread reads as runs of 4 with one 16-byte load a
+//   plane (8 bytes of bfloat16), keeps in registers and adds to the
+//   accumulator by one reduction a tile; under exact CIEDE2000 and the
+//   pruned tier a tile is kThreads * kPixPerThread pixels, taken one at a
+//   time.
 // - The exact CIE94 assignment is screen.cuh::scan_exact_tile: the
 //   centroid loop outermost over the thread's pixels, one 16-byte shared
 //   load of (L, a, b, chroma) a centroid, and the divides through the
@@ -36,11 +37,14 @@
 //   library calls leave no registers for a tile). The factorized tier is
 //   screen.cuh::scan_factor_tile: the centroid loop outermost, two 16-byte
 //   loads of a padded feature row serve the tile's pixels. The algebraic
-//   and pruned tiers take screen.cuh::scan_centroids one pixel at a time,
-//   the pruned one with the keyed screen (screen.cuh::prune_screen); its
-//   candidate list and CIEDE2000 calls leave no registers for a tile, and
-//   it is bound to 64 registers (kPruneMinBlocks), so that an SM holds
-//   all of its share of the grid at kp <= 256.
+//   tier is screen.cuh::scan_algebraic_tile: the centroid loop outermost,
+//   one 16-byte load of (L, a, b, chroma) serves the tile's pixels, each
+//   held as (L, a, b, chroma, rsh2, q). The pruned tier takes
+//   screen.cuh::scan_centroids one pixel at a time with the keyed screen
+//   (screen.cuh::prune_screen); its candidate list and CIEDE2000 calls
+//   leave no registers for a tile, and it is bound to 64 registers
+//   (kPruneMinBlocks), so that an SM holds all of its share of the grid
+//   at kp <= 256.
 // - The reduction is deterministic, uses no atomics and costs O(1) a
 //   pixel (`warp_group_add`): each warp owns an accumulator [kp, stats] in
 //   shared memory; for each pixel slot the lanes with the same cluster
@@ -82,9 +86,14 @@
 // rate, and the reduction a few dozen a pixel, which weighs most at small
 // k. The fast tiers: the factorized score and compare is 13 operations a
 // pair (16 instructions in the 8-pixel tile, the score's order fixed by
-// exactness: each product rounded before its add), so what the tile cuts
-// is the shared loads of the feature rows a pixel, the global loads and the
-// reduction a pixel. The pruned tier's time is in the screen's score a centroid
+// exactness: each product rounded before its add), the algebraic distance
+// and compare 14 (about 16.5 instructions in its 8-pixel tile), so what
+// the tiles cut is the shared loads a pair, the loop overhead, the global
+// loads and the reduction a pixel. The library is built with
+// `--fmad=false`, so each operation is one issue slot: the card issues
+// about 33.5 T instructions a second (132 SMs x 128 lanes x 1.98 GHz),
+// half the 67 TFLOP/s the bound is taken at, which counts an FMA as two,
+// and 50% of that bound is these FMA-free tiers' ceiling. The pruned tier's time is in the screen's score a centroid
 // and the m exact CIEDE2000 distances of each pixel (library calls, IEEE
 // divides and square roots, each with a slow-path branch); at m = 16 its
 // registers decide how many of the grid's blocks an SM holds at once.
@@ -103,10 +112,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPixPerThread = 4;  // pixels a thread takes one at a time
 constexpr int kTile = kThreads * kPixPerThread;
-// Pixels a thread keeps in registers under exact CIE94 and under the
-// factorized tier (a multiple of 4: runs of one 16-byte load). Their tiles
-// are kThreads times as many pixels; the grid is sized on kTile, so a
-// block may find none.
+// Pixels a thread keeps in registers under exact CIE94, the factorized and
+// the algebraic tier (a multiple of 4: runs of one 16-byte load). Their
+// tiles are kThreads times as many pixels; the grid is sized on kTile, so
+// a block may find none.
 constexpr int kTilePixels = 8;
 // Blocks an SM must hold (`__launch_bounds__`): 2, and under the pruned
 // tier 4, which holds its instances to 64 registers: at kp <= 256, where
@@ -117,11 +126,13 @@ constexpr int kPruneMinBlocks = 4;
 constexpr int kMaxBlocks = 528;  // 4 blocks on each of the H100's 132 SMs
 
 // The register tile of (metric, tier), or 0 where pixels go one at a time
-// (exact CIEDE2000, whose library calls leave no registers for a tile, the
-// algebraic tier and the pruned tier, whose screen leaves none either).
+// (exact CIEDE2000, whose library calls leave no registers for a tile, and
+// the pruned tier, whose screen leaves none either).
 __host__ __device__ constexpr int tile_pixels(int metric, int tier) {
-  return tier == kTierFactor || (tier == kTierExact && metric == kMetricCie94) ? kTilePixels
-                                                                                : 0;
+  return tier == kTierFactor || tier == kTierAlgebraic ||
+                 (tier == kTierExact && metric == kMetricCie94)
+             ? kTilePixels
+             : 0;
 }
 __host__ __device__ constexpr int min_blocks(int tier) {
   return tier == kTierPrune ? kPruneMinBlocks : kMinBlocks;
@@ -264,14 +275,20 @@ __global__ void __launch_bounds__(kThreads, min_blocks(Tier)) lloyd_tile_kernel(
           px[s] = cie94_pixel(l[s], a[s], b[s], kmeans::chroma(a[s], b[s]));
         }
         scan_exact_tile<Metric, P>(px, best, cent4, k_active, 0, cents_ok);
-      } else {
-        static_assert(Tier == kTierFactor, "the tiled tiers: exact CIE94, factorized");
+      } else if constexpr (Tier == kTierFactor) {
         ScreenFactors f[P];
 #pragma unroll
         for (int s = 0; s < P; ++s) {
           f[s] = screen_factors(l[s], a[s], b[s], kmeans::chroma(a[s], b[s]));
         }
         scan_factor_tile<P>(f, best, g, k_active);
+      } else {
+        static_assert(Tier == kTierAlgebraic,
+                      "the tiled tiers: exact CIE94, factorized, algebraic");
+        AlgebraicPixel px[P];
+#pragma unroll
+        for (int s = 0; s < P; ++s) px[s] = algebraic_pixel(l[s], a[s], b[s]);
+        scan_algebraic_tile<P>(px, best, cent4, k_active);
       }
       int best_k[P];
       float v[P][5];
@@ -289,8 +306,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(Tier)) lloyd_tile_kernel(
       warp_group_add<P>(warp_acc, stats, best_k, v);
     }
   } else {
-    // One pixel at a time: exact CIEDE2000, the algebraic and the pruned
-    // tiers. Pixel j of a thread lies at threadIdx.x + j * kThreads.
+    // One pixel at a time: exact CIEDE2000 and the pruned tier. Pixel j of
+    // a thread lies at threadIdx.x + j * kThreads.
     const int64_t n_tiles = n_pix / kTile;
     for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
 #pragma unroll 1

@@ -375,48 +375,35 @@ struct TwoClosest {
   }
 };
 
-// One pixel's pass over the first k_active centroids under a fast Tier:
-// `carry->update(d, k)` sees each visited centroid once. `c1` is the
-// pixel's chroma; `cent` [kp] (L, a, b, chroma) and `g` (the padded
-// feature table, `row_score`) are the staged tables. d is the squared
-// distance under the algebraic and pruned tiers and the factorized score
-// (a rank, no distance) under kTierFactor. The factorized and algebraic
-// tiers visit every centroid in index order. Under kTierPrune
-// only the M survivors of the screen are visited, in screening-rank order,
-// so a carry with strict `<` gives a tie between exact distances to the
-// better rank, not the lower index; slots never filled (fewer than M
-// active centroids) end the visit (kmeans_tpu/ops/kernels.py:903-936,
-// 1010-1018).
+// One pixel's pass under the pruned tier: `carry->update(d, k)` sees the
+// M survivors of the screen (`prune_screen` over the first k_active rows
+// of the padded feature table `g`, `row_score`) in screening-rank order,
+// d their exact squared CIEDE2000 distance to the staged centroids `cent`
+// [kp] (L, a, b, chroma); `c1` is the pixel's chroma. A carry with strict
+// `<` gives a tie between exact distances to the better rank, not the
+// lower index; slots never filled (fewer than M active centroids) end the
+// visit (kmeans_tpu/ops/kernels.py:903-936, 1010-1018). The other tiers
+// scan register tiles (`scan_exact_tile`, `scan_factor_tile`,
+// `scan_algebraic_tile`).
 template <int Metric, int Tier, int M, typename Carry>
 __device__ __forceinline__ void scan_centroids(float l, float a, float b, float c1,
                                                const float4* __restrict__ cent,
                                                const float4* __restrict__ g, int k_active,
                                                Carry* carry) {
+  static_assert(Tier == kTierPrune, "the other tiers scan register tiles");
   // Pixel-side terms, hoisted out of the centroid loop
   // (kmeans_tpu/ops/kernels.py:823-826, 863, 1356).
-  if constexpr (Tier == kTierPrune) {
-    const ScreenFactors f = screen_factors(l, a, b, c1);
-    TopM<M> top;
-    prune_screen<M>(f, g, k_active, &top);
+  const ScreenFactors f = screen_factors(l, a, b, c1);
+  TopM<M> top;
+  prune_screen<M>(f, g, k_active, &top);
 #pragma unroll 1
-    for (int j = 0; j < M; ++j) {
-      float sd;
-      int idx;
-      top.pop(&sd, &idx);
-      if (!(sd < kBigHalf)) break;
-      const float4 c = cent[idx];
-      carry->update(cie2000_sq(l, a, b, c1, c.x, c.y, c.z, c.w), idx);
-    }
-  } else if constexpr (Tier == kTierFactor) {
-    const ScreenFactors f = screen_factors(l, a, b, c1);
-    for (int k = 0; k < k_active; ++k) carry->update(row_score(f, g, k), k);
-  } else {
-    static_assert(Tier == kTierAlgebraic, "the exact tiers scan by `scan_exact_tile`");
-    const ScreenFactors f = screen_factors(l, a, b, c1);
-    for (int k = 0; k < k_active; ++k) {
-      const float4 c = cent[k];
-      carry->update(cie94_algebraic_sq(l, a, b, c1, f.rsh2, f.q, c.x, c.y, c.z, c.w), k);
-    }
+  for (int j = 0; j < M; ++j) {
+    float sd;
+    int idx;
+    top.pop(&sd, &idx);
+    if (!(sd < kBigHalf)) break;
+    const float4 c = cent[idx];
+    carry->update(cie2000_sq(l, a, b, c1, c.x, c.y, c.z, c.w), idx);
   }
 }
 
@@ -492,6 +479,40 @@ __device__ __forceinline__ void scan_factor_tile(const ScreenFactors (&f)[P], Ca
     const float4 g0 = g[2 * k], g1 = g[2 * k + 1];
 #pragma unroll
     for (int s = 0; s < P; ++s) carry[s].update(screen_score4(f[s], g0, g1), k);
+  }
+}
+
+// A pixel of the accumulator's algebraic tier: (L, a, b), its chroma `c1`
+// and `screen_factors`' rsh2 and q, the weights of `cie94_algebraic_sq`.
+struct AlgebraicPixel {
+  float l, a, b, c1, rsh2, q;
+};
+
+__device__ __forceinline__ AlgebraicPixel algebraic_pixel(float l, float a, float b) {
+  const float c1 = kmeans::chroma(a, b);
+  const ScreenFactors f = screen_factors(l, a, b, c1);
+  return AlgebraicPixel{l, a, b, c1, f.rsh2, f.q};
+}
+
+// The algebraic tier's register tile: P pixels against the first k_active
+// staged centroids `cent` [kp] (L, a, b, chroma), the centroid loop
+// outermost (one 16-byte shared load a centroid serves the P pixels), each
+// pixel's carry updated in index order with `cie94_algebraic_sq`, a true
+// squared distance (the accumulator's inertia column).
+template <int P, typename Carry>
+__device__ __forceinline__ void scan_algebraic_tile(const AlgebraicPixel (&px)[P],
+                                                    Carry (&carry)[P],
+                                                    const float4* __restrict__ cent,
+                                                    int k_active) {
+#pragma unroll 1
+  for (int k = 0; k < k_active; ++k) {
+    const float4 c = cent[k];
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      carry[s].update(cie94_algebraic_sq(px[s].l, px[s].a, px[s].b, px[s].c1, px[s].rsh2,
+                                         px[s].q, c.x, c.y, c.z, c.w),
+                      k);
+    }
   }
 }
 

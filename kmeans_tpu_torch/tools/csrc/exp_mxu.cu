@@ -13,11 +13,23 @@
 // reference writes i32 and the host casts it to u8). No k <= 16 gate, no
 // k_active, no dither.
 //
-// factor-vpu: one pixel per thread, the `[kp, 7]` G-table
-// (`factor_g_table`, the reference's `_g_table:143`) in shared memory, the
-// score `screen.cuh::screen_score` (each product rounded before its add,
-// left to right) and strict `<`, so the first minimum wins. Its bits equal
-// the twin's, `exp_mxu.py::factor_vpu_reference`.
+// factor-vpu: a register tile. Each thread keeps kVpuTilePixels pixels
+// as runs of 4 consecutive RGBA words (run q of a tile 4 * kThreads
+// pixels past run q - 1), each run one 16-byte load, converts them all
+// to Lab (`word_lab`) and then forms their factors
+// (`screen.cuh::screen_factors`). The `[kp, 7]`
+// G-table (`factor_g_table`, the reference's `_g_table:143`) is staged
+// padded to 8 columns (`stage_feature_rows`) beside the gamma table, and
+// `screen.cuh::scan_factor_tile` scores the tile with the centroid loop
+// outermost: two 16-byte shared loads of a row serve the tile's pixels.
+// The score is `screen_score4` (each product rounded before its add,
+// left to right) and each pixel's carry sees the centroids in index order
+// with strict `<`, so the first minimum wins and every index equals the
+// twin's, `exp_mxu.py::factor_vpu_reference`, bit for bit. A run's four
+// bytes go out as one 32-bit store. The pixels past the last whole tile
+// (n is any count) go one a thread through the same scan. The launcher
+// takes the image only at a 16-byte aligned address (the wrapper copies a
+// view that starts elsewhere, such as a row slice of an odd-width image).
 //
 // factor-mxu: the score as a matrix product on Hopper's warpgroup MMA.
 // Each pixel's eight features `[f0, 1, f2, q, f4, f5, rsh2, 0]` times the
@@ -52,13 +64,21 @@
 //
 // What bounds it on this card: per pixel it reads 4 B and writes 1 B
 // (41.5 MB at 4K, 12 us at 3.35 TB/s). factor-vpu does 13 float32
-// operations per centroid on CUDA cores (67 TFLOP/s): 0.10 ms at 4K
-// k = 64. factor-mxu leaves 16 TF32 flops a centroid to the tensor cores
-// (495 TFLOP/s) and the compare and select (an FSETP and two selects a
-// pixel-centroid pair) and each pixel's conversion (three `powf`, two
-// divides) to the CUDA cores, which set its pace. Persistent blocks (a
-// grid-stride loop) stage the gamma table and G once per block. Left for
-// later: TMA, a producer warp.
+// operations per centroid on CUDA cores (67 TFLOP/s counts an FMA as two):
+// 0.10 ms at 4K k = 64. The library is built with `--fmad=false`, so each
+// of them is one issue slot, and the card issues 132 SMs x 128 lanes x
+// 1.98 GHz, about 33.5 T instructions a second: half that bound's rate, so
+// 50% of the bound is the ceiling. The score, its compare and two selects
+// are 15 instructions a pair, which exactness fixes (no product fused into
+// its add); what the tile cuts is the rest: the shared loads of a row (one
+// pair of 16-byte loads a tile, not seven scalar loads a pixel), the loop
+// overhead, and the global loads and byte stores a pixel. factor-mxu
+// leaves 16 TF32 flops a centroid to the tensor cores (495 TFLOP/s) and
+// the compare and select (an FSETP and two selects a pixel-centroid pair)
+// and each pixel's conversion (three `powf`, two divides) to the CUDA
+// cores, which set its pace. Persistent blocks (a grid-stride loop) stage
+// the gamma table and G once per block. Left for later: TMA, a producer
+// warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,6 +98,10 @@ constexpr int kChunk = 64;      // centroids a wgmma scores (N)
 constexpr int kMxuBlocksPerSm = 2;
 constexpr int kGroups = kThreads / 128;  // warpgroups a factor-mxu block
 constexpr int kStepPixels = 128;         // pixels a warpgroup step: two 64-row tiles
+// factor-vpu's register tile (a multiple of 4: runs of one 16-byte load)
+// and the blocks an SM its `__launch_bounds__` asks for.
+constexpr int kVpuTilePixels = 8;
+constexpr int kVpuMinBlocks = 2;
 
 __device__ __forceinline__ void word_lab(uint32_t w, const float* lut, float* l, float* a,
                                          float* b) {
@@ -90,32 +114,61 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-__global__ void factor_vpu_kernel(const uint32_t* __restrict__ rgba, int64_t n,
-                                  const float* __restrict__ gtab_in, int kp,
-                                  const float* __restrict__ gamma_lut,
-                                  uint8_t* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* lut = smem;        // [256]
-  float* gtab = smem + 256; // [kp * 7]
+// The factors of one RGBA word (R in the low byte).
+__device__ __forceinline__ ScreenFactors word_factors(uint32_t w, const float* lut) {
+  float l, a, b;
+  word_lab(w, lut, &l, &a, &b);
+  return screen_factors(l, a, b, chroma(a, b));
+}
+
+__global__ void __launch_bounds__(kThreads, kVpuMinBlocks)
+    factor_vpu_kernel(const uint32_t* __restrict__ rgba, int64_t n,
+                      const float* __restrict__ gtab_in, int kp,
+                      const float* __restrict__ gamma_lut, uint8_t* __restrict__ out) {
+  extern __shared__ float4 smem_vpu[];
+  float4* g = smem_vpu;                                       // [2 kp] padded rows
+  float* lut = reinterpret_cast<float*>(smem_vpu + 2 * kp);  // [256]
   for (int i = threadIdx.x; i < 256; i += blockDim.x) lut[i] = gamma_lut[i];
-  for (int i = threadIdx.x; i < kGCols * kp; i += blockDim.x) gtab[i] = gtab_in[i];
+  stage_feature_rows(gtab_in, g, kp);
   __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; p < n;
-       p += stride) {
-    float l, a, b;
-    word_lab(rgba[p], lut, &l, &a, &b);
-    const ScreenFactors f = screen_factors(l, a, b, chroma(a, b));
-    float best_d = kBig;
-    int best_k = 0;
-    for (int k = 0; k < kp; ++k) {
-      const float s = screen_score(f, gtab + kGCols * k);
-      if (s < best_d) {
-        best_d = s;
-        best_k = k;
-      }
+  constexpr int P = kVpuTilePixels;
+  const int64_t n_tiles = n / (kThreads * P);
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t p0 = tile * kThreads * P + 4 * threadIdx.x;
+    // Every pixel to Lab first, then the factors: converting and factoring
+    // pixel by pixel let the compiler recompute one pixel's reciprocal in
+    // each pass of the centroid loop (145 instructions a pass, not 126).
+    float l[P], a[P], b[P];
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q) {
+      const uint4 w = *reinterpret_cast<const uint4*>(rgba + p0 + q * 4 * kThreads);
+      word_lab(w.x, lut, &l[4 * q], &a[4 * q], &b[4 * q]);
+      word_lab(w.y, lut, &l[4 * q + 1], &a[4 * q + 1], &b[4 * q + 1]);
+      word_lab(w.z, lut, &l[4 * q + 2], &a[4 * q + 2], &b[4 * q + 2]);
+      word_lab(w.w, lut, &l[4 * q + 3], &a[4 * q + 3], &b[4 * q + 3]);
     }
-    out[p] = static_cast<uint8_t>(best_k);
+    ScreenFactors f[P];
+#pragma unroll
+    for (int s = 0; s < P; ++s) f[s] = screen_factors(l[s], a[s], b[s], chroma(a[s], b[s]));
+    Closest best[P];
+    scan_factor_tile<P>(f, best, g, kp);
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q) {
+      *reinterpret_cast<uint32_t*>(out + p0 + q * 4 * kThreads) =
+          static_cast<uint32_t>(best[4 * q].k) | static_cast<uint32_t>(best[4 * q + 1].k) << 8 |
+          static_cast<uint32_t>(best[4 * q + 2].k) << 16 |
+          static_cast<uint32_t>(best[4 * q + 3].k) << 24;
+    }
+  }
+  // The pixels past the last whole tile, one a thread.
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t p = n_tiles * kThreads * P + static_cast<int64_t>(blockIdx.x) * kThreads +
+                   threadIdx.x;
+       p < n; p += stride) {
+    const ScreenFactors f[1] = {word_factors(rgba[p], lut)};
+    Closest best[1];
+    scan_factor_tile<1>(f, best, g, kp);
+    out[p] = static_cast<uint8_t>(best[0].k);
   }
 }
 
@@ -225,9 +278,7 @@ __device__ __forceinline__ uint32_t step_word(const uint32_t* __restrict__ rgba,
 // The pixel's eight features, rounded to TF32, into its row of the warp's
 // staging (two 16-byte stores).
 __device__ __forceinline__ void stage_features(uint32_t word, const float* lut, float* row) {
-  float l, a, b;
-  word_lab(word, lut, &l, &a, &b);
-  const ScreenFactors f = screen_factors(l, a, b, chroma(a, b));
+  const ScreenFactors f = word_factors(word, lut);
   reinterpret_cast<float4*>(row)[0] =
       make_float4(__uint_as_float(to_tf32(f.f0)), 1.0f, __uint_as_float(to_tf32(f.f2)),
                   __uint_as_float(to_tf32(f.q)));
@@ -347,15 +398,23 @@ int grid_blocks(int64_t work_blocks, int per_sm) {
 extern "C" {
 
 // Launches factor-vpu on `stream`; returns the launch's cudaError_t (0 on
-// success). Device pointers: rgba [n] u32 RGBA words (R in the low byte);
-// gtab [kp * 7] f32 (`factor_g_table`); gamma_lut [256] f32; out [n] u8.
-// 1 <= kp <= 256. It allocates nothing and does not synchronise.
+// success). Device pointers: rgba [n] u32 RGBA words (R in the low byte),
+// 16-byte aligned; gtab [kp * 7] f32 (`factor_g_table`); gamma_lut [256]
+// f32; out [n] u8, 4-byte aligned. 1 <= kp <= 256. It refuses a
+// misaligned rgba or out (cudaErrorMisalignedAddress) and never reads one.
+// It allocates nothing and does not synchronise.
 int exp_factor_vpu(const void* rgba, int64_t n, const void* gtab, int kp,
                    const void* gamma_lut, void* out, void* stream) {
   if (n < 1 || kp < 1 || kp > 256) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (256 + kGCols * kp);
-  factor_vpu_kernel<<<grid_blocks((n + kThreads - 1) / kThreads, 8), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(rgba) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const size_t smem = sizeof(float) * (8 * kp + 256);
+  const int64_t tile = static_cast<int64_t>(kThreads) * kVpuTilePixels;
+  const int64_t tail_blocks = (n % tile + kThreads - 1) / kThreads;
+  const int64_t tiles = n / tile;
+  factor_vpu_kernel<<<grid_blocks(tiles > tail_blocks ? tiles : tail_blocks, kVpuMinBlocks),
+                      kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rgba), n, static_cast<const float*>(gtab), kp,
       static_cast<const float*>(gamma_lut), static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());

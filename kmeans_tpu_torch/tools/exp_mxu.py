@@ -10,8 +10,9 @@ The argmin of `F . G` is the fast tier's nearest centroid; the score is
 `<` (the first index on ties), over every centroid (no k <= 16 gate, no
 `k_active`, no dither). Two kernels (`tools/csrc/exp_mxu.cu`):
 
-- `factor_vpu` (the reference's `_factor_vpu_kernel:94`): one pixel per
-  thread on CUDA cores, the G-table in shared memory. Its twin
+- `factor_vpu` (the reference's `_factor_vpu_kernel:94`): a register
+  tile of pixels a thread on CUDA cores, the G-table in shared memory
+  (padded to 8 columns), the centroid loop outermost. Its twin
   `factor_vpu_reference` is the port's factorized argmin; the two are
   equal bit for bit, and equal `assign_u8(fast=True)` at 16 < k <= 256.
 - `factor_mxu` (the reference's `_factor_mxu_kernel:118`): each pixel's
@@ -74,6 +75,9 @@ NEAR_TIE = 2.0 ** -10
 # Pixels per slice of the tensor-core twin: bounds its [rows, KC] temporaries.
 _TWIN_ROWS = 1 << 20
 _BIG = 3.4e38
+# What `exp_factor_vpu` returns for RGBA words off a 16-byte boundary
+# (cudaErrorMisalignedAddress): it never reads them.
+CUDA_ERROR_MISALIGNED_ADDRESS = 716
 
 
 def _check(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor) -> None:
@@ -247,6 +251,11 @@ def factor_vpu(rgba_u8: torch.Tensor, centroids_lab: torch.Tensor) -> torch.Tens
     _launch_checks(rgba_u8, centroids_lab, "factor_vpu")
     lib = _exp.load_exp_library()
     words = _words(rgba_u8)
+    if words.data_ptr() % 16:
+        # The kernel reads runs of four words as one 16-byte load; a view
+        # that starts elsewhere (a row slice of an odd-width image) goes
+        # through an aligned copy.
+        words = words.clone()
     n, kp = words.shape[0], centroids_lab.shape[0]
     out = torch.empty(n, dtype=torch.uint8, device=rgba_u8.device)
     with torch.cuda.device(rgba_u8.device):

@@ -45,7 +45,8 @@ modes above; `--fast` adds `fast`):
   every-step palette per update ((t(16384) - t(8)) / 16376 of that
   checkout: one dependent round).
 - `mxu`: the experiment tool's factor-mxu and factor-vpu at k = 64 and
-  256 on the tool's data (`tools/exp_mxu.py`), each checkout through its
+  256 on the tool's data (`tools/exp_mxu.py`), and factor-vpu on the
+  trained CIE94 palettes above (`_trained_`), each checkout through its
   own tool module and its own `tools/csrc/` library. factor-mxu's TF32
   sums may flip near-ties between two kernels, so its lines give
   `flips_vs_first` and `flips_are_near_ties` against the first checkout
@@ -147,28 +148,47 @@ def add_fast(add, rgb, frames, planes, n_valid, palette, dev):
     # The palettes users meet: trained by `ImageProcessor` (the shrunk
     # training, no kernel) on `chip_smoke.py`'s 4K gradient-plus-noise
     # image, whose pixels the kernels then take.
-    from chip_smoke import synthetic_image
-    from kmeans_tpu_torch import Image, ImageProcessor
-
-    image = synthetic_image(2160, 3840)
+    image, palettes = trained_palettes(dev)
     grad = torch.from_numpy(np.ascontiguousarray(image[..., :3])).to(dev)
     grad_planes, grad_valid = kernels.pack_lab_planes(srgb8_to_lab(grad.reshape(-1, 3)))
     for k in (64, 256):
-        for metric, delta_e in (("cie94", "94"), ("cie2000", "2000")):
-            cents = ImageProcessor(device="cuda", delta_e=delta_e).extract_palette_kmeans(
-                Image((3840, 2160), image), k).contiguous()
+        for metric in ("cie94", "cie2000"):
+            cents = palettes[metric, k]
             add(f"assign_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
                 kernels.assign_packed(grad, c, 0.0, metric=m, fast=True), 5)
             add(f"meld_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
                 kernels.meld_packed(grad, c, metric=m, fast=True), 5)
             add(f"lloyd_fast_{metric}_trained_k{k}", lambda c=cents, m=metric:
                 kernels.lloyd_accumulate(grad_planes, c, grad_valid, metric=m, fast=True), 5)
+        add(f"lloyd_fast_cie94_inertia_trained_k{k}", lambda c=palettes["cie94", k]:
+            kernels.lloyd_accumulate(grad_planes, c, grad_valid, emit_inertia=True, fast=True), 5)
     cents = torch.stack([palette(64) for _ in range(16)])
     for metric in ("cie94", "cie2000"):
         add(f"assign_frames_fast_{metric}_k64", lambda c=cents, m=metric:
             kernels.assign_frames_packed(frames, c, 0.0, metric=m, fast=True), 3)
         add(f"meld_frames_fast_{metric}_k64", lambda c=cents, m=metric:
             kernels.meld_frames_packed(frames, c, metric=m, fast=True), 3)
+
+
+_TRAINED = {}
+
+
+def trained_palettes(dev):
+    """`chip_smoke.py`'s 4K gradient-plus-noise RGBA image (numpy) and the
+    palettes `ImageProcessor` trains on it, `{(metric, k): centroids}` at
+    k = 64 and 256 under both metrics; trained once a process."""
+    if not _TRAINED:
+        from chip_smoke import synthetic_image
+        from kmeans_tpu_torch import Image, ImageProcessor
+
+        image = synthetic_image(2160, 3840)
+        _TRAINED["image"] = image
+        for k in (64, 256):
+            for metric, delta_e in (("cie94", "94"), ("cie2000", "2000")):
+                _TRAINED[metric, k] = ImageProcessor(
+                    device="cuda", delta_e=delta_e).extract_palette_kmeans(
+                        Image((3840, 2160), image), k).contiguous()
+    return _TRAINED["image"], _TRAINED
 
 
 THRESHOLD_KS = (1, 8, 2048, 16384)
@@ -221,6 +241,12 @@ def add_mxu(add, dev) -> dict:
         add(f"factor_vpu_k{kp}", lambda mod, c=cents: mod.factor_vpu(img, c), 10, "exp")
         add(f"factor_mxu_k{kp}", lambda mod, c=cents: mod.factor_mxu(img, c), 10, "near_ties")
         data[f"factor_mxu_k{kp}"] = (img, cents)
+    # factor-vpu on the palettes users meet (`trained_palettes`, CIE94).
+    image, palettes = trained_palettes(dev)
+    grad = torch.from_numpy(image).to(dev)
+    for kp in exp_mxu.KS:
+        add(f"factor_vpu_trained_k{kp}", lambda mod, c=palettes["cie94", kp]:
+            mod.factor_vpu(grad, c), 10, "exp")
     return data
 
 

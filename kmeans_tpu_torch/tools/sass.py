@@ -12,11 +12,14 @@ pixel-centroid pair costs. Both need the CUDA
 toolkit (`nvcc`, `cuobjdump`); `chip_smoke.py` prints them on the card's
 machine. `kernel_report(source, opcodes)` compiles one source alone and
 gives, per kernel instance, its resources, the compiler's warnings, its
-opcode counts and the loop around a given opcode;
+opcode counts and the loop around a given opcode; `same_sass(source,
+other)` says, per kernel instance, whether two checkouts' copies of a
+source compile to the same instructions;
 
     python -m kmeans_tpu_torch.tools.sass SOURCE ... [--include DIR] [--loop NAME=OPCODE]
+    python -m kmeans_tpu_torch.tools.sass SOURCE ... --against OTHER ... [--against-include DIR]
 
-prints it for any checkout's sources.
+prints either for any checkout's sources.
 """
 
 from __future__ import annotations
@@ -39,16 +42,19 @@ _PTXAS = re.compile(
 
 def short_name(mangled: str) -> str:
     """`kernel<template args>` of a mangled kernel name, e.g.
-    `assign_exact_kernel<0,0>` (a name's length prefixes it)."""
+    `assign_exact_kernel<0,0>` (a name's length prefixes it; of the
+    length-prefixed names that end in `_kernel`, the innermost, since a
+    namespace's hash may end in digits too)."""
+    found = None
     for m in re.finditer(r"(?=(\d+))", mangled):
         end = m.start() + len(m.group(1))
         name = mangled[end:end + int(m.group(1))]
-        if name.endswith("_kernel"):
+        if name.endswith("_kernel") and len(name) == int(m.group(1)):
             rest = mangled[end + len(name):]
             head = rest[:rest.find("Ev") + 1] if rest.startswith("I") else ""
             args = re.findall(r"L[ib](\d+)E", head)
-            return name + (f"<{','.join(args)}>" if args else "")
-    return mangled
+            found = name + (f"<{','.join(args)}>" if args else "")
+    return found or mangled
 
 
 def _compile(source: Path, obj: Path, include: Path | None = None) -> str:
@@ -170,10 +176,33 @@ def kernel_report(source: Path, opcodes: dict[str, str],
     return out
 
 
+def sass_by_kernel(source: Path, include: Path | None = None) -> dict[str, list[str]]:
+    """Each kernel instance of `source` (compiled alone, with the library's
+    flags) as its SASS instructions in order, without their addresses."""
+    with tempfile.TemporaryDirectory() as work:
+        obj = Path(work) / "k.o"
+        _compile(source, obj, include)
+        return {name: [ins for _, ins in instructions]
+                for name, instructions in _functions(_sass(obj)).items()}
+
+
+def same_sass(source: Path, other: Path, include: Path | None = None,
+              other_include: Path | None = None) -> list[dict]:
+    """For each kernel instance of `source` or `other` (say, the same file
+    of two checkouts; each includes the headers beside it first): whether
+    both compile it to the same instructions, and how many each has."""
+    mine, theirs = sass_by_kernel(source, include), sass_by_kernel(other, other_include)
+    return [{"kernel": name, "same_sass": mine.get(name) == theirs.get(name),
+             "instructions": len(mine.get(name, [])),
+             "other_instructions": len(theirs.get(name, []))}
+            for name in sorted(set(mine) | set(theirs))]
+
+
 def main(argv=None) -> int:
     """`python -m kmeans_tpu_torch.tools.sass SOURCE [SOURCE ...] [--include
-    DIR] [--loop PREFIX=OPCODE ...]`: one JSON line of `kernel_report` per
-    kernel instance of each source."""
+    DIR] [--loop PREFIX=OPCODE ...] [--against OTHER ...]`: one JSON line of
+    `kernel_report` per kernel instance of each source; with `--against`
+    (one OTHER a SOURCE), one line of `same_sass` per instance instead."""
     import argparse
     import json
 
@@ -182,7 +211,19 @@ def main(argv=None) -> int:
     parser.add_argument("--include", type=Path, default=None)
     parser.add_argument("--loop", action="append", default=[],
                         help="kernel name prefix=opcode prefix of its loop")
+    parser.add_argument("--against", action="append", default=[], type=Path,
+                        help="the same source in another checkout, to compare SASS with")
+    parser.add_argument("--against-include", type=Path, default=None,
+                        help="the other checkout's csrc, for sources outside it")
     args = parser.parse_args(argv)
+    if args.against:
+        if len(args.against) != len(args.sources):
+            parser.error("give one --against for each source")
+        for source, other in zip(args.sources, args.against):
+            for row in same_sass(source, other, args.include, args.against_include):
+                print(json.dumps({"source": str(source), "against": str(other), **row}),
+                      flush=True)
+        return 0
     opcodes = dict(item.split("=", 1) for item in args.loop)
     for source in args.sources:
         for row in kernel_report(source, opcodes, args.include):

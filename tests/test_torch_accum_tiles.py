@@ -1,8 +1,8 @@
 """The accumulator's tiles as `csrc/lloyd_accumulate.cu` walks them, modelled
 in numpy: which pixel each thread's tile slot takes (every padded pixel
-once, padding by its index), the factorized register tile's order of
-visits (the centroid loop outermost, each pixel's carry in index order,
-so ties keep the first minimum) against the twin, and the pruned tier's
+once, padding by its index), the factorized and algebraic register tiles'
+order of visits (the centroid loop outermost, each pixel's carry in index
+order, so ties keep the first minimum) against the twin, and the pruned tier's
 launch bound against the shared memory its blocks take. The constants are
 read from the source; the card runs the kernel itself
 (`tests/test_torch_cuda.py`, `chip_smoke.py`).
@@ -31,10 +31,22 @@ def constant(name: str) -> int:
 
 THREADS, WARPS, MAX_BLOCKS = constant("kThreads"), 8, constant("kMaxBlocks")
 PIX_PER_THREAD = constant("kPixPerThread")
+
+
+def source_tile(tier: str):
+    """The tile `tile_pixels` gives a fast tier (`kTierFactor`,
+    `kTierAlgebraic`): kTilePixels where its condition names the tier, else
+    R rows of one pixel a thread."""
+    body = re.search(r"constexpr int tile_pixels\(int metric, int tier\) \{(.*?)\}", SOURCE,
+                     re.S).group(1)
+    tiled = f"tier == {tier}" in body.split("?")[0]
+    return constant("kTilePixels") if tiled else ("rows", PIX_PER_THREAD)
+
+
 # Each instance's tile: a register tile of P pixels a thread (runs of 4),
 # or ("rows", R): R rows of kThreads pixels, one pixel a thread at a time.
-TILES = {"exact cie94": constant("kTilePixels"), "factor": constant("kTilePixels"),
-         "exact cie2000": ("rows", PIX_PER_THREAD), "algebraic": ("rows", PIX_PER_THREAD),
+TILES = {"exact cie94": constant("kTilePixels"), "factor": source_tile("kTierFactor"),
+         "exact cie2000": ("rows", PIX_PER_THREAD), "algebraic": source_tile("kTierAlgebraic"),
          "prune": ("rows", PIX_PER_THREAD)}
 
 
@@ -111,6 +123,53 @@ def test_factor_tile_keeps_the_first_minimum(case):
         assert (best_k.reshape(-1)[::3] < k // 2).all()
 
 
+@pytest.mark.parametrize("case", ["random", "duplicates", "k_active"])
+def test_algebraic_tile_totals_equal_the_twin(case):
+    """The accumulator's algebraic tier as `lloyd_accumulate.cu` runs it:
+    each thread's register tile (`tile_pixels`) scanned by
+    `screen.cuh::scan_algebraic_tile`, the centroid loop outermost and each
+    pixel's carry updated with strict `<` in index order, on the twin's
+    distances; padding pixels (index >= n_valid) dropped by their index.
+    Modelled in numpy, its counts equal `lloyd_accumulate_reference`'s and
+    its inertia column (each member's distance) agrees to float32
+    rounding; duplicate centroids keep the lower index."""
+    p = TILES["algebraic"]
+    assert not isinstance(p, tuple), "the algebraic tier runs a register tile"
+    rng = np.random.default_rng(29)
+    n_valid = 16384 + 8 * 33 + 5  # off the tile
+    rgb = torch.from_numpy(rng.integers(0, 256, (n_valid, 3), dtype=np.uint8))
+    k = 40
+    cents = srgb8_to_lab(torch.from_numpy(rng.integers(0, 256, (k, 3), dtype=np.uint8)))
+    lab = srgb8_to_lab(rgb)
+    if case == "duplicates":
+        cents[k // 2:] = cents[:k // 2].clone()
+        lab[::3] = cents[rng.integers(0, k // 2, len(lab[::3]))]
+    k_active = k - 7 if case == "k_active" else k
+    planes, n = kernels.pack_lab_planes(lab)
+    flat = planes.reshape(3, -1)
+    l, a, b = flat[0].contiguous(), flat[1].contiguous(), flat[2].contiguous()
+    dist = kernels._algebraic_fn(l, a, b, torch.sqrt(a * a + b * b), cents)
+    scores = torch.stack([dist(j) for j in range(k_active)], 1).numpy()
+    pix, _ = tile_pixels(l.numel(), p)
+    best_d = np.full(pix.shape, np.float32(3.4e38), np.float32)
+    best_k = np.zeros(pix.shape, np.int64)
+    for j in range(k_active):  # the centroid loop, outermost
+        for s_ in range(p):  # the tile's pixels
+            d = scores[pix[..., s_], j]
+            take = d < best_d[..., s_]
+            best_d[..., s_] = np.where(take, d, best_d[..., s_])
+            best_k[..., s_] = np.where(take, j, best_k[..., s_])
+    valid = pix < n
+    counts = np.bincount(best_k[valid], minlength=k).astype(np.float32)
+    inertia = np.bincount(best_k[valid], weights=best_d[valid].astype(np.float64), minlength=k)
+    want = kernels.lloyd_accumulate_reference(planes, cents, n, k_active, emit_inertia=True,
+                                              fast=True)
+    assert np.array_equal(counts, want[:, 3].numpy())
+    np.testing.assert_allclose(inertia, want[:, 4].double().numpy(), rtol=1e-5, atol=1e-3)
+    if case == "duplicates":
+        assert counts[k // 2:].sum() == 0
+
+
 @pytest.mark.parametrize("kp,stats", [(17, 4), (64, 5), (129, 4), (256, 5)])
 def test_pruned_grid_is_resident_at_once(kp, stats):
     """The pruned tier's launch bound (kPruneMinBlocks blocks an SM, so at
@@ -134,6 +193,7 @@ def test_chip_smoke_names_the_tiles_it_runs():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert smoke.LOOP_PAIRS["lloyd_tile_kernel<0,1"] == TILES["factor"]
+    assert smoke.LOOP_PAIRS["lloyd_tile_kernel<0,2"] == TILES["algebraic"]
     assert smoke.LLOYD_PRUNE_MIN_BLOCKS == constant("kPruneMinBlocks")
     names = re.findall(r'\bentry\("([^"]+)"', (ROOT / "chip_smoke.py").read_text())
     designs = {name: smoke.design_of(name) for name in names}
@@ -142,4 +202,5 @@ def test_chip_smoke_names_the_tiles_it_runs():
         f"register tile of {TILES['factor']} pixels")
     assert f"{constant('kPruneMinBlocks')} blocks an SM" in designs[
         "lloyd_accumulate[fast cie2000, pruned]"]
-    assert designs["lloyd_accumulate[fast cie94, algebraic]"].startswith("one pixel at a time")
+    assert designs["lloyd_accumulate[fast cie94, algebraic]"].startswith(
+        f"register tile of {TILES['algebraic']} pixels")

@@ -659,6 +659,48 @@ def test_exp_mxu_kernels_match_twins(cuda, h, w, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("h,w", [(61, 97), (1, 2053), (7, 3), (1, 1), (16, 256)])
+def test_factor_vpu_ragged_and_misaligned(cuda, h, w, k):
+    """factor-vpu's register tile at pixel counts past its last whole tile
+    (5,917; 8 x 256 + 5; 21; 1) and at a whole number of tiles (4,096),
+    and on the row slice [1:], which starts off a 16-byte boundary where
+    the width is odd: each index equals the twin's, one launch a call."""
+    from kmeans_tpu_torch.tools import exp_mxu
+
+    rng = np.random.default_rng(90 + k + h)
+    img = torch.from_numpy(exp_mxu.random_image(h, w, rng)).to(cuda)
+    cents = torch.from_numpy(exp_mxu.random_centroids(k, rng)).to(cuda)
+    for view in [img] + ([img[1:]] if h > 1 else []):
+        before = kernels.launches("exp_factor_vpu")
+        got = exp_mxu.factor_vpu(view, cents)
+        assert kernels.launches("exp_factor_vpu") == before + 1
+        assert torch.equal(got, exp_mxu.factor_vpu_reference(view, cents))
+
+
+@pytest.mark.cuda
+def test_factor_vpu_launcher_refuses_misaligned_words(cuda):
+    """The C launcher never reads RGBA words off a 16-byte boundary: it
+    returns cudaErrorMisalignedAddress and launches nothing."""
+    from kmeans_tpu_torch.ops.gamma_lut import gamma_lut
+    from kmeans_tpu_torch.tools import _exp, exp_mxu
+
+    rng = np.random.default_rng(95)
+    img = torch.from_numpy(exp_mxu.random_image(61, 97, rng)).to(cuda)
+    cents = torch.from_numpy(exp_mxu.random_centroids(64, rng)).to(cuda)
+    words = img[1:].reshape(-1, 4).view(torch.int32)
+    assert words.data_ptr() % 16 != 0
+    out = torch.full((words.shape[0],), 7, dtype=torch.uint8, device=cuda)
+    lib = _exp.load_exp_library()
+    err = lib.exp_factor_vpu(words.data_ptr(), words.shape[0],
+                             kernels.factor_g_table(cents).data_ptr(), 64,
+                             gamma_lut(cuda).data_ptr(), out.data_ptr(), _exp.stream_of(out))
+    torch.cuda.synchronize()
+    assert err == exp_mxu.CUDA_ERROR_MISALIGNED_ADDRESS
+    assert bool((out == 7).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("placement", ["shared", "constant", "global"])
 def test_exp_gather_kernels_match_twins(cuda, placement):
     from kmeans_tpu_torch.tools import exp_gather
@@ -903,8 +945,11 @@ def test_fast_accumulator_adversarial(cuda, k, case, metric):
         assert (err[finite] <= bound[finite]).all()
 
 
-# The fast accumulator tiers on register tiles: metric, inertia column.
-FAST_TIERS = {"factor": ("cie94", False), "prune": ("cie2000", True)}
+# The fast accumulator tiers: metric, inertia column (the algebraic tier
+# always has it). Factorized and algebraic run register tiles, pruned one
+# pixel at a time.
+FAST_TIERS = {"factor": ("cie94", False), "algebraic": ("cie94", True),
+              "prune": ("cie2000", True)}
 
 
 def _fast_tile_case(tier, planes, cents, n_valid, k_active=None, weight=None):

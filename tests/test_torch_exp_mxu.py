@@ -14,6 +14,7 @@ The kernels themselves run only on a card: `tests/test_torch_cuda.py`.
 
 import importlib.util
 import json
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -26,6 +27,9 @@ from kmeans_tpu_torch.tools import exp_mxu
 
 _REF_PATH = Path(__file__).resolve().parent.parent / "tools" / "exp_mxu.py"
 _REF_RUN = []
+_CU = (Path(__file__).resolve().parent.parent / "kmeans_tpu_torch" / "tools" / "csrc"
+       / "exp_mxu.cu").read_text()
+H100_SMS = 132
 
 
 def _reference_run():
@@ -183,3 +187,49 @@ def test_twin_never_picks_a_padded_column(h, w, kp):
     assert int(padded.max()) < kp
     want = exp_mxu.factor_mxu_reference(img, c, tf32=True)
     assert torch.equal(padded.to(torch.uint8).reshape(h, w), want)
+
+
+def _cu_constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+
+
+def vpu_slots(n: int, sms: int = H100_SMS) -> tuple[np.ndarray, np.ndarray]:
+    """The pixels factor-vpu's launch visits, in a numpy model of
+    `exp_factor_vpu` and `factor_vpu_kernel`: the grid the launcher sizes
+    (`grid_blocks` of the larger of the whole tiles and the tail's blocks,
+    at most kVpuMinBlocks an SM); block b takes tiles b, b + grid, ...;
+    thread t's run q of a tile starts at 4 t + 4 q kThreads (one 16-byte
+    load, one 32-bit store), its four slots consecutive; then the pixels
+    past the last whole tile, one a thread, grid-stride. Returns the tile
+    slots `[runs, 4]` and the tail's pixels."""
+    threads, p, per_sm = (_cu_constant(c) for c in ("kThreads", "kVpuTilePixels",
+                                                     "kVpuMinBlocks"))
+    tile = threads * p
+    tiles, tail_blocks = n // tile, -(-(n % tile) // threads)
+    grid = min(max(tiles, tail_blocks, 1), sms * per_sm)
+    runs, tail = [], []
+    for block in range(grid):
+        for t in range(block, tiles, grid):
+            for thread in range(threads):
+                for q in range(p // 4):
+                    start = t * tile + 4 * thread + 4 * q * threads
+                    runs.append(start + np.arange(4))
+        for thread in range(threads):
+            tail += range(tiles * tile + block * threads + thread, n, grid * threads)
+    return np.array(runs, dtype=np.int64).reshape(-1, 4), np.array(tail, dtype=np.int64)
+
+
+@pytest.mark.parametrize("n", [1, 3, 128, 5917, 8 * 256 + 5, 4 * 2048])
+def test_vpu_tile_slots_visit_each_pixel_once(n):
+    """factor-vpu's register tile (kVpuTilePixels a thread, runs of 4)
+    and its one-pixel tail visit each of n pixels once, n any count; each
+    run is four neighbours from a multiple of 4 (a 16-byte load from an
+    aligned image, a 32-bit store)."""
+    p = _cu_constant("kVpuTilePixels")
+    assert p % 4 == 0
+    assert "grid_blocks(tiles > tail_blocks ? tiles : tail_blocks, kVpuMinBlocks)" in _CU
+    runs, tail = vpu_slots(n)
+    seen = np.concatenate([runs.reshape(-1), tail])
+    assert np.array_equal(np.sort(seen), np.arange(n))
+    assert (runs[:, 0] % 4 == 0).all() and (np.diff(runs, axis=1) == 1).all()
+    assert len(tail) == n % (256 * p)

@@ -19,6 +19,10 @@ MANGLED = {
     "lPKfiiiPKiS4_S4_iPill": "meld_kernel<1,3,16,0>",
     "_ZN51_GLOBAL__N__2464285e_18_quantize_assign_cu_ef1646b413assign_kernelILi0ELi1ELi0ELb0EEEvP"
     "KhlllPKfiiiPKiS4_S6_S4_S4_iliiiPvll": "assign_kernel<0,1,0,0>",
+    # A namespace hash whose digits read as a length that also ends in
+    # `_kernel`: the innermost name is the kernel's.
+    "_ZN48_GLOBAL__N__21c7b146a0fd_10_exp_mxu_cu_916ed4bf17factor_vpu_kernelEPKjlPKfiS3_Ph":
+        "factor_vpu_kernel",
 }
 
 
@@ -135,9 +139,11 @@ def test_chip_smoke_tile_sizes_match_the_sources():
     """`chip_smoke.py` divides a centroid loop's length by the pixel-
     centroid pairs an iteration visits: its table must hold the sources'
     constants (the assign and meld kernels' `tile_pixels`, the
-    accumulator's `kTilePixels`, its exact CIE94 and factorized tiles; the
-    pruned screen's two centroids of one pixel a step of
-    `screen.cuh::prune_screen`'s loop)."""
+    accumulator's `kTilePixels`, its exact CIE94, factorized and algebraic
+    tiles; the pruned screen's two centroids of one pixel a step of
+    `screen.cuh::prune_screen`'s loop), and factor-vpu's tile
+    (`kVpuTilePixels` in `tools/csrc/exp_mxu.cu`), whose loop it finds by
+    the tile's six products a pixel."""
     import re
     from pathlib import Path
 
@@ -153,6 +159,12 @@ def test_chip_smoke_tile_sizes_match_the_sources():
     mf, m_exact = map(int, re.search(r"return tier == kTierFactor \? (\d+) : (\d+);",
                                      meld).groups())
     tile = int(re.search(r"constexpr int kTilePixels = (\d+);", lloyd).group(1))
+    tiled = re.search(r"constexpr int tile_pixels\(int metric, int tier\) \{(.*?)\?", lloyd,
+                      re.S).group(1)
+    assert "tier == kTierFactor" in tiled and "tier == kTierAlgebraic" in tiled
+    vpu = int(re.search(r"constexpr int kVpuTilePixels = (\d+);",
+                        (root / "kmeans_tpu_torch" / "tools" / "csrc" / "exp_mxu.cu").read_text())
+              .group(1))
     step = int(re.search(r"for \(int k = M; k < k_active; k \+= (\d+)\)",
                          (csrc / "screen.cuh").read_text()).group(1))
     smoke = (root / "chip_smoke.py").read_text()
@@ -163,5 +175,7 @@ def test_chip_smoke_tile_sizes_match_the_sources():
         "assign_kernel<0,0,0,": a94, "assign_kernel<1,0,0,": a2000, "assign_kernel<0,1,0,": a94,
         "assign_kernel<1,3,": step, "meld_kernel<0,0,0,0": m_exact, "meld_kernel<0,0,0,1": c94,
         "meld_kernel<1,0,0,": m_exact, "meld_kernel<0,1,0,": mf, "meld_kernel<1,3,": step,
-        "lloyd_tile_kernel<0,0": tile, "lloyd_tile_kernel<0,1": tile, "lloyd_tile_kernel<1,0": 1,
-        "lloyd_tile_kernel<1,3,": step}
+        "lloyd_tile_kernel<0,0": tile, "lloyd_tile_kernel<0,1": tile, "lloyd_tile_kernel<0,2": tile,
+        "lloyd_tile_kernel<1,0": 1, "lloyd_tile_kernel<1,3,": step}
+    assert int(re.search(r"\nVPU_TILE_PIXELS = (\d+)\n", smoke).group(1)) == vpu
+    assert '"factor_vpu_kernel": f"LDS.128+FMUL*{6 * VPU_TILE_PIXELS}"' in smoke
