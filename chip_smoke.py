@@ -535,11 +535,13 @@ def _bound(bytes_moved, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def cuda_ms(fn, reps: int, flush=None) -> float:
+def cuda_ms(fn, reps: int, flush=None, headroom_cycles: int = 0) -> float:
     """Mean milliseconds per call of `fn` on the current stream, after one
     warm-up call, by CUDA events. With `flush` (a tensor larger than the
     L2 cache), it is overwritten before each call, outside the timed span,
-    so each call starts with a cold cache."""
+    so each call starts with a cold cache. With `headroom_cycles`, the card
+    then spins that long, also outside the span, while the host enqueues
+    the call: a kernel of a few microseconds is timed, not its wrapper."""
     import torch
 
     fn()
@@ -548,6 +550,8 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if headroom_cycles:
+            torch.cuda._sleep(headroom_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1659,6 +1663,14 @@ MXU_RAGGED = (61, 97, 100)
 # [1:] of the odd-width 61x97 image starts 4-byte, not 16-byte, aligned.
 VPU_TILE_PIXELS = 8
 VPU_RAGGED = ((61, 97), (1, 2053), (7, 3))
+# The sums of 8 table reads (`kLutCopies`, `kLutVec` in
+# tools/csrc/exp_gather.cu): copies of the staged table, elements a thread
+# takes an iteration.
+LUT_COPIES = 32
+LUT_VEC = 4
+# B10's kernels and their library calls are timed with the card spinning
+# ~0.5 ms after each flush, while the host enqueues the wrapper's launch.
+GATHER_HEADROOM_CYCLES = 1_000_000
 # Float32 operations of one pixel into the factorized features: 33 into
 # Lab (as `assign_bound`) and `PIXEL_OPS["factor"]`.
 FEATURE_OPS = 33 + PIXEL_OPS["factor"]
@@ -2052,13 +2064,18 @@ def exp_gather_vs_plain(device, card) -> dict:
     """B10 through its entry point, the tool
     `kmeans_tpu_torch.tools.exp_gather`: its evaluation pass (each table
     placement once for the gather and once for the sum of 8 reads, the pow
-    sum once) with the counts set to 0 just before it; every placement
-    must return the table's bits; the lut sums against their twin (equal
-    bits), the pow sum against its twin (bits, or ulps counted), `powf`'s
-    table against numpy's; the kernels' and twins' times beside
-    `torch.take` for the gather; then the tool's own timing lines."""
+    sum once, the constant placement filled once) with the counts set to 0
+    just before it; every placement must return the table's bits; the lut
+    sums against their twin (equal bits), the pow sum against its twin
+    (bits, or ulps counted), `powf`'s table against numpy's; the constant
+    placement across table changes (`constant_follows_table`) and the
+    device operations of one call with its table resident (one kernel);
+    the kernels' and twins' times beside `torch.take` for the gather, the
+    fill alone and an empty kernel (the launch floor); then the tool's own
+    timing lines."""
     import torch
 
+    from kmeans_tpu_torch.tools import _exp
     from kmeans_tpu_torch.tools import exp_gather as eg
 
     reset_launch_counts()
@@ -2067,7 +2084,9 @@ def exp_gather_vs_plain(device, card) -> dict:
     counts = mode_counts()
     want = {f"exp_gather {p} table": 1 for p in eg.PLACEMENTS}
     want.update({f"exp_lut {p} table": 1 for p in eg.PLACEMENTS})
-    want.update({"exp_pow - powf": 1, "exp_pow_table - powf": 1})
+    # The constant placement's one fill serves its gather and its sum.
+    want.update({"exp_pow - powf": 1, "exp_pow_table - powf": 1,
+                 "exp_lut_fill constant copy": 1})
     correct = {line["form"]: line["correct"] for line in tool_lines if "form" in line}
     pow_table = next(line for line in tool_lines if "pow_table_vs_numpy" in line)
     table = eg.gamma_table(device)
@@ -2088,34 +2107,90 @@ def exp_gather_vs_plain(device, card) -> dict:
     if counts != want or not all(correct.values()) or not all(lut_equal.values()) \
             or int(ulps.max()) > 8 or int(table_ulps.max()) > 8:
         raise AssertionError(f"exp_gather: {line} (launches wanted {want})")
+    follows = constant_follows_table(table, idx, grid)
+    # One resident call's device operations: one kernel, no copy.
+    resident_ops = _exp.device_ops(lambda: eg.gather(table, idx, "constant"))
+    emit({"phase": "exp_gather_vs_plain", "constant_resident_device_ops": resident_ops})
+    if len(resident_ops) > 1 or any("lut_kernel" not in op for op in resident_ops):
+        raise AssertionError(f"a resident constant-placement call ran {resident_ops}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     n_small, n_grid = idx.numel(), grid.numel()
     timing = {}
+    spin = GATHER_HEADROOM_CYCLES
     for p in eg.PLACEMENTS:
-        timing["gather", p] = (cuda_ms(lambda p=p: eg.gather(table, idx, p), 50, flush),
+        timing["gather", p] = (cuda_ms(lambda p=p: eg.gather(table, idx, p), 50, flush, spin),
                                cuda_ms(lambda: eg.gather_reference(table, idx), 20, flush),
                                *_bound(8 * n_small + 1024, n_small))
-        timing["lut", p] = (cuda_ms(lambda p=p: eg.lut_sum(table, grid, p), 20, flush),
+        timing["lut", p] = (cuda_ms(lambda p=p: eg.lut_sum(table, grid, p), 20, flush, spin),
                             cuda_ms(lambda: eg.lut_sum_reference(table, grid), 5, flush),
                             *_bound(8 * n_grid + 1024, 8 * n_grid))
-    timing["pow"] = (cuda_ms(lambda: eg.pow_sum(grid), 20, flush),
+    timing["pow"] = (cuda_ms(lambda: eg.pow_sum(grid), 20, flush, spin),
                      cuda_ms(lambda: eg.pow_sum_reference(grid), 5, flush),
                      *_bound(8 * n_grid, 8 * 8 * n_grid))
-    timing["pow_table"] = (cuda_ms(lambda: eg.pow_table(device), 50, flush),
+    timing["pow_table"] = (cuda_ms(lambda: eg.pow_table(device), 50, flush, spin),
                            cuda_ms(lambda: eg.pow_table_reference(device), 50, flush),
                            *_bound(4 * 256, 2 * 256))
     idx_long = idx.long()  # torch.take indexes by int64
-    take_ms = cuda_ms(lambda: torch.take(table, idx_long), 50, flush)
-    del flush
-    emit({"phase": "timing", "what": "exp_gather kernels (cold L2, mean)", "card": card,
-          "take_ms": take_ms,
+    take_ms = cuda_ms(lambda: torch.take(table, idx_long), 50, flush, spin)
+    # The constant placement's fill alone, the launch floor, and the sums'
+    # bytes moved by a plain copy (what the card's memory allows).
+    fill_ms = cuda_ms(lambda: eg.fill_constant(table), 50, flush, spin)
+    empty_ms = cuda_ms(lambda: eg.empty(device), 50, flush, spin)
+    copied = torch.empty(grid.shape, dtype=torch.float32, device=device)
+    copy_ms = cuda_ms(lambda: copied.copy_(grid.view(torch.float32)), 20, flush, spin)
+    del flush, copied
+    emit({"phase": "timing", "what": "exp_gather kernels (cold L2, 0.5 ms headroom, mean)",
+          "card": card, "take_ms": take_ms, "fill_ms": fill_ms, "empty_kernel_ms": empty_ms,
+          "copy_4k_grid_ms": copy_ms,
           **{" ".join(key) if isinstance(key, tuple) else key: {
               "kernel_ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
              for key, t in timing.items()}})
     for tline in eg.measure(device, reps=20):
         emit({"phase": "timing", "what": "exp_gather tool", "card": card, **tline})
-    return {"counts": counts, "timing": timing, "take_ms": take_ms,
-            "pow_err": line["pow_max_abs_err"], "pow_table_ulps": line["pow_table_vs_twin_max_ulps"]}
+    return {"counts": counts, "timing": timing, "take_ms": take_ms, "fill_ms": fill_ms,
+            "empty_ms": empty_ms, "copy_ms": copy_ms, "resident_ops": resident_ops,
+            "follows": follows, "pow_err": line["pow_max_abs_err"],
+            "pow_table_ulps": line["pow_table_vs_twin_max_ulps"]}
+
+
+def constant_follows_table(table, idx, grid) -> dict:
+    """The constant placement across table changes: the tool's table, a
+    second table, the first again, then the first written in place twice;
+    each call's gather and sum of 8 against their twins bit for bit, and
+    the fills each change made (one; none for a second call)."""
+    import torch
+
+    from kmeans_tpu_torch.ops import kernels
+    from kmeans_tpu_torch.tools import exp_gather as eg
+
+    fills = ("exp_lut_fill", "constant", "copy")
+    first = table.clone()
+    other = torch.from_numpy(np.random.default_rng(SEED + 19).random(256, dtype=np.float32)).to(
+        table.device)
+    steps = [("first table", first, None), ("second table", other, None),
+             ("first table again", first, None),
+             ("first written in place (x0.5)", first, lambda t: t.mul_(0.5)),
+             ("first, entries 100-255 written in place", first,
+              lambda t: t[100:].copy_(other[:156]))]
+    cases, failures = [], []
+    for what, tab, write in steps:
+        if write is not None:
+            write(tab)
+        for call in (1, 2):
+            before = kernels.LAUNCHES_BY_MODE[fills]
+            same = {
+                "gather": bool(torch.equal(eg.gather(tab, idx, "constant").view(torch.int32),
+                                           eg.gather_reference(tab, idx).view(torch.int32))),
+                "lut_sum": bool(torch.equal(eg.lut_sum(tab, grid, "constant").view(torch.int32),
+                                            eg.lut_sum_reference(tab, grid).view(torch.int32)))}
+            made = kernels.LAUNCHES_BY_MODE[fills] - before
+            cases.append({"table": what, "call": call, "equal_bits": same, "fills": made})
+            if not all(same.values()) or made != (1 if call == 1 else 0):
+                failures.append(cases[-1])
+    emit({"phase": "exp_gather_vs_plain", "constant_follows_table": cases})
+    if failures:
+        raise AssertionError(f"constant placement across table changes: {failures}")
+    return {"cases": len(cases), "all_equal_bits": True}
 
 
 def update_cost(image, device, card) -> None:
@@ -2216,6 +2291,12 @@ def design_of(name: str) -> str:
     if name == "exp_factor_vpu":
         return (f"experiment tool: register tile of {VPU_TILE_PIXELS} pixels, padded "
                 "feature rows, one 32-bit store a run")
+    if name in ("exp_lut[shared]", "exp_lut[constant]"):
+        return (f"experiment tool: the table staged once a block as {LUT_COPIES} interleaved "
+                f"copies (a bank a lane), {LUT_VEC} elements a thread an iteration")
+    if name == "exp_gather[constant]":
+        return ("experiment tool: filled only when the table changed, staged into shared "
+                "memory by one constant address a warp a read")
     if name.startswith("exp_"):
         return "experiment tool"
     if name == "dither_threshold":
@@ -2255,7 +2336,9 @@ def compiler_report(lib_path, ptxas) -> None:
 # factor-vpu's centroid loop by its feature-row load and the six products
 # of each pixel of its tile (the tail's one-pixel loop has six).
 LOOP_OPCODES = {"dither_threshold_kernel": "VOTE+MUFU.RSQ*5", "factor_mxu_kernel": "HGMMA",
-                "factor_vpu_kernel": f"LDS.128+FMUL*{6 * VPU_TILE_PIXELS}"}
+                "factor_vpu_kernel": f"LDS.128+FMUL*{6 * VPU_TILE_PIXELS}",
+                f"lut_kernel<0,8,{LUT_VEC}>": f"LDS*{8 * LUT_VEC}",
+                f"lut_kernel<1,8,{LUT_VEC}>": f"LDS*{8 * LUT_VEC}"}
 
 
 def scan_report(rows) -> None:
@@ -2269,6 +2352,12 @@ def scan_report(rows) -> None:
         if row["kernel"].startswith("factor_vpu_kernel") and row["loop"]:
             row = {**row, "pairs_per_iteration": VPU_TILE_PIXELS,
                    "instructions_per_pair": row["loop"]["instructions"] / VPU_TILE_PIXELS}
+        if row["kernel"].startswith("lut_kernel") and row["loop_opcode"]:
+            reads = (sum(n for op, n in row["loop"]["opcodes"].items() if op.startswith("LDS"))
+                     / LUT_VEC if row["loop"] else None)
+            row = {**row, "elements_per_iteration": LUT_VEC, "table_reads_per_element": reads}
+            if reads != 8:
+                raise AssertionError(f"{row['kernel']}: {reads} table reads an element, not 8")
         emit({"phase": "sass", **row})
         if row["kernel"].startswith("factor_mxu_kernel") and any(
                 op.startswith("HGMMA") for op in row["kernel_opcodes"]):
@@ -4936,7 +5025,8 @@ def main() -> int:
                    for src in ("quantize_assign.cu", "quantize_meld.cu", "lloyd_accumulate.cu")}
         scans = [pool.submit(sass.kernel_report, source, LOOP_OPCODES)
                  for source in (_build.CSRC / "dither_threshold.cu",
-                                _build.EXP_CSRC / "exp_mxu.cu")]
+                                _build.EXP_CSRC / "exp_mxu.cu",
+                                _build.EXP_CSRC / "exp_gather.cu")]
         lib_path, exp_path, runtime_path = (main_lib.result(), exp_lib.result(),
                                             runtime_lib.result())
         ptxas = {src: report.result() for src, report in reports.items()}
@@ -5565,13 +5655,22 @@ def main() -> int:
          "library_ms_tf32": mxu[64]["library"]["on"]},
         # B10: the single read of try_form at [128, 128] and the sums of 8
         # over the 4K grid, per table placement, launched by the tool.
+        # The constant placement's entries carry its fill's time (a copy of
+        # its own, made only when the table changed), the gather's the
+        # launch floor (an empty kernel) and a resident call's device ops.
         *[{**exp_entry(f"exp_gather[{p}]", "exp_gather.cu", "tools/exp_gather.py:52",
                        gather["counts"][f"exp_gather {p} table"], 0, gather["timing"]["gather", p],
                        "kmeans_tpu_torch.tools.exp_gather"),
-           "library_ms": gather["take_ms"]} for p in ("shared", "constant", "global")],
-        *[exp_entry(f"exp_lut[{p}]", "exp_gather.cu", "tools/exp_gather.py:152",
-                    gather["counts"][f"exp_lut {p} table"], 0, gather["timing"]["lut", p],
-                    "kmeans_tpu_torch.tools.exp_gather") for p in ("shared", "constant", "global")],
+           "library_ms": gather["take_ms"], "launch_floor_ms": gather["empty_ms"],
+           **({"fill_ms": gather["fill_ms"], "fills": gather["counts"][
+               "exp_lut_fill constant copy"], "resident_device_ops": gather["resident_ops"]}
+              if p == "constant" else {})} for p in ("shared", "constant", "global")],
+        *[{**exp_entry(f"exp_lut[{p}]", "exp_gather.cu", "tools/exp_gather.py:152",
+                       gather["counts"][f"exp_lut {p} table"], 0, gather["timing"]["lut", p],
+                       "kmeans_tpu_torch.tools.exp_gather"),
+           "copy_ms": gather["copy_ms"],
+           **({"fill_ms": gather["fill_ms"]} if p == "constant" else {})}
+          for p in ("shared", "constant", "global")],
         exp_entry("exp_pow", "exp_gather.cu", "tools/exp_gather.py:160",
                   gather["counts"]["exp_pow - powf"], gather["pow_err"], gather["timing"]["pow"],
                   "kmeans_tpu_torch.tools.exp_gather"),

@@ -1,5 +1,5 @@
 """What the experiment tools share: their CUDA library, its launch
-counts, and CUDA-event timing.
+counts, CUDA-event timing and the device operations of a call.
 
 `load_exp_library()` builds `tools/csrc/*.cu` (which include `csrc/*.cuh`)
 into `build/kmeans_tpu_torch/kmeans_tpu_torch_exp_<hash>.so` on first use,
@@ -11,6 +11,7 @@ it launches its kernel, as the main library's wrappers do.
 from __future__ import annotations
 
 import ctypes
+import functools
 import statistics
 import subprocess
 
@@ -27,10 +28,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.exp_factor_vpu.restype = i32
     lib.exp_factor_mxu.argtypes = [p, i64, p, i32, i32, p, p, p]  # ..., gmat, kp, kp_pad, ...
     lib.exp_factor_mxu.restype = i32
-    lib.exp_lut.argtypes = [p, p, p, i64, i32, i32, p]  # idx, table, out, n, placement, repeat
+    # idx, table, out, n, placement, repeat, sms, stream
+    lib.exp_lut.argtypes = [p, p, p, i64, i32, i32, i32, p]
     lib.exp_lut.restype = i32
-    lib.exp_pow.argtypes = [p, p, i64, p]  # idx, out, n, stream
+    lib.exp_lut_fill.argtypes = [p, p]  # table, stream
+    lib.exp_lut_fill.restype = i32
+    lib.exp_pow.argtypes = [p, p, i64, i32, p]  # idx, out, n, sms, stream
     lib.exp_pow.restype = i32
+    lib.exp_empty.argtypes = [p]  # stream
+    lib.exp_empty.restype = i32
     lib.exp_pow_table.argtypes = [p, p]  # out, stream
     lib.exp_pow_table.restype = i32
     lib.exp_error_string.argtypes = [i32]
@@ -58,6 +64,12 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`, asked once a process."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def median_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     """Median milliseconds of `reps` calls of `fn` on the current stream,
     after one warm-up call, by CUDA events. With `flush` (a tensor larger
@@ -77,6 +89,24 @@ def median_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ops(fn, calls: int = 1) -> list[str]:
+    """The device operations (kernels, copies, sets) that `calls` calls of
+    `fn` run, by name in order, from `torch.profiler`'s CUDA trace, after
+    one call outside it. An empty list may also mean the trace saw no
+    device activity at all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA]
 
 
 def card_line() -> str:

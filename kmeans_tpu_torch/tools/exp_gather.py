@@ -7,10 +7,17 @@ float32 table lives when every element reads it at a random index. One
 kernel (`tools/csrc/exp_gather.cu`) reads it from each `PLACEMENTS` entry:
 
 - `shared`: staged in shared memory by every block, as the port's kernels
-  B1-B7 stage the gamma table. Random indices collide on the 32 banks.
-- `constant`: `__constant__` memory. Different indices in a warp
-  serialise.
+  B1-B7 stage the gamma table.
+- `constant`: `__constant__` memory, filled by a copy of its own
+  (`fill_constant`) only when the table's bits may have changed, so a
+  call with a resident table is one kernel. The constant cache serves one
+  address a warp a pass, so every block reads it with one address a warp
+  a read and serves the divergent reads from shared memory.
 - `global`: device memory through the read-only cache (`__ldg`).
+
+The sums of 8 reads of the shared and constant placements read a staged
+layout (`staged_table`, `staged_word`): 32 copies interleaved word by word,
+one a lane, so a warp's 32 reads hit 32 banks whatever the indices.
 
 Three uses, each with a plain twin:
 
@@ -36,7 +43,9 @@ CUDA tensor it launches its kernel or raises.
 
 prints one `{"form", "correct"}` line per placement, `{"working_forms"}`,
 the ulps of `powf` against the table, and `{"lut_ms": {placement: ms},
-"pow_ms": ms}`, each the median of CUDA-event timings (cold L2). It needs
+"pow_ms": ms, "fill_ms": ms, "empty_ms": ms}`, each the median of
+CUDA-event timings (cold L2): the constant placement's fill alone and an
+empty kernel (the launch floor) beside the kernels. It needs
 a card; `--cpu` runs the twins, where no device time exists and the times
 read "not measured".
 """
@@ -60,6 +69,10 @@ REPEAT = 8
 # The 4K-sized grid: ceil(3840 * 2160 / 128) = 64,800 rows, rounded up to a
 # multiple of ROWS.
 GRID_ROWS = 64_896
+# The staged layout of `tools/csrc/exp_gather.cu` (`kSpan`, `kLutCopies`):
+# entries 0..262, entry i holding table[i & 255], in 32 interleaved copies.
+STAGED_SPAN = 256 + REPEAT - 1
+LUT_COPIES = 32
 
 
 def gamma_table_np() -> np.ndarray:
@@ -82,12 +95,17 @@ def grid_indices(rng: np.random.Generator, rows: int = GRID_ROWS) -> np.ndarray:
     return rng.integers(0, 256, (rows, LANES)).astype(np.int32)
 
 
+def _check_table(table: torch.Tensor) -> None:
+    if table.dtype != torch.float32 or tuple(table.shape) != (256,):
+        raise ValueError(f"expected a [256] float32 table, got {tuple(table.shape)} "
+                         f"{table.dtype}")
+
+
 def _check(idx: torch.Tensor, table: torch.Tensor | None = None) -> None:
     if idx.dtype != torch.int32 or idx.numel() < 1:
         raise ValueError(f"expected int32 indices, got {idx.dtype}")
-    if table is not None and (table.dtype != torch.float32 or tuple(table.shape) != (256,)):
-        raise ValueError(f"expected a [256] float32 table, got {tuple(table.shape)} "
-                         f"{table.dtype}")
+    if table is not None:
+        _check_table(table)
 
 
 def gather_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -100,6 +118,30 @@ def lut_sum_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
     for j in range(REPEAT):
         acc = acc + table[((idx + j) & 255).long()]
+    return acc
+
+
+def staged_table(table: torch.Tensor) -> torch.Tensor:
+    """The kernel's staged table as `[STAGED_SPAN * LUT_COPIES]` words:
+    word w holds entry `(w // LUT_COPIES) & 255`."""
+    entries = torch.arange(STAGED_SPAN * LUT_COPIES, device=table.device) // LUT_COPIES
+    return table[entries & 255]
+
+
+def staged_word(x: torch.Tensor, j, lane) -> torch.Tensor:
+    """The word of `staged_table` that lane `lane` (0..31) reads for the
+    j-th term of index `x`: entry `(x & 255) + j` of copy `lane`, in bank
+    `lane`."""
+    return ((x & 255) + j) * LUT_COPIES + lane
+
+
+def lut_sum_staged(table: torch.Tensor, idx: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """`lut_sum_reference` read as the staged kernels read: element e by
+    lane `lanes[e]`, through `staged_word`."""
+    words = staged_table(table)
+    acc = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    for j in range(REPEAT):
+        acc = acc + words[staged_word(idx.long(), j, lanes.long())]
     return acc
 
 
@@ -121,6 +163,55 @@ def pow_table_reference(device) -> torch.Tensor:
     return div(torch.arange(256, dtype=torch.float32, device=device), 255.0) ** 2.4
 
 
+def constant_key(table: torch.Tensor, stream: int, lib_handle: int) -> tuple | None:
+    """What a fill of the constant placement from `table` on `stream` is
+    known by: the library, the device, the stream, the table's address and
+    its version counter, which every in-place write through PyTorch (on
+    the tensor or on any view of it) advances. None for a tensor that keeps
+    no version counter (made under `torch.inference_mode`): its bits can
+    change unseen. Writes PyTorch does not see (through `.data`, or a raw
+    pointer) are not seen here either."""
+    try:
+        version = table._version
+    except RuntimeError:
+        return None
+    return (lib_handle, table.device.index, stream, table.data_ptr(), version)
+
+
+def needs_fill(resident: tuple | None, key: tuple | None) -> bool:
+    """Whether the constant placement must be filled before a call whose
+    table has `key`, when the last fill had `resident`."""
+    return key is None or key != resident
+
+
+# The last fill of each (library, device): its key, and the table it came
+# from, held so that its memory cannot pass to another tensor while the
+# key stands.
+_RESIDENT: dict[tuple[int, int | None], tuple[tuple | None, torch.Tensor]] = {}
+
+
+def fill_constant(table: torch.Tensor, force: bool = True) -> bool:
+    """Copy `table` (a contiguous `[256]` float32 CUDA tensor) into the
+    constant placement's memory on the current stream: always, or with
+    `force=False` only when `needs_fill` says so. Returns whether it
+    copied; each copy adds one to its count."""
+    _check_table(table)
+    if table.device.type != "cuda" or not table.is_contiguous():
+        raise ValueError(f"expected a contiguous CUDA table, got {table.device}")
+    lib = _exp.load_exp_library()
+    stream = _exp.stream_of(table)
+    slot = (lib._handle, table.device.index)
+    key = constant_key(table, stream, lib._handle)
+    if not force and not needs_fill(_RESIDENT.get(slot, (None,))[0], key):
+        return False
+    with torch.cuda.device(table.device):
+        err = lib.exp_lut_fill(table.data_ptr(), stream)
+    _exp.check(lib, err, "exp_lut_fill")
+    _RESIDENT[slot] = (key, table)
+    kernels.LAUNCHES_BY_MODE["exp_lut_fill", "constant", "copy"] += 1
+    return True
+
+
 def _launch_lut(table, idx, placement: str, repeat: int) -> torch.Tensor:
     if idx.device.type != "cuda" or table.device != idx.device:
         raise ValueError(f"table and indices must be on one CUDA device, got {table.device} "
@@ -128,11 +219,13 @@ def _launch_lut(table, idx, placement: str, repeat: int) -> torch.Tensor:
     if placement not in PLACEMENTS:
         raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
     lib = _exp.load_exp_library()
-    idx_c = idx.contiguous()
+    idx_c, table_c = idx.contiguous(), table.contiguous()
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     with torch.cuda.device(idx.device):
-        err = lib.exp_lut(idx_c.data_ptr(), table.contiguous().data_ptr(), out.data_ptr(),
-                          idx.numel(), PLACEMENTS.index(placement), repeat,
+        if placement == "constant":
+            fill_constant(table_c, force=False)
+        err = lib.exp_lut(idx_c.data_ptr(), table_c.data_ptr(), out.data_ptr(), idx.numel(),
+                          PLACEMENTS.index(placement), repeat, _exp.sm_count(idx.device.index),
                           _exp.stream_of(out))
     _exp.check(lib, err, "exp_lut")
     kernels.LAUNCHES_BY_MODE["exp_gather" if repeat == 1 else "exp_lut", placement,
@@ -170,7 +263,8 @@ def pow_sum(idx: torch.Tensor) -> torch.Tensor:
     idx_c = idx.contiguous()
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     with torch.cuda.device(idx.device):
-        err = lib.exp_pow(idx_c.data_ptr(), out.data_ptr(), idx.numel(), _exp.stream_of(out))
+        err = lib.exp_pow(idx_c.data_ptr(), out.data_ptr(), idx.numel(),
+                          _exp.sm_count(idx.device.index), _exp.stream_of(out))
     _exp.check(lib, err, "exp_pow")
     kernels.LAUNCHES_BY_MODE["exp_pow", "-", "powf"] += 1
     return out
@@ -188,6 +282,17 @@ def pow_table(device) -> torch.Tensor:
     _exp.check(lib, err, "exp_pow_table")
     kernels.LAUNCHES_BY_MODE["exp_pow_table", "-", "powf"] += 1
     return out
+
+
+def empty(device) -> None:
+    """Launch a kernel that does nothing on `device`'s current stream:
+    the launch floor the single read is held against."""
+    device = torch.device(device)
+    lib = _exp.load_exp_library()
+    with torch.cuda.device(device):
+        err = lib.exp_empty(torch.cuda.current_stream(device).cuda_stream)
+    _exp.check(lib, err, "exp_empty")
+    kernels.LAUNCHES_BY_MODE["exp_empty", "-", "floor"] += 1
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -224,11 +329,16 @@ def measure(device: torch.device, reps: int = 20) -> list[dict]:
     for name, fn in runs.items():
         fn()
         times[name] = _exp.median_ms(fn, reps, flush) if timed else "not measured"
+    # The constant placement's fill alone and the launch floor, timed only.
+    for name, fn in (("fill", lambda: fill_constant(table)), ("empty", lambda: empty(device))):
+        times[name] = _exp.median_ms(fn, reps, flush) if timed else "not measured"
     lines.append({
         "elements": grid.numel(),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "lut_ms": {p: times[p] for p in working},
         "pow_ms": times["pow"],
+        "fill_ms": times["fill"],
+        "empty_ms": times["empty"],
     })
     return lines
 

@@ -51,11 +51,21 @@ modes above; `--fast` adds `fast`):
   sums may flip near-ties between two kernels, so its lines give
   `flips_vs_first` and `flips_are_near_ties` against the first checkout
   instead of `same_outputs`.
-- `gather`: B10's single read at `[128, 128]` (`tools/exp_gather.py`,
-  each table placement) against `torch.take`, in turns (shared,
-  constant, global, take, then the reverse), 50 launches each a turn,
-  each launch after the L2 flush and timed alone: mean, median, standard
-  deviation, least and most. It times this checkout's library once.
+- `gather`: B10 (`tools/exp_gather.py`), each checkout through its own
+  tool module and its own `tools/csrc/` library, as `mxu`: the single
+  read at `[128, 128]` by each table placement against `torch.take` and
+  an empty kernel (the launch floor, this checkout's library), 50
+  launches each a pass; the sums of 8 reads by each placement, the pow
+  sum and a copy of the same bytes (`Tensor.copy_`, what the card's
+  memory allows) over the 4K grid, 20 launches each a pass; two passes
+  (the garbage collector off), the forms in one order and then the
+  other, each launch after the L2 flush and a ~0.5 ms spin of the card
+  (the host's time to enqueue it) and timed alone: mean, median,
+  standard deviation, least and most.
+  Where the checkout's tool has `fill_constant`, the constant
+  placement's fill alone the same way; and the device operations one
+  constant-placement call runs with its table resident
+  (`_exp.device_ops`: one kernel, or a copy and a kernel).
 
 A last line, `{"same_outputs": {mode: bool}}`, says for each mode whether
 every checkout's output equals the first one's bit for bit.
@@ -63,6 +73,7 @@ every checkout's output equals the first one's bit for bit.
 
 import argparse
 import ctypes
+import gc
 import hashlib
 import importlib.util
 import json
@@ -250,40 +261,66 @@ def add_mxu(add, dev) -> dict:
     return data
 
 
-def time_gather(dev, flush, card) -> dict:
-    """B10's single read per table placement against `torch.take`, in
-    turns, 50 launches each a turn, each timed alone after the flush."""
+def time_gather(eg, floor_lib, dev, flush) -> tuple[dict, dict]:
+    """B10 through one checkout's tool module `eg` (over its own library):
+    `({"gather_ms": ..., "lut_ms": ..., ...}, {mode: output})`. Each form
+    runs once for its output, then in two passes (one order, then the
+    other), each launch timed alone after the flush."""
     import torch
 
-    from kmeans_tpu_torch.tools import exp_gather as eg
+    from chip_smoke import GATHER_HEADROOM_CYCLES
+    from kmeans_tpu_torch.tools import _exp
 
     table = eg.gamma_table(dev)
     idx = torch.from_numpy(eg.gather_indices()).to(dev)
     idx_long = idx.long()  # torch.take indexes by int64
-    forms = {p: (lambda p=p: eg.gather(table, idx, p)) for p in eg.PLACEMENTS}
-    forms["take"] = lambda: torch.take(table, idx_long)
-    order = list(forms)
-    times = {name: [] for name in order}
-    for name in order:
-        forms[name]()
-    for turn in (order, order[::-1]):
-        for name in turn:
+    grid = torch.from_numpy(eg.grid_indices(np.random.default_rng(3))).to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    groups = {"gather_ms": {p: (lambda p=p: eg.gather(table, idx, p)) for p in eg.PLACEMENTS},
+              "lut_ms": {p: (lambda p=p: eg.lut_sum(table, grid, p)) for p in eg.PLACEMENTS}}
+    groups["gather_ms"]["take"] = lambda: torch.take(table, idx_long)
+    groups["gather_ms"]["empty"] = lambda: _exp.check(floor_lib, floor_lib.exp_empty(stream),
+                                                      "exp_empty")
+    groups["lut_ms"]["pow"] = lambda: eg.pow_sum(grid)
+    # The sums' bytes moved by a plain copy: what the card's memory allows.
+    copied = torch.empty(grid.shape, dtype=torch.float32, device=dev)
+    groups["lut_ms"]["copy"] = lambda: copied.copy_(grid.view(torch.float32))
+    if hasattr(eg, "fill_constant"):
+        groups["fill_ms"] = {"constant": lambda: eg.fill_constant(table)}
+    reps = {"gather_ms": 50, "lut_ms": 20, "fill_ms": 50}
+    forms = [(g, name, fn) for g, fns in groups.items() for name, fn in fns.items()]
+    outputs = {}
+    for g, name, fn in forms:
+        got = fn()
+        if g != "fill_ms" and name not in ("empty", "copy"):
+            outputs[f"{g[:-3]}_{name}"] = got
+        fn()  # with the first output held, this one leaves a block in the allocator's cache
+    torch.cuda.synchronize()
+    ops = _exp.device_ops(groups["gather_ms"]["constant"])
+    times = {(g, name): [] for g, name, _ in forms}
+    gc.disable()  # a collection inside a timed span would be timed with it
+    for turn in (forms, forms[::-1]):
+        for g, name, fn in turn:
             pairs = []
-            for _ in range(50):
+            for _ in range(reps[g]):
                 flush.zero_()
+                torch.cuda._sleep(GATHER_HEADROOM_CYCLES)  # the host's time to enqueue fn
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                forms[name]()
+                fn()
                 end.record()
                 pairs.append((start, end))
             torch.cuda.synchronize()
-            times[name] += [s.elapsed_time(e) for s, e in pairs]
-    return {"gather_single_read_ms": {
-        "card": card, "launches": {name: len(t) for name, t in times.items()},
-        **{name: {"mean": statistics.fmean(t), "median": statistics.median(t),
-                  "stdev": statistics.stdev(t), "min": min(t), "max": max(t)}
-           for name, t in times.items()}}}
+            times[g, name] += [s.elapsed_time(e) for s, e in pairs]
+    gc.enable()
+    line = {g: {} for g in groups}
+    for (g, name), t in times.items():
+        line[g][name] = {"mean": statistics.fmean(t), "median": statistics.median(t),
+                         "stdev": statistics.stdev(t), "min": min(t), "max": max(t),
+                         "launches": len(t)}
+    line["constant_gather_device_ops"] = ops
+    return line, outputs
 
 
 def main() -> int:
@@ -316,19 +353,26 @@ def main() -> int:
         pkg = root / "kmeans_tpu_torch"
         return _build.build(pkg / "tools" / "csrc", f"kernel_times_exp_{tag}", pkg / "csrc")
 
+    exp_groups = groups & {"mxu", "gather"}
     with ThreadPoolExecutor(4) as pool:
-        paths = dict(zip(trees, pool.map(build, trees)))
-        exp_paths = dict(zip(trees, pool.map(build_exp, trees))) if "mxu" in groups else {}
-    # Each checkout's own experiment tool module, over its own library.
+        # `gather` alone needs no main library.
+        paths = (dict(zip(trees, pool.map(build, trees)))
+                 if groups - {"gather"} else {})
+        exp_paths = dict(zip(trees, pool.map(build_exp, trees))) if exp_groups else {}
+        floor_path = pool.submit(_exp.build_exp_library) if "gather" in groups else None
+    # Each checkout's own experiment tool modules, over its own library,
+    # declared by its own `_exp`.
     exp_tools = {}
     for i, (root, path) in enumerate(exp_paths.items()):
         lib = ctypes.CDLL(str(path))
-        _exp._declare(lib)
-        spec = importlib.util.spec_from_file_location(
-            f"kernel_times_exp_mxu_{i}", root / "kmeans_tpu_torch" / "tools" / "exp_mxu.py")
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        exp_tools[root] = (lib, module)
+        tools = root / "kmeans_tpu_torch" / "tools"
+        _load(f"kernel_times_exp_{i}", tools / "_exp.py")._declare(lib)
+        exp_tools[root] = (lib, {g: _load(f"kernel_times_exp_{g}_{i}", tools / f"exp_{g}.py")
+                                 for g in exp_groups})
+    floor_lib = None
+    if floor_path is not None:
+        floor_lib = ctypes.CDLL(str(floor_path.result()))
+        _exp._declare(floor_lib)
     declared = _Declared()
     _build._declare_main(declared)
     libs = {}
@@ -349,10 +393,11 @@ def main() -> int:
         colors = torch.from_numpy(rng.integers(0, 256, (k, 3), dtype=np.uint8)).to(dev)
         return srgb8_to_lab(colors).contiguous()
 
-    rgb = rgb_image(2160, 3840)
-    hd = rgb_image(1080, 1920)
-    frames = torch.stack([rgb_image(1080, 1920) for _ in range(16)])
-    planes, n_valid = kernels.pack_lab_planes(srgb8_to_lab(rgb.reshape(-1, 3)))
+    if groups & {"main", "fast"}:
+        rgb = rgb_image(2160, 3840)
+        hd = rgb_image(1080, 1920)
+        frames = torch.stack([rgb_image(1080, 1920) for _ in range(16)])
+        planes, n_valid = kernels.pack_lab_planes(srgb8_to_lab(rgb.reshape(-1, 3)))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
     # (mode, call, launches timed, kind): every palette drawn once, before
@@ -400,13 +445,19 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     digests, first_out, flips = {}, {}, {}
+
+    def digest(mode, got):
+        digests.setdefault(mode, set()).add(hashlib.sha256(
+            got.reshape(-1).contiguous().view(torch.uint8).cpu().numpy()).hexdigest())
+
     for root in roots:
-        _build._libs[_build.MAIN_NAME] = libs[root]
+        if root in libs:
+            _build._libs[_build.MAIN_NAME] = libs[root]
         if root in exp_tools:
             _build._libs[_exp.EXP_NAME] = exp_tools[root][0]
         out = {"checkout": str(root), "card": card}
         for mode, fn, reps, kind in calls:
-            call = fn if kind == "main" else (lambda fn=fn: fn(exp_tools[root][1]))
+            call = fn if kind == "main" else (lambda fn=fn: fn(exp_tools[root][1]["mxu"]))
             got = call()
             torch.cuda.synchronize()
             if kind == "near_ties":
@@ -417,24 +468,33 @@ def main() -> int:
                     flips.setdefault(mode, []).append(exp_mxu.near_ties(
                         img, cents, got, first_out[mode], tf32=True))
             else:
-                digest = hashlib.sha256(
-                    got.reshape(-1).contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
-                digests.setdefault(mode, set()).add(digest)
+                digest(mode, got)
             out[f"{mode}_ms"] = ms(call, reps)
+        if "gather" in groups:
+            line, outputs = time_gather(exp_tools[root][1]["gather"], floor_lib, dev, flush)
+            out.update(line)
+            for mode, got in outputs.items():
+                digest(mode, got)
         print(json.dumps(out), flush=True)
         if walks:
             print(json.dumps({"threshold_floor_ms": threshold_floor(out, updates)}), flush=True)
-    del _build._libs[_build.MAIN_NAME]
+    _build._libs.pop(_build.MAIN_NAME, None)
     _build._libs.pop(_exp.EXP_NAME, None)
     if flips:
         print(json.dumps({"flips_vs_first": {m: [f for f, _ in v] for m, v in flips.items()},
                           "flips_are_near_ties": {m: all(n for _, n in v)
                                                   for m, v in flips.items()}}), flush=True)
-    if "gather" in groups:
-        print(json.dumps(time_gather(dev, flush, card)), flush=True)
     print(json.dumps({"same_outputs": {mode: len(d) == 1 for mode, d in digests.items()}}),
           flush=True)
     return 0
+
+
+def _load(name: str, path: Path):
+    """The module of the file `path`, under `name`."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def threshold_floor(times: dict, updates: dict) -> dict:

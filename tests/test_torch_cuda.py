@@ -718,6 +718,59 @@ def test_exp_gather_kernels_match_twins(cuda, placement):
     assert int(ulps.max()) <= 8
 
 
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_constant_placement_follows_the_table(cuda):
+    """Two tables in turn, then an in-place write: each call of the constant
+    placement returns the current table's bits, and fills only when the
+    table changed."""
+    from kmeans_tpu_torch.tools import exp_gather
+
+    fills = ("exp_lut_fill", "constant", "copy")
+    idx = torch.from_numpy(exp_gather.gather_indices()).to(cuda)
+    grid = torch.from_numpy(exp_gather.grid_indices(np.random.default_rng(6), 64)).to(cuda)
+    first = exp_gather.gamma_table(cuda)
+    other = torch.from_numpy(np.random.default_rng(8).random(256, dtype=np.float32)).to(cuda)
+    for table, want_fills in ((first, 1), (other, 1), (first, 1)):
+        before = kernels.LAUNCHES_BY_MODE[fills]
+        for _ in range(2):
+            assert _same_bits(exp_gather.gather(table, idx, "constant"),
+                              exp_gather.gather_reference(table, idx))
+            assert _same_bits(exp_gather.lut_sum(table, grid, "constant"),
+                              exp_gather.lut_sum_reference(table, grid))
+        assert kernels.LAUNCHES_BY_MODE[fills] - before == want_fills
+    for write in (lambda t: t.mul_(0.5), lambda t: t[100:].copy_(other[:156])):
+        write(first)
+        before = kernels.LAUNCHES_BY_MODE[fills]
+        assert _same_bits(exp_gather.lut_sum(first, grid, "constant"),
+                          exp_gather.lut_sum_reference(first, grid))
+        assert _same_bits(exp_gather.gather(first, idx, "constant"),
+                          exp_gather.gather_reference(first, idx))
+        assert kernels.LAUNCHES_BY_MODE[fills] - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "constant", "global"])
+@pytest.mark.parametrize("n,offset", [(1, 0), (100, 0), (1001, 0), (4099, 1),
+                                      (64_896 * 128, 0)])
+def test_lut_kernels_at_any_length(cuda, placement, n, offset):
+    """n = 1, below one block, not a multiple of 256 (nor of 4), indices off
+    a 16-byte boundary (the one-element loop), and the 4K grid."""
+    from kmeans_tpu_torch.tools import exp_gather
+
+    rng = np.random.default_rng(n)
+    store = torch.from_numpy(rng.integers(-300, 300, n + offset).astype(np.int32)).to(cuda)
+    idx = store[offset:]
+    table = exp_gather.gamma_table(cuda)
+    assert _same_bits(exp_gather.lut_sum(table, idx, placement),
+                      exp_gather.lut_sum_reference(table, idx))
+    assert _same_bits(exp_gather.gather(table, idx, placement),
+                      exp_gather.gather_reference(table, idx))
+
+
 ADVERSARIAL = ["random", "duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_active"]
 
 

@@ -5,11 +5,16 @@ The reference defines its kernels inside `main()` (`try_form:48`,
 with `jax.numpy` on the CPU from the same formulas and hold the port's
 twins to them: the gather and the lut sum bit for bit, the pow sum within
 8 ulps (torch's and XLA-CPU's `pow` differ by an ulp on a few inputs),
-with the flips counted. The kernels themselves run only on a card:
+with the flips counted. Then, without the reference, what the kernels'
+wrapper decides on the host: when the constant placement is filled, and
+the staged layout the sums of 8 read (its reads give the table's bits for
+every entry and lane). The kernels themselves run only on a card:
 `tests/test_torch_cuda.py`.
 """
 
 import json
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +24,8 @@ import torch
 from kmeans_tpu_torch.tools import exp_gather
 
 REPEAT = 8
+_CU = (Path(__file__).resolve().parents[1] / "kmeans_tpu_torch" / "tools" / "csrc"
+       / "exp_gather.cu").read_text()
 
 
 def _ref_table():
@@ -110,3 +117,113 @@ def test_tool_on_cpu(capsys):
     assert lines[3] == {"working_forms": list(exp_gather.PLACEMENTS)}
     assert lines[-1]["elements"] == exp_gather.GRID_ROWS * 128
     assert lines[-1]["pow_ms"] == "not measured"
+    assert lines[-1]["fill_ms"] == lines[-1]["empty_ms"] == "not measured"
+
+
+def test_staged_layout_matches_the_kernel_constants():
+    assert re.search(r"constexpr int kRepeat = (\d+);", _CU).group(1) == str(REPEAT)
+    assert re.search(r"constexpr int kSpan = 256 \+ kRepeat - 1;", _CU)
+    assert exp_gather.STAGED_SPAN == 256 + REPEAT - 1 == 263
+    assert int(re.search(r"constexpr int kLutCopies = (\d+);", _CU).group(1)) == \
+        exp_gather.LUT_COPIES
+    # The staged table is static shared memory (at most 48 KB a block), and
+    # 6 such blocks of 256 threads fit an SM's 228 KB with 1 KB reserved each.
+    staged = exp_gather.STAGED_SPAN * exp_gather.LUT_COPIES * 4
+    assert staged <= 48 * 1024
+    per_sm = int(re.search(r"constexpr int kSmemPerSM = (\d+);", _CU).group(1))
+    reserved = int(re.search(r"constexpr int kSmemReserved = (\d+);", _CU).group(1))
+    assert (per_sm, reserved) == (228 * 1024, 1024)
+    assert min(8, per_sm // (staged + reserved)) == 6
+
+
+def test_staged_reads_return_the_table_bits_for_every_entry_and_lane():
+    table = exp_gather.gamma_table("cpu")
+    words = exp_gather.staged_table(table)
+    assert words.shape == (exp_gather.STAGED_SPAN * 32,)
+    entry, j, lane = torch.meshgrid(torch.arange(256), torch.arange(REPEAT), torch.arange(32),
+                                    indexing="ij")
+    word = exp_gather.staged_word(entry, j, lane)
+    assert int(word.max()) < words.numel()
+    np.testing.assert_array_equal(words[word].numpy().view(np.uint32),
+                                  table[(entry + j) & 255].numpy().view(np.uint32))
+    # Every lane owns a bank: a warp's 32 reads are one pass, whatever the indices.
+    assert torch.equal(word % 32, lane)
+
+
+def test_staged_sum_equals_the_twin_bits():
+    idx = torch.from_numpy(_grid(64, 7))
+    # Indices past 255 and negative ones read `idx & 255`, as the kernel does.
+    idx[0, :4] = torch.tensor([255, 256, -1, 2**31 - 1], dtype=torch.int32)
+    lanes = torch.arange(idx.numel()).reshape(idx.shape) % 32
+    table = exp_gather.gamma_table("cpu")
+    got = exp_gather.lut_sum_staged(table, idx, lanes)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  exp_gather.lut_sum_reference(table, idx).numpy().view(np.uint32))
+
+
+def _same(t):
+    return t
+
+
+def _write(t):
+    t.mul_(1.0)
+    return t
+
+
+def _write_view(t):
+    t[:8].zero_()
+    return t
+
+
+def _read(t):
+    float(t.sum())
+    return t
+
+
+# (what happens to the table between two calls, what the second call
+# passes, whether the second call must fill)
+FILL_CASES = {
+    "same tensor": (_same, 7, 1, False),
+    "a read": (_read, 7, 1, False),
+    "another stream": (_same, 8, 1, True),
+    "another library": (_same, 7, 2, True),
+    "another tensor, same bits": (torch.Tensor.clone, 7, 1, True),
+    "an in-place write": (_write, 7, 1, True),
+    "an in-place write through a view": (_write_view, 7, 1, True),
+}
+
+
+@pytest.mark.parametrize("case", list(FILL_CASES))
+def test_constant_fill_follows_the_table(case):
+    change, stream, lib, fills = FILL_CASES[case]
+    table = exp_gather.gamma_table("cpu")
+    resident = exp_gather.constant_key(table, 7, 1)
+    assert exp_gather.needs_fill(None, resident)
+    after = exp_gather.constant_key(change(table), stream, lib)
+    assert exp_gather.needs_fill(resident, after) is fills
+
+
+def test_constant_fill_without_a_version_counter_fills_every_call():
+    with torch.inference_mode():
+        frozen = exp_gather.gamma_table("cpu")
+    assert exp_gather.constant_key(frozen, 7, 1) is None
+    assert exp_gather.needs_fill(None, None)
+
+
+def test_fill_refuses_a_table_off_the_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        exp_gather.fill_constant(exp_gather.gamma_table("cpu"))
+    with pytest.raises(ValueError, match="256"):
+        exp_gather.fill_constant(torch.zeros(128))
+
+
+def test_chip_smoke_reads_the_sums_by_the_sources_constants():
+    """`chip_smoke.py` divides the staged sums' element loop by the
+    elements a thread takes an iteration (`kLutVec`) to count their table
+    reads, and names the staged layout's copies (`kLutCopies`)."""
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    for name, const in (("LUT_VEC", "kLutVec"), ("LUT_COPIES", "kLutCopies")):
+        want = re.search(rf"constexpr int {const} = (\d+);", _CU).group(1)
+        assert re.search(rf"\n{name} = (\d+)\n", smoke).group(1) == want
+    assert int(re.search(r"constexpr int kLutVec = (\d+);", _CU).group(1)) % 4 == 0
+    assert '"LDS*{8 * LUT_VEC}"' in smoke.replace("f\"LDS", "\"LDS")

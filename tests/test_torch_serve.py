@@ -15,6 +15,7 @@ bytes.
 
 import http.client
 import json
+import signal
 import threading
 import time
 
@@ -259,6 +260,12 @@ def test_main_flags_parsing(monkeypatch):
         return DummyServer()
 
     monkeypatch.setattr(serve_mod, "create_server", fake_create)
+    # main() installs a process-wide SIGTERM handler that calls the
+    # server's shutdown(): record the install instead, so that the handler
+    # of this process stays the one it had before.
+    before = signal.getsignal(signal.SIGTERM)
+    installed = []
+    monkeypatch.setattr(signal, "signal", lambda signum, handler: installed.append(signum))
     rc = serve_mod.main([
         "--port", "0", "--fast", "--delta-e", "2000",
         "--restarts", "2", "--train-size", "128",
@@ -276,6 +283,8 @@ def test_main_flags_parsing(monkeypatch):
     assert serve_mod.main(["--port", "0", "--pipeline"], device="cpu") == 0
     p = captured["proc"]
     assert p.pipeline is True and p.bucketing is True and p.device.type == "cpu"
+    assert installed == [signal.SIGTERM, signal.SIGTERM]
+    assert signal.getsignal(signal.SIGTERM) is before
 
 
 def test_dimension_bomb_request_is_400(server):
