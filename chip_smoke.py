@@ -100,7 +100,9 @@ then:
    `argmin(feats @ G)` with TF32 off and on) and `exp_gather_vs_plain`
    (`kmeans_tpu_torch.tools.exp_gather`: each table placement returns the
    table's bits, the lut sums equal their twin, the pow sums their twin's
-   bits or counted ulps, times beside `torch.take`);
+   bits or counted ulps, the pow kernel's own curve and each of its
+   divides on all 256 inputs against `powf` and the true divides, times
+   beside `torch.take`);
    Then the bucketing slice (`ImageProcessor(device="cuda",
    bucketing=True)`): bucketed `find`, `find_batch` and `find_many` equal
    to unbucketed `find` at 3840x2160, 1920x1080, 1080x1350 and 37x53 with
@@ -1668,6 +1670,9 @@ VPU_RAGGED = ((61, 97), (1, 2053), (7, 3))
 # takes an iteration.
 LUT_COPIES = 32
 LUT_VEC = 4
+# The pow sum's elements a thread an iteration (`kPowVec` in
+# tools/csrc/exp_gather.cu).
+POW_VEC = 4
 # B10's kernels and their library calls are timed with the card spinning
 # ~0.5 ms after each flush, while the host enqueues the wrapper's launch.
 GATHER_HEADROOM_CYCLES = 1_000_000
@@ -2064,12 +2069,16 @@ def exp_gather_vs_plain(device, card) -> dict:
     """B10 through its entry point, the tool
     `kmeans_tpu_torch.tools.exp_gather`: its evaluation pass (each table
     placement once for the gather and once for the sum of 8 reads, the pow
-    sum once, the constant placement filled once) with the counts set to 0
-    just before it; every placement must return the table's bits; the lut
-    sums against their twin (equal bits), the pow sum against its twin
-    (bits, or ulps counted), `powf`'s table against numpy's; the constant
-    placement across table changes (`constant_follows_table`) and the
-    device operations of one call with its table resident (one kernel);
+    sum and the curve probe once, the constant placement filled once) with
+    the counts set to 0 just before it; every placement must return the
+    table's bits; the lut sums against their twin (equal bits), the pow sum
+    against its twin (bits, or ulps counted: at most 8), `powf`'s table
+    against numpy's; the curve probe (`pow_curve_probe`): the kernel's own
+    curve on all 256 inputs against `powf`'s term (at most 8 ulps) and
+    each of its divides against the true divide on every input it takes
+    (equal bits); the constant placement across table changes
+    (`constant_follows_table`) and the device operations of one call with
+    its table resident (one kernel);
     the kernels' and twins' times beside `torch.take` for the gather, the
     fill alone and an empty kernel (the launch floor); then the tool's own
     timing lines."""
@@ -2085,10 +2094,13 @@ def exp_gather_vs_plain(device, card) -> dict:
     want = {f"exp_gather {p} table": 1 for p in eg.PLACEMENTS}
     want.update({f"exp_lut {p} table": 1 for p in eg.PLACEMENTS})
     # The constant placement's one fill serves its gather and its sum.
-    want.update({"exp_pow - powf": 1, "exp_pow_table - powf": 1,
+    want.update({"exp_pow - curve": 1, "exp_pow_probe - curve": 1, "exp_pow_table - powf": 1,
                  "exp_lut_fill constant copy": 1})
     correct = {line["form"]: line["correct"] for line in tool_lines if "form" in line}
     pow_table = next(line for line in tool_lines if "pow_table_vs_numpy" in line)
+    probe = next(line for line in tool_lines if "pow_curve_probe" in line)["pow_curve_probe"]
+    divides_exact = all(probe[d]["entries_differing"] == 0
+                        for d in ("divide_255", "divide_1055", "divide_1292"))
     table = eg.gamma_table(device)
     idx = torch.from_numpy(eg.gather_indices()).to(device)
     grid = torch.from_numpy(eg.grid_indices(np.random.default_rng(3))).to(device)
@@ -2102,10 +2114,12 @@ def exp_gather_vs_plain(device, card) -> dict:
             "lut_equal_bits": lut_equal, "pow_sums_differing": int((ulps > 0).sum()),
             "pow_max_ulps": int(ulps.max()),
             "pow_max_abs_err": float((pow_k - pow_plain).abs().max()),
-            "pow_table_vs_twin_max_ulps": int(table_ulps.max()), **pow_table}
+            "pow_table_vs_twin_max_ulps": int(table_ulps.max()), **pow_table,
+            "pow_curve_probe": probe}
     emit(line)
     if counts != want or not all(correct.values()) or not all(lut_equal.values()) \
-            or int(ulps.max()) > 8 or int(table_ulps.max()) > 8:
+            or int(ulps.max()) > 8 or int(table_ulps.max()) > 8 or not divides_exact \
+            or probe["curve_vs_powf"]["max_ulps"] > 8:
         raise AssertionError(f"exp_gather: {line} (launches wanted {want})")
     follows = constant_follows_table(table, idx, grid)
     # One resident call's device operations: one kernel, no copy.
@@ -2127,6 +2141,11 @@ def exp_gather_vs_plain(device, card) -> dict:
     timing["pow"] = (cuda_ms(lambda: eg.pow_sum(grid), 20, flush, spin),
                      cuda_ms(lambda: eg.pow_sum_reference(grid), 5, flush),
                      *_bound(8 * n_grid, 8 * 8 * n_grid))
+    # The probe: five rows of 256 written, the curve and the first form's
+    # term evaluated once an input (8 operations each, as the sums count).
+    timing["pow_probe"] = (cuda_ms(lambda: eg.pow_probe(device), 50, flush, spin),
+                           cuda_ms(lambda: eg.pow_probe_reference(device), 50, flush),
+                           *_bound(4 * 256 * len(eg.PROBE_ROWS), 2 * 8 * 256))
     timing["pow_table"] = (cuda_ms(lambda: eg.pow_table(device), 50, flush, spin),
                            cuda_ms(lambda: eg.pow_table_reference(device), 50, flush),
                            *_bound(4 * 256, 2 * 256))
@@ -2150,7 +2169,8 @@ def exp_gather_vs_plain(device, card) -> dict:
     return {"counts": counts, "timing": timing, "take_ms": take_ms, "fill_ms": fill_ms,
             "empty_ms": empty_ms, "copy_ms": copy_ms, "resident_ops": resident_ops,
             "follows": follows, "pow_err": line["pow_max_abs_err"],
-            "pow_table_ulps": line["pow_table_vs_twin_max_ulps"]}
+            "pow_table_ulps": line["pow_table_vs_twin_max_ulps"],
+            "probe_ulps": probe["curve_vs_powf"]["max_ulps"]}
 
 
 def constant_follows_table(table, idx, grid) -> dict:
@@ -2297,6 +2317,10 @@ def design_of(name: str) -> str:
     if name == "exp_gather[constant]":
         return ("experiment tool: filled only when the table changed, staged into shared "
                 "memory by one constant address a warp a read")
+    if name == "exp_pow":
+        return (f"experiment tool: the curve computed for its 256 inputs (two-float reciprocal "
+                f"divides, powf's path without its checks), {POW_VEC} elements a thread an "
+                "iteration")
     if name.startswith("exp_"):
         return "experiment tool"
     if name == "dither_threshold":
@@ -2338,7 +2362,41 @@ def compiler_report(lib_path, ptxas) -> None:
 LOOP_OPCODES = {"dither_threshold_kernel": "VOTE+MUFU.RSQ*5", "factor_mxu_kernel": "HGMMA",
                 "factor_vpu_kernel": f"LDS.128+FMUL*{6 * VPU_TILE_PIXELS}",
                 f"lut_kernel<0,8,{LUT_VEC}>": f"LDS*{8 * LUT_VEC}",
-                f"lut_kernel<1,8,{LUT_VEC}>": f"LDS*{8 * LUT_VEC}"}
+                f"lut_kernel<1,8,{LUT_VEC}>": f"LDS*{8 * LUT_VEC}",
+                f"pow_kernel<{POW_VEC}>": f"MUFU.RCP*{8 * POW_VEC}"}
+# What no instance of the pow sum may hold: a shared-memory read (a table),
+# a divide's slow path (its check and the call), a conversion between int
+# and float (`I2F`, `I2FP`, `F2I`) or `FRND`.
+POW_FORBIDDEN = ("LDS", "FCHK", "CALL", "I2F", "F2I", "FRND")
+
+
+def pow_kernel_check(row) -> dict:
+    """The pow sum's instance `row` of `kernel_report`: the opcodes it must
+    not hold, no spill, and its element loop's global loads (the 16-byte
+    index load alone), reciprocals (one an evaluation: 8 an element) and
+    instructions an evaluation. Raises on a breach."""
+    found = sorted(op for op in row["kernel_opcodes"] if op.startswith(POW_FORBIDDEN))
+    out = {"forbidden_opcodes": list(found)}
+    if row.get("spill_store_bytes") or row.get("spill_load_bytes"):
+        found.append("spills")
+    loop = row["loop"]
+    if row["loop_opcode"]:
+        if loop is None:
+            raise AssertionError(f"{row['kernel']}: no element loop found")
+        evaluations = 8 * POW_VEC
+        ops = loop["opcodes"]
+        out.update({"evaluations_per_iteration": evaluations,
+                    "instructions_per_evaluation": loop["instructions"] / evaluations,
+                    "global_loads_per_iteration": {op: n for op, n in ops.items()
+                                                   if op.startswith("LDG")}})
+        if out["global_loads_per_iteration"] not in ({"LDG.E.128.CONSTANT": 1},
+                                                     {"LDG.E.128": 1}):
+            found.append(f"loop loads {out['global_loads_per_iteration']}")
+        if ops.get("MUFU.RCP") != evaluations:
+            found.append(f"{ops.get('MUFU.RCP')} MUFU.RCP a loop, not {evaluations}")
+    if found:
+        raise AssertionError(f"{row['kernel']}: {found}")
+    return out
 
 
 def scan_report(rows) -> None:
@@ -2346,7 +2404,8 @@ def scan_report(rows) -> None:
     alone): `ptxas` resources and warnings, every opcode's count, and the
     round loop; factor-vpu's centroid loop and its instructions a pair.
     Fails unless factor-mxu issues `HGMMA` (Hopper's `wgmma.mma_async`)
-    and the threshold's round loop votes, or if factor-vpu spills."""
+    and the threshold's round loop votes, or if factor-vpu spills, or if
+    the pow sum fails `pow_kernel_check`."""
     found = set()
     for row in rows:
         if row["kernel"].startswith("factor_vpu_kernel") and row["loop"]:
@@ -2358,6 +2417,8 @@ def scan_report(rows) -> None:
             row = {**row, "elements_per_iteration": LUT_VEC, "table_reads_per_element": reads}
             if reads != 8:
                 raise AssertionError(f"{row['kernel']}: {reads} table reads an element, not 8")
+        if row["kernel"].startswith("pow_kernel<"):
+            row = {**row, **pow_kernel_check(row)}
         emit({"phase": "sass", **row})
         if row["kernel"].startswith("factor_mxu_kernel") and any(
                 op.startswith("HGMMA") for op in row["kernel_opcodes"]):
@@ -5672,7 +5733,13 @@ def main() -> int:
            **({"fill_ms": gather["fill_ms"]} if p == "constant" else {})}
           for p in ("shared", "constant", "global")],
         exp_entry("exp_pow", "exp_gather.cu", "tools/exp_gather.py:160",
-                  gather["counts"]["exp_pow - powf"], gather["pow_err"], gather["timing"]["pow"],
+                  gather["counts"]["exp_pow - curve"], gather["pow_err"], gather["timing"]["pow"],
+                  "kmeans_tpu_torch.tools.exp_gather"),
+        # The tool's probe of the pow kernel's curve on its 256 inputs: no
+        # TPU kernel of its own; err in ulps against powf's term.
+        exp_entry("exp_pow_probe", "exp_gather.cu", "tools/exp_gather.py:160 (a probe of "
+                  "pow_kernel's curve, no kernel)", gather["counts"]["exp_pow_probe - curve"],
+                  gather["probe_ulps"], gather["timing"]["pow_probe"],
                   "kmeans_tpu_torch.tools.exp_gather"),
         # The tool's helper for powf's ulps against the table: no TPU kernel
         # (the reference makes the table with numpy); err in ulps.

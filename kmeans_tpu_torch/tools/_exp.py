@@ -39,6 +39,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.exp_empty.restype = i32
     lib.exp_pow_table.argtypes = [p, p]  # out, stream
     lib.exp_pow_table.restype = i32
+    lib.exp_pow_probe.argtypes = [p, p]  # out [5, 256], stream
+    lib.exp_pow_probe.restype = i32
     lib.exp_error_string.argtypes = [i32]
     lib.exp_error_string.restype = ctypes.c_char_p
 

@@ -31,19 +31,26 @@ Three uses, each with a plain twin:
   the same order).
 - `pow_sum` (`pow_kernel:160`): the same sum of the sRGB transfer,
   `c = ((idx + j) & 255) / 255`, then `((c + 0.055) / 1.055) ** 2.4` above
-  0.04045, else `c / 12.92`, with true divides and `powf`. As in the
-  reference, it computes another function than the table (the sRGB curve,
-  not a plain 2.4 power): only the two sums' times compare.
+  0.04045, else `c / 12.92`, rounded as true divides and `powf` round it.
+  The kernel computes the curve for its 256 possible inputs alone: divides
+  by constants as two-float reciprocal products and `powf`'s own path
+  without its checks (`tools/csrc/exp_gather.cu`). As in the reference, it
+  computes another function than the table (the sRGB curve, not a plain
+  2.4 power): only the two sums' times compare.
 
 `pow_table` gives `powf(i / 255, 2.4)` for i < 256, to count its ulps
-against the numpy table. On a CPU tensor each wrapper runs its twin; on a
-CUDA tensor it launches its kernel or raises.
+against the numpy table; `pow_probe` evaluates the kernel's own curve and
+each of its divides on all 256 inputs, beside the first form's term by
+`__fdiv_rn` and `powf`, and `probe_report` counts where they differ. On a
+CPU tensor each wrapper runs its twin; on a CUDA tensor it launches its
+kernel or raises.
 
     python -m kmeans_tpu_torch.tools.exp_gather [--cpu]
 
 prints one `{"form", "correct"}` line per placement, `{"working_forms"}`,
-the ulps of `powf` against the table, and `{"lut_ms": {placement: ms},
-"pow_ms": ms, "fill_ms": ms, "empty_ms": ms}`, each the median of
+the ulps of `powf` against the table, the curve probe's counts
+(`{"pow_curve_probe": probe_report(...)}`), and `{"lut_ms": {placement:
+ms}, "pow_ms": ms, "fill_ms": ms, "empty_ms": ms}`, each the median of
 CUDA-event timings (cold L2): the constant placement's fill alone and an
 empty kernel (the launch floor) beside the kernels. It needs
 a card; `--cpu` runs the twins, where no device time exists and the times
@@ -73,6 +80,12 @@ GRID_ROWS = 64_896
 # entries 0..262, entry i holding table[i & 255], in 32 interleaved copies.
 STAGED_SPAN = 256 + REPEAT - 1
 LUT_COPIES = 32
+# The rows of `pow_probe`, in the order `pow_probe_kernel` writes them.
+PROBE_ROWS = ("curve", "c", "linear", "base", "powf")
+# Where `probe_report` compares the curve's power in float64: at the
+# exponent and divisor as float32 values.
+POW_F32 = float(np.float32(2.4))
+LINEAR_F32 = float(np.float32(12.92))
 
 
 def gamma_table_np() -> np.ndarray:
@@ -156,6 +169,14 @@ def pow_sum_reference(idx: torch.Tensor) -> torch.Tensor:
     for j in range(REPEAT):
         acc = acc + srgb_transfer(div(((idx + j) & 255).to(torch.float32), 255.0))
     return acc
+
+
+def pow_probe_reference(device) -> dict[str, torch.Tensor]:
+    """`pow_probe`'s rows by true divides and torch's `pow`, for i < 256."""
+    c = div(torch.arange(256, dtype=torch.float32, device=device), 255.0)
+    curve = srgb_transfer(c)
+    return {"curve": curve, "c": c, "linear": div(c, 12.92), "base": div(c + 0.055, 1.055),
+            "powf": curve}
 
 
 def pow_table_reference(device) -> torch.Tensor:
@@ -252,7 +273,7 @@ def lut_sum(table: torch.Tensor, idx: torch.Tensor, placement: str = "shared") -
 
 
 def pow_sum(idx: torch.Tensor) -> torch.Tensor:
-    """The sum of 8 sRGB transfers by `powf` per element; see
+    """The sum of 8 evaluations of the sRGB curve per element; see
     `pow_sum_reference`. A CPU tensor runs the twin."""
     _check(idx)
     if idx.device.type == "cpu":
@@ -266,8 +287,51 @@ def pow_sum(idx: torch.Tensor) -> torch.Tensor:
         err = lib.exp_pow(idx_c.data_ptr(), out.data_ptr(), idx.numel(),
                           _exp.sm_count(idx.device.index), _exp.stream_of(out))
     _exp.check(lib, err, "exp_pow")
-    kernels.LAUNCHES_BY_MODE["exp_pow", "-", "powf"] += 1
+    kernels.LAUNCHES_BY_MODE["exp_pow", "-", "curve"] += 1
     return out
+
+
+def pow_probe(device) -> dict[str, torch.Tensor]:
+    """The kernel's own curve on all 256 inputs, as `PROBE_ROWS`: the curve
+    (what `pow_kernel` adds), its c = i / 255, its c / 12.92, its
+    (c + 0.055) / 1.055, and the first form's term by `__fdiv_rn` and
+    `powf`; `[256]` float32 each (the twin on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return pow_probe_reference(device)
+    lib = _exp.load_exp_library()
+    out = torch.empty((len(PROBE_ROWS), 256), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.exp_pow_probe(out.data_ptr(), _exp.stream_of(out))
+    _exp.check(lib, err, "exp_pow_probe")
+    kernels.LAUNCHES_BY_MODE["exp_pow_probe", "-", "curve"] += 1
+    return dict(zip(PROBE_ROWS, out))
+
+
+def _differing(a: torch.Tensor, b: torch.Tensor) -> dict:
+    u = ulps(a, b)
+    return {"inputs": u.numel(), "entries_differing": int((u > 0).sum()),
+            "max_ulps": int(u.max())}
+
+
+def probe_report(rows: dict[str, torch.Tensor]) -> dict:
+    """Where `pow_probe`'s rows differ, in entries and ulps: the curve
+    against the first form's term (`powf`) and against the curve taken in
+    float64 from the true float32 base (or c) and rounded once to float32;
+    each divide against the true divide on the same device over the inputs
+    the curve takes it on (i / 255 on 256, (c + 0.055) / 1.055 on the 245
+    above the threshold, c / 12.92 on the 11 below)."""
+    ref = pow_probe_reference(rows["c"].device)
+    above = ref["c"] > 0.04045
+    rounded = torch.where(above, ref["base"].double() ** POW_F32,
+                          ref["c"].double() / LINEAR_F32).float()
+    return {
+        "curve_vs_powf": _differing(rows["curve"], rows["powf"]),
+        "curve_vs_float64": _differing(rows["curve"], rounded),
+        "divide_255": _differing(rows["c"], ref["c"]),
+        "divide_1055": _differing(rows["base"][above], ref["base"][above]),
+        "divide_1292": _differing(rows["linear"][~above], ref["linear"][~above]),
+    }
 
 
 def pow_table(device) -> torch.Tensor:
@@ -321,6 +385,7 @@ def measure(device: torch.device, reps: int = 20) -> list[dict]:
     u = ulps(pow_table(device), table)
     lines.append({"pow_table_vs_numpy": {"entries_differing": int((u > 0).sum()),
                                          "max_ulps": int(u.max())}})
+    lines.append({"pow_curve_probe": probe_report(pow_probe(device))})
     grid = torch.from_numpy(grid_indices(np.random.default_rng(3))).to(device)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device) if timed else None
     runs = {p: (lambda p=p: lut_sum(table, grid, p)) for p in working}

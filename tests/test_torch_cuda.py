@@ -771,6 +771,35 @@ def test_lut_kernels_at_any_length(cuda, placement, n, offset):
                       exp_gather.gather_reference(table, idx))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1, 0), (100, 0), (1001, 0), (4099, 1),
+                                      (64_896 * 128, 0)])
+def test_pow_sum_at_any_length(cuda, n, offset):
+    """The pow sum's 4-element loop and its one-element tail (n = 1, 100,
+    1001), its one-element kernel (indices off a 16-byte boundary), and the
+    4K grid, against the twin: at most 8 ulps, the sums differing counted."""
+    from kmeans_tpu_torch.tools import exp_gather
+
+    rng = np.random.default_rng(n)
+    store = torch.from_numpy(rng.integers(-300, 300, n + offset).astype(np.int32)).to(cuda)
+    idx = store[offset:]
+    ulps = exp_gather.ulps(exp_gather.pow_sum(idx), exp_gather.pow_sum_reference(idx))
+    assert int(ulps.max()) <= 8, f"{int((ulps > 0).sum())} of {n} sums differ, max {int(ulps.max())}"
+
+
+@pytest.mark.cuda
+def test_pow_curve_probe_on_every_input(cuda):
+    """The pow kernel's own curve on all 256 inputs: each divide equals the
+    true divide on every input the curve takes it on, and the curve is
+    within 8 ulps of `powf`'s term (the aim: 0)."""
+    from kmeans_tpu_torch.tools import exp_gather
+
+    report = exp_gather.probe_report(exp_gather.pow_probe(cuda))
+    for divide in ("divide_255", "divide_1055", "divide_1292"):
+        assert report[divide]["entries_differing"] == 0, report
+    assert report["curve_vs_powf"]["max_ulps"] <= 8, report
+
+
 ADVERSARIAL = ["random", "duplicates", "grey", "pixel_is_centroid", "inf", "tiny", "k_active"]
 
 

@@ -8,12 +8,16 @@ twins to them: the gather and the lut sum bit for bit, the pow sum within
 with the flips counted. Then, without the reference, what the kernels'
 wrapper decides on the host: when the constant placement is filled, and
 the staged layout the sums of 8 read (its reads give the table's bits for
-every entry and lane). The kernels themselves run only on a card:
+every entry and lane), and the pow kernel's divides by constants, modelled
+in exact arithmetic with the source's constants on every input the curve
+gives them. The kernels themselves run only on a card:
 `tests/test_torch_cuda.py`.
 """
 
+import importlib.util
 import json
 import re
+from fractions import Fraction
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from kmeans_tpu_torch.tools import exp_gather
+from test_torch_divide import bits, fma, mul, rn32
 
 REPEAT = 8
 _CU = (Path(__file__).resolve().parents[1] / "kmeans_tpu_torch" / "tools" / "csrc"
@@ -95,6 +100,68 @@ def test_pow_table_twin_within_an_ulp_of_numpy():
     assert int(u.max()) <= 1
 
 
+def _const(name: str) -> np.float32:
+    """A float constant of exp_gather.cu, read from its hex literal."""
+    literal = re.search(rf"\b{name} = (-?0x[0-9a-f.]+p[-+]?\d+)f[;,]", _CU).group(1)
+    return np.float32(float.fromhex(literal))
+
+
+def _true_div(x, d) -> np.float32:
+    return rn32(Fraction(float(x)) / Fraction(float(d)))
+
+
+def _curve_inputs():
+    """For each i < 256, (i, float(i) from the bits of 2^23 + i, less 2^23,
+    as `srgb_c` forms it, and the twin's c = i / 255)."""
+    twin = exp_gather.pow_probe_reference("cpu")
+    for i in range(256):
+        fi = np.array([0x4B000000 | i], np.uint32).view(np.float32)[0] - np.float32(2.0**23)
+        yield i, fi, twin["c"][i].numpy()
+
+
+def _curve_pair_divide(x, name: str) -> np.float32:
+    """`div_by_pair(x, hi, rest)`: RN(x hi + RN(x rest))."""
+    return fma(x, _const(name), mul(x, _const(f"{name}Rest")))
+
+
+@pytest.mark.parametrize("d,hi", [(Fraction(255), "kInv255"), (Fraction(float(np.float32(1.055))),
+                                                                 "kInv1055")])
+def test_curve_reciprocals_are_two_floats_of_the_divisor(d, hi):
+    """hi = RN(1 / d) and rest = RN(1 / d - hi), d as the float32 the
+    reference divides by; and RN(1 / 12.92f) for the linear side."""
+    assert _const(hi) == rn32(1 / d)
+    assert _const(f"{hi}Rest") == rn32(1 / d - Fraction(float(_const(hi))))
+    assert _const("kInv1292") == rn32(1 / Fraction(float(np.float32(12.92))))
+
+
+@pytest.mark.parametrize("divide", ["i / 255", "(c + 0.055) / 1.055", "c / 12.92"])
+def test_curve_divides_equal_true_division_on_every_input(divide):
+    """Each divide of the pow kernel's curve, operation by operation in
+    exact arithmetic (each rounded to float32, ties to even), equals the
+    true divide and the twin's on every input the curve takes it on: i /
+    255 on all 256 (from the exact float(i)), (c + 0.055) / 1.055 on the
+    245 above the threshold, c / 12.92 (one product) on the 11 below."""
+    twin = exp_gather.pow_probe_reference("cpu")
+    taken = 0
+    for i, fi, c in _curve_inputs():
+        assert fi == i
+        above = c > np.float32(0.04045)
+        if divide == "i / 255":
+            got, want, twin_value = _curve_pair_divide(fi, "kInv255"), _true_div(fi, 255), c
+        elif divide == "(c + 0.055) / 1.055" and above:
+            t = rn32(Fraction(float(c)) + Fraction(float(np.float32(0.055))))
+            got, want = _curve_pair_divide(t, "kInv1055"), _true_div(t, np.float32(1.055))
+            twin_value = twin["base"][i].numpy()
+        elif divide == "c / 12.92" and not above:
+            got, want = mul(c, _const("kInv1292")), _true_div(c, np.float32(12.92))
+            twin_value = twin["linear"][i].numpy()
+        else:
+            continue
+        taken += 1
+        assert bits(got) == bits(want) == bits(twin_value), (divide, i, got, want)
+    assert taken == {"i / 255": 256, "(c + 0.055) / 1.055": 245, "c / 12.92": 11}[divide]
+
+
 def test_ulps_counts_units_in_the_last_place():
     a = torch.tensor([1.0, 2.0, 0.0])
     b = torch.nextafter(a, torch.full_like(a, 10.0))
@@ -118,6 +185,14 @@ def test_tool_on_cpu(capsys):
     assert lines[-1]["elements"] == exp_gather.GRID_ROWS * 128
     assert lines[-1]["pow_ms"] == "not measured"
     assert lines[-1]["fill_ms"] == lines[-1]["empty_ms"] == "not measured"
+    probe = next(line["pow_curve_probe"] for line in lines if "pow_curve_probe" in line)
+    assert {name: row["inputs"] for name, row in probe.items()} == {
+        "curve_vs_powf": 256, "curve_vs_float64": 256, "divide_255": 256, "divide_1055": 245,
+        "divide_1292": 11}
+    # On the CPU the probe's rows are the twin's: the same bits throughout.
+    for name in ("curve_vs_powf", "divide_255", "divide_1055", "divide_1292"):
+        assert probe[name]["entries_differing"] == probe[name]["max_ulps"] == 0
+    assert probe["curve_vs_float64"]["max_ulps"] <= 1
 
 
 def test_staged_layout_matches_the_kernel_constants():
@@ -222,8 +297,48 @@ def test_chip_smoke_reads_the_sums_by_the_sources_constants():
     elements a thread takes an iteration (`kLutVec`) to count their table
     reads, and names the staged layout's copies (`kLutCopies`)."""
     smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
-    for name, const in (("LUT_VEC", "kLutVec"), ("LUT_COPIES", "kLutCopies")):
+    for name, const in (("LUT_VEC", "kLutVec"), ("LUT_COPIES", "kLutCopies"),
+                        ("POW_VEC", "kPowVec")):
         want = re.search(rf"constexpr int {const} = (\d+);", _CU).group(1)
         assert re.search(rf"\n{name} = (\d+)\n", smoke).group(1) == want
     assert int(re.search(r"constexpr int kLutVec = (\d+);", _CU).group(1)) % 4 == 0
     assert '"LDS*{8 * LUT_VEC}"' in smoke.replace("f\"LDS", "\"LDS")
+    # The pow sum's element loop is found by its reciprocals, one an evaluation.
+    assert 'f"pow_kernel<{POW_VEC}>": f"MUFU.RCP*{8 * POW_VEC}"' in smoke
+
+
+# The pow sum's 4-element loop as `tools/sass.py::kernel_report` gives it,
+# its opcodes as the card's compiler made them (32 evaluations a loop).
+_POW_LOOP = {"FFMA": 672, "FADD": 476, "FMUL": 288, "IADD3": 94, "PRMT": 32, "MUFU.RCP": 32,
+             "LDG.E.128.CONSTANT": 1, "STG.E.128": 1, "BRA": 1}
+_POW_CASES = {
+    "the kept loop": ({}, {}, None),
+    "a table read": ({"LDS": 32}, {}, "LDS"),
+    "a divide's slow path": ({"FCHK": 3, "CALL.REL.NOINC": 3}, {}, "FCHK"),
+    "a conversion": ({"I2FP.F32.S32": 8}, {}, "I2F"),
+    "a second global load": ({}, {"LDG.E.CONSTANT": 1}, "loop loads"),
+    "a reciprocal short": ({}, {"MUFU.RCP": 31}, "31 MUFU.RCP"),
+}
+
+
+@pytest.mark.parametrize("case", list(_POW_CASES))
+def test_chip_smoke_pow_kernel_check(case):
+    """`chip_smoke.pow_kernel_check` passes the kept loop and names each
+    breach: a shared read, a divide's slow path, a conversion, a global
+    load besides the indices, fewer reciprocals than evaluations."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_pow", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    kernel_extra, loop_extra, breach = _POW_CASES[case]
+    loop = {**_POW_LOOP, **loop_extra}
+    row = {"kernel": "pow_kernel<4>", "kernel_opcodes": {**loop, **kernel_extra},
+           "spill_store_bytes": 0, "spill_load_bytes": 0, "loop_opcode": "MUFU.RCP*32",
+           "loop": {"instructions": sum(loop.values()), "opcodes": loop}}
+    if breach is None:
+        got = smoke.pow_kernel_check(row)
+        assert got["instructions_per_evaluation"] == sum(loop.values()) / 32
+        assert got["global_loads_per_iteration"] == {"LDG.E.128.CONSTANT": 1}
+    else:
+        with pytest.raises(AssertionError, match=breach):
+            smoke.pow_kernel_check(row)
